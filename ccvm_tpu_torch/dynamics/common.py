@@ -1,0 +1,83 @@
+"""Shared machinery for the CCVM SDE dynamics (PyTorch).
+
+Each dynamics family is a step function ``step(state, i, w_c, w_s)`` over
+float32 tensors, closed over problem data and parameters.  The Wiener draws
+are arguments, so a test can feed the JAX package's step functions and these
+the same noise.  The plain solve loops over steps in Python
+(:func:`ccvm_tpu_torch.ops.dl_kernels.dl_solve_reference`); the hot path is
+the whole-solve CUDA kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class AdamHyperparameters(NamedTuple):
+    """Static Adam hyperparameters (mirrors ``solvers/algorithms.py:1-46``).
+
+    ``beta2 == 1.0`` and ``add_assign`` select different update formulas in
+    the reference (``dl_solver.py:644-686``); the CUDA kernel compiles each
+    choice as its own specialisation.
+    """
+
+    alpha: float
+    beta1: float
+    beta2: float
+    add_assign: bool
+
+
+def adam_moment_update(grads, m, v, i, hp: AdamHyperparameters):
+    """One step of the reference's in-loop Adam filtering.
+
+    Returns the effective (bias-corrected, optionally add-assigned) gradients
+    plus updated moments (``langevin_solver.py:513-540``,
+    ``dl_solver.py:689-727``): first moment always; second moment only when
+    ``beta2 != 1.0``; ``add_assign`` adds the raw gradient back.  ``i`` is the
+    step index; the bias correction is ``beta ** (i + 1)`` in float32.
+    """
+    epsilon = 1e-8
+    fi1 = torch.full((), float(i) + 1.0, dtype=torch.float32, device=grads.device)
+    m = hp.beta1 * m + (1.0 - hp.beta1) * grads
+    beta1i = 1.0 - torch.pow(hp.beta1, fi1)
+    mhat = m / beta1i
+    if hp.beta2 != 1.0:
+        v = hp.beta2 * v + (1.0 - hp.beta2) * torch.square(grads)
+        beta2i = 1.0 - torch.pow(hp.beta2, fi1)
+        vhat = v / beta2i
+        update = hp.alpha * mhat / (torch.sqrt(vhat) + epsilon)
+    else:
+        update = hp.alpha * mhat
+    if hp.add_assign:
+        effective = grads + update
+    else:
+        effective = update
+    return effective, m, v
+
+
+def dense_matvec(x, q_matrix):
+    """The hot-path contraction x @ Q for a (batch, n) or (I, batch, n)
+    state against (n, n) or (I, n, n) Q (reference ``dl_solver.py:529-537``).
+    Callers run it under :func:`ccvm_tpu_torch.runtime.fp32_matmul`."""
+    return torch.matmul(x, q_matrix)
+
+
+def change_variables_boxqp(problem_variables, lower_limit=0, upper_limit=1, S=1):
+    """Map solver amplitudes into the box (reference ``dl_solver.py:219-235``;
+    identical in all four solvers)."""
+    return 0.5 * problem_variables / S * (upper_limit - lower_limit) + 0.5 * (
+        upper_limit + lower_limit
+    )
+
+
+def fit_to_constraints_boxqp(c, lower_clamp, upper_clamp):
+    """Clamp amplitudes into the box (reference ``dl_solver.py:237-250``)."""
+    return torch.clamp(c, lower_clamp, upper_clamp)
+
+
+def scaling_factor(q_matrix, multiplier: float):
+    """sqrt(sum |Q|) * multiplier (reference ``ccvm_solver.py:134-150``), as
+    a float32 0-dim tensor on Q's device."""
+    return torch.sqrt(torch.sum(torch.abs(q_matrix))) * multiplier

@@ -1,0 +1,202 @@
+"""DL-CCVM (delay-line) dynamics for BoxQP, in PyTorch.
+
+Two-quadrature pump-saturated SDE (reference ``dl_solver.py:117-172``,
+``:468-569``):
+    rate        = (i+1)/T  (or 1)
+    nr_i        = (noise_ratio - 1) * exp(-3 (i+1)/T) + 1
+    S_d         = sqrt(pump - 1) if pump > 1 else S      (drift-only override!)
+    c_grad_1    = 0.25 * ((c*(u-l)/S_d + (u+l)) @ Q) * (u-l)/S_d
+    c_grad_2    = (-1 + pump*rate - c^2 - s^2) * c
+    c_grad_3    = V * (u-l) / (2 S_d)
+    fs_dyn      = feedback_scale * (0.5 + rate)
+    c_drift     = -fs_dyn * (c_grad_1 + c_grad_3) + c_grad_2
+    s_drift     = likewise with (-1 - pump*rate - ...) * s
+    diff        = 2 g sqrt(c^2 + s^2 + 0.5)
+    c          += dt*c_drift + diff * sqrt(dt)*nr_i * w_c
+    s          += dt*s_drift + diff * sqrt(dt)/nr_i * w_s
+Final c is clamped to the *original* +-S only after the loop (``:567``).
+
+All scalar arithmetic runs on float32 0-dim tensors on the state's device,
+so the plain solve rounds as the CUDA kernel does.  The step functions take
+the two standard-normal draws ``w_c, w_s`` as arguments.  The Adam variant
+follows ``dl_solver.py:571-769``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ccvm_tpu_torch.dynamics import common
+from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
+
+
+class DLParams(NamedTuple):
+    """Per-solve parameters (``dl_solver.py:96-115`` + call args), each a
+    Python float holding a float32 value.  Only a scalar ``S`` and the linear
+    pump ramp are ported in this slice."""
+
+    pump: float
+    S: float  # user-facing saturation (clamp / change of variables)
+    dt: float
+    noise_ratio: float
+    feedback_scale: float
+    g: float
+    lower_limit: float
+    upper_limit: float
+    iterations: float
+
+
+class _Scalars(NamedTuple):
+    """DLParams as float32 0-dim tensors on one device."""
+
+    pump: torch.Tensor
+    S: torch.Tensor
+    dt: torch.Tensor
+    noise_ratio: torch.Tensor
+    feedback_scale: torch.Tensor
+    g: torch.Tensor
+    lower_limit: torch.Tensor
+    upper_limit: torch.Tensor
+    iterations: torch.Tensor
+
+
+def _scalars(p: DLParams, device) -> _Scalars:
+    return _Scalars(
+        *(torch.tensor(float(x), dtype=torch.float32, device=device) for x in p)
+    )
+
+
+def drift_saturation(p, pump_is_gt_one: bool):
+    """The drift-internal saturation override S_d (``dl_solver.py:140-141``).
+
+    ``pump > 1`` is a host-side decision in the reference, so it is a static
+    choice here as well.  ``p`` holds float32 tensors."""
+    if pump_is_gt_one:
+        return torch.sqrt(p.pump - 1.0)
+    return p.S
+
+
+def grads_boxqp(c, s, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1):
+    """Feedback-only gradients (``dl_solver.py:174-217``)."""
+    span = upper_limit - lower_limit
+    mid = upper_limit + lower_limit
+
+    def one(z):
+        x = z * span / S + mid
+        return 0.25 * common.dense_matvec(x, q_matrix) * span / S
+
+    g3 = v_vector * span / (2 * S)
+    return -one(c) - g3, -one(s) - g3
+
+
+def drift_boxqp(
+    c, s, q_matrix, v_vector, pump, rate, feedback_scale=100,
+    lower_limit=0, upper_limit=1, S=1,
+):
+    """Full drift for both quadratures (``dl_solver.py:117-172``).
+
+    ``S`` here must already be the drift-internal S_d.
+    """
+    span = upper_limit - lower_limit
+    mid = upper_limit + lower_limit
+    c_pow = torch.square(c)
+    s_pow = torch.square(s)
+
+    def feedback(z):
+        x = z * span / S + mid
+        return 0.25 * common.dense_matvec(x, q_matrix) * span / S
+
+    g3 = v_vector * span / (2 * S)
+    fs_dyn = feedback_scale * (0.5 + rate)
+    c_drift = -fs_dyn * (feedback(c) + g3) + (-1 + pump * rate - c_pow - s_pow) * c
+    s_drift = -fs_dyn * (feedback(s) + g3) + (-1 - pump * rate - c_pow - s_pow) * s
+    return c_drift, s_drift
+
+
+def _fi1(p, i):
+    """(i + 1) as a float32 tensor: the step index is a float in the
+    schedules, as in the kernel."""
+    return torch.full((), float(i) + 1.0, dtype=torch.float32,
+                      device=p.iterations.device)
+
+
+def noise_ratio_schedule(p, i):
+    """nr_i = (nr-1) e^{-3(i+1)/T} + 1 (``dl_solver.py:527``)."""
+    return (p.noise_ratio - 1.0) * torch.exp(-_fi1(p, i) / p.iterations * 3.0) + 1.0
+
+
+def pump_rate_schedule(p, i, pump_rate_flag: bool):
+    """Linear pump ramp rate(i) = (i+1)/T (reference ``dl_solver.py:524``),
+    or 1 without the flag.  The generalised ``pump_ramp`` of the JAX package
+    is left for a later slice."""
+    if not pump_rate_flag:
+        return torch.ones((), dtype=torch.float32, device=p.iterations.device)
+    return _fi1(p, i) / p.iterations
+
+
+def make_step(
+    q_matrix, v_vector, p: DLParams, pump_rate_flag: bool, pump_is_gt_one: bool,
+):
+    """``step((c, s), i, w_c, w_s) -> (c, s)``; ``w_c``, ``w_s`` are
+    standard-normal draws shaped like the state."""
+    p = _scalars(p, q_matrix.device)
+    sqrt_dt = torch.sqrt(p.dt)
+    s_drift_sat = drift_saturation(p, pump_is_gt_one)
+
+    def step(state, i, w_c, w_s):
+        c, s = state
+        rate = pump_rate_schedule(p, i, pump_rate_flag)
+        nr_i = noise_ratio_schedule(p, i)
+        c_drift, s_drift = drift_boxqp(
+            c, s, q_matrix, v_vector, p.pump, rate, p.feedback_scale,
+            p.lower_limit, p.upper_limit, s_drift_sat,
+        )
+        w_c = w_c * sqrt_dt * nr_i
+        w_s = w_s * sqrt_dt / nr_i
+        diff = 2.0 * p.g * torch.sqrt(torch.square(c) + torch.square(s) + 0.5)
+        c = c + p.dt * c_drift + diff * w_c
+        s = s + p.dt * s_drift + diff * w_s
+        return (c, s)
+
+    return step
+
+
+def make_adam_step(
+    q_matrix,
+    v_vector,
+    p: DLParams,
+    pump_rate_flag: bool,
+    pump_is_gt_one: bool,
+    hp: AdamHyperparameters,
+):
+    """Adam variant (``dl_solver.py:571-769``): the feedback gradients are
+    Adam-filtered; the pump drift uses pump_rate = pump*(i+1)/T and
+    ``feedback_scale`` is unused.  State is ``(c, s, m_c, v_c, m_s, v_s)``."""
+    p = _scalars(p, q_matrix.device)
+    sqrt_dt = torch.sqrt(p.dt)
+    s_grad_sat = drift_saturation(p, pump_is_gt_one)
+
+    def step(state, i, w_c, w_s):
+        c, s, m_c, v_c, m_s, v_s = state
+        # pump_rate includes the pump amplitude in the Adam path (:627-632)
+        pump_rate = p.pump * pump_rate_schedule(p, i, pump_rate_flag)
+        nr_i = noise_ratio_schedule(p, i)
+        c_grads, s_grads = grads_boxqp(
+            c, s, q_matrix, v_vector, p.lower_limit, p.upper_limit, s_grad_sat,
+        )
+        c_grads, m_c, v_c = common.adam_moment_update(c_grads, m_c, v_c, i, hp)
+        s_grads, m_s, v_s = common.adam_moment_update(s_grads, m_s, v_s, i, hp)
+        c_pow = torch.square(c)
+        s_pow = torch.square(s)
+        c_drift = (-1.0 + pump_rate - c_pow - s_pow) * c
+        s_drift = (-1.0 - pump_rate - c_pow - s_pow) * s
+        w_c = w_c * sqrt_dt * nr_i
+        w_s = w_s * sqrt_dt / nr_i
+        diff = 2.0 * p.g * torch.sqrt(c_pow + s_pow + 0.5)
+        c = c + p.dt * (c_drift + c_grads) + diff * w_c
+        s = s + p.dt * (s_drift + s_grads) + diff * w_s
+        return (c, s, m_c, v_c, m_s, v_s)
+
+    return step

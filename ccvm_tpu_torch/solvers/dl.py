@@ -1,0 +1,370 @@
+"""DL-CCVM solver façade (API parity with
+``ccvm_simulators/solvers/dl_solver.py`` and ``ccvm_tpu/solvers/dl.py``).
+
+``device="cuda"`` launches the whole-solve CUDA kernel (``csrc/dl_solve.cu``)
+for every feature this port carries; ``device="cpu"`` runs its plain PyTorch
+version.  Features not ported yet raise ``NotImplementedError`` naming the
+ROADMAP item that brings them; none of them takes another path quietly.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ccvm_tpu_torch.dynamics import common
+from ccvm_tpu_torch.dynamics import dl as dyn
+from ccvm_tpu_torch.ops import dl_kernels
+from ccvm_tpu_torch.solution import Solution
+from ccvm_tpu_torch.solvers.algorithms import AdamParameters
+from ccvm_tpu_torch.solvers.base import CCVMSolver
+
+DL_SCALING_MULTIPLIER = 0.2
+"""Reference ``dl_solver.py:12``."""
+
+
+def _not_ported(feature, item):
+    return NotImplementedError(
+        f"{feature} is not ported to ccvm_tpu_torch yet (ROADMAP.md, {item})"
+    )
+
+
+class DLSolver(CCVMSolver):
+    """Models the delay-line coherent continuous-variable machine (DL-CCVM),
+    reference ``dl_solver.py:17``.
+
+    ``mesh`` and ``backend`` are kept for signature parity with the JAX
+    façade: a mesh is not ported yet, and ``backend`` accepts only "auto"
+    (the device decides the path).
+    """
+
+    def __init__(
+        self,
+        device,
+        problem_category="boxqp",
+        batch_size=1000,
+        S=1,
+        mesh=None,
+        backend="auto",
+        timing="sync",
+        kernel_rng="popcount16",
+    ):
+        super().__init__(device, timing=timing)
+        if mesh is not None:
+            raise _not_ported("mesh-sharded solving", "queue 1 item 13")
+        if backend != "auto":
+            raise ValueError(
+                f'backend must be "auto" (the device decides the path), got {backend!r}'
+            )
+        if kernel_rng not in dl_kernels.philox.RNG_NAMES:
+            raise ValueError(
+                f"kernel_rng must be one of {dl_kernels.philox.RNG_NAMES}, got {kernel_rng!r}"
+            )
+        self.batch_size = batch_size
+        self.kernel_rng = kernel_rng
+        self.S = S
+        self.backend = backend
+        self._default_optics_machine_parameters = {
+            "laser_power": 1200e-6,
+            "modulators_power": 10e-3,
+            "squeezing_power": 180e-3,
+            "electronics_power": 0.0,
+            "amplifiers_power": 222.2e-3,
+            "electronics_latency": 1e-9,
+            "laser_clock": 10e-12,
+            "postprocessing_power": {
+                20: 4.96,
+                30: 5.1,
+                40: 4.95,
+                50: 5.26,
+                60: 5.11,
+                70: 5.09,
+            },
+        }
+        self._scaling_multiplier = DL_SCALING_MULTIPLIER
+        self._method_selector(problem_category)
+
+    @property
+    def parameter_key(self):
+        """Keys must be exactly {pump, dt, iterations, noise_ratio,
+        feedback_scale} (reference ``dl_solver.py:96-115``)."""
+        return self._parameter_key
+
+    @parameter_key.setter
+    def parameter_key(self, parameters):
+        expected_dlparameter_key_set = set(
+            ["pump", "dt", "iterations", "noise_ratio", "feedback_scale"]
+        )
+        for parameter_key in parameters.values():
+            if parameter_key.keys() != expected_dlparameter_key_set:
+                raise ValueError(
+                    "The parameter key is not valid for this solver. Expected keys: "
+                    + str(expected_dlparameter_key_set)
+                    + " Given keys: "
+                    + str(parameter_key.keys())
+                )
+        self._parameter_key = parameters
+        self._is_tuned = False
+
+    ##################################
+    # Problem-category methods       #
+    ##################################
+
+    def _calculate_drift_boxqp(
+        self, c, s, pump, rate, feedback_scale=100, lower_limit=0, upper_limit=1, S=1
+    ):
+        """Two-quadrature drift (reference ``dl_solver.py:117-172``); the
+        pump>1 saturation override happens inside, as in the reference."""
+        if pump > 1:
+            S = np.sqrt(pump - 1)
+        return dyn.drift_boxqp(
+            torch.as_tensor(c), torch.as_tensor(s), self.q_matrix, self.v_vector,
+            pump, rate, feedback_scale, lower_limit, upper_limit, S,
+        )
+
+    def _calculate_grads_boxqp(self, c, s, lower_limit=0, upper_limit=1, S=1):
+        return dyn.grads_boxqp(
+            torch.as_tensor(c), torch.as_tensor(s), self.q_matrix, self.v_vector,
+            lower_limit, upper_limit, S,
+        )
+
+    def _change_variables_boxqp(self, problem_variables, lower_limit=0, upper_limit=1, S=1):
+        return common.change_variables_boxqp(
+            torch.as_tensor(problem_variables), lower_limit, upper_limit, S
+        )
+
+    def _fit_to_constraints_boxqp(self, c, lower_clamp, upper_clamp):
+        return common.fit_to_constraints_boxqp(
+            torch.as_tensor(c), lower_clamp, upper_clamp
+        )
+
+    def _is_valid_optics_machine_parameters(self, machine_parameters):
+        required_keys = [
+            "laser_power",
+            "modulators_power",
+            "squeezing_power",
+            "electronics_power",
+            "amplifiers_power",
+            "electronics_latency",
+            "laser_clock",
+            "postprocessing_power",
+        ]
+        missing_keys = [key for key in required_keys if key not in machine_parameters]
+        if missing_keys:
+            raise ValueError(
+                f"Invalid optics_machine_parameters: Missing required keys - {missing_keys}"
+            )
+
+    def tune(self, instances, post_processor=None, parameter_ranges=None, **kwargs):
+        """The grid-search tuner arrives with ``tuning.py``."""
+        raise _not_ported("DLSolver.tune", "queue 1 item 10")
+
+    ##################################
+    # Machine models                 #
+    ##################################
+
+    def _optics_machine_energy(self, machine_parameters=None):
+        """DL-CCVM optics energy model (reference ``dl_solver.py:331-406``)."""
+        if machine_parameters is None:
+            machine_parameters = self._default_optics_machine_parameters
+        else:
+            self._is_valid_optics_machine_parameters(machine_parameters)
+
+        def _optics_machine_energy_callable(dataframe, problem_size: int):
+            self._validate_machine_energy_dataframe_columns(dataframe)
+            try:
+                pump = self.parameter_key[problem_size]["pump"]
+            except KeyError:
+                raise KeyError(
+                    f"Pump for the given instance size: {problem_size} is not defined."
+                )
+
+            T_clock = machine_parameters["laser_clock"]
+            P_opt = machine_parameters["laser_power"]
+            T_elec = machine_parameters["electronics_latency"]
+            P_mod = machine_parameters["modulators_power"]
+            P_sq = machine_parameters["squeezing_power"]
+            P_elec = machine_parameters["electronics_power"]
+            P_opa = machine_parameters["amplifiers_power"]
+            postprocessing_time = np.mean(dataframe["pp_time"].values)
+            iterations = np.mean(dataframe["iterations"].values)
+            size = float(problem_size)
+            optics_energy = (
+                pump * P_opt * T_elec
+                + pump * P_opt * T_clock * size
+                + 2 * P_mod * T_clock * size * (size - 1)
+                + P_sq * T_elec
+                + P_sq * T_clock * size
+                + P_elec * T_elec
+                + P_elec * T_clock * size
+                + P_opa * T_elec * (size - 1)
+                + P_opa * T_clock * size * (size - 1)
+            ) * iterations
+            postprocessing_energy = (
+                machine_parameters["postprocessing_power"][problem_size]
+                * postprocessing_time
+            )
+            return optics_energy + postprocessing_energy
+
+        return _optics_machine_energy_callable
+
+    def _optics_machine_time(self, machine_parameters: dict = None):
+        """DL-CCVM optics time model: N * laser_clock * iterations + pp_time
+        (reference ``dl_solver.py:408-466``)."""
+        if machine_parameters is None:
+            machine_parameters = self._default_optics_machine_parameters
+        else:
+            self._is_valid_optics_machine_parameters(machine_parameters)
+
+        def _optics_machine_time_callable(dataframe, problem_size: int):
+            try:
+                iterations = np.mean(dataframe["iterations"].values)
+                postprocessing_time = np.mean(dataframe["pp_time"].values)
+            except KeyError as e:
+                raise KeyError(
+                    f"The given dataframe is missing the {e.args[0]} "
+                    f"column. Required columns are: ['iterations', 'pp_time']."
+                )
+            laser_clock = machine_parameters["laser_clock"]
+            return float(problem_size) * laser_clock * iterations + postprocessing_time
+
+        return _optics_machine_time_callable
+
+    ##################################
+    # Solve paths                    #
+    ##################################
+
+    def _make_params(self, pump, S, dt, noise_ratio, feedback_scale, g, iterations):
+        lo, hi = self.solution_bounds
+        f32 = lambda x: float(np.float32(x))  # noqa: E731
+        return dyn.DLParams(
+            pump=f32(pump), S=f32(S), dt=f32(dt), noise_ratio=f32(noise_ratio),
+            feedback_scale=f32(feedback_scale), g=f32(g), lower_limit=f32(lo),
+            upper_limit=f32(hi), iterations=f32(iterations),
+        )
+
+    def _solve(self, seed, params, iterations, pump_rate_flag, pump_is_gt_one,
+               hp=None):
+        """One whole-solve launch on the instance's device (kernel on
+        "cuda", plain version on "cpu"); ``hp`` selects the Adam variant,
+        which works here although the reference's own DL+Adam call site
+        raises TypeError (``dl_solver.py:906-923``)."""
+        return dl_kernels.dl_solve(
+            seed, self.q_matrix, self.v_vector, params,
+            iterations=iterations, batch_size=self.batch_size,
+            pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
+            rng=self.kernel_rng, hp=hp,
+        )
+
+    def __call__(
+        self,
+        instance,
+        post_processor=None,
+        pump_rate_flag=True,
+        g=0.05,
+        evolution_step_size=None,
+        evolution_file=None,
+        algorithm_parameters=None,
+        seed=None,
+        pump_ramp=None,
+    ):
+        """Solve an instance (reference ``dl_solver.py:771-999``).
+
+        ``seed`` (int) keys the kernel's Philox noise; ``None`` draws one.
+        ``pump_ramp`` accepts only the reference's linear ramp (``None`` or
+        ``(1.0, 1.0)``) in this port.
+        """
+        if instance.device != self.device:
+            raise ValueError(
+                f"The device type of the instance ({instance.device}) and the solver"
+                f" ({self.device}) must match."
+            )
+        if post_processor is not None:
+            raise _not_ported("post_processor", "queue 1 item 8")
+        if evolution_step_size:
+            raise _not_ported("evolution_step_size", "queue 1 item 4")
+        if pump_ramp is not None:
+            if len(pump_ramp) != 2:
+                raise ValueError("pump_ramp must be a (power, fraction) pair.")
+            if tuple(map(float, pump_ramp)) != (1.0, 1.0):
+                raise _not_ported("a generalised pump_ramp", "queue 1 item 4")
+        if not np.isscalar(self.S):
+            raise _not_ported("per-variable S", "queue 1 item 4")
+
+        problem_size = instance.problem_size
+        self.q_matrix = instance.q_matrix
+        self.v_vector = instance.v_vector
+        self.solution_bounds = instance.solution_bounds
+
+        S = self.S
+        batch_size = self.batch_size
+
+        try:
+            pump = self.parameter_key[problem_size]["pump"]
+            dt = self.parameter_key[problem_size]["dt"]
+            iterations = self.parameter_key[problem_size]["iterations"]
+            noise_ratio = self.parameter_key[problem_size]["noise_ratio"]
+            feedback_scale = self.parameter_key[problem_size]["feedback_scale"]
+        except KeyError as e:
+            raise KeyError(
+                f"The parameter '{e.args[0]}' for the given instance size is not defined."
+            ) from e
+
+        solve_time_start = time.time()
+
+        params = self._make_params(
+            pump, S, dt, noise_ratio, feedback_scale, g, iterations
+        )
+        pump_is_gt_one = bool(pump > 1)
+        if seed is None:
+            seed = np.random.SeedSequence().entropy % (2**31)
+        seed = int(seed)
+
+        if algorithm_parameters is None:
+            hp = None
+        elif isinstance(algorithm_parameters, AdamParameters):
+            hp = algorithm_parameters.to_hyperparameters()
+        else:
+            raise ValueError(
+                f"Solver option type {type(algorithm_parameters)} is not supported."
+            )
+        c, s = self._solve(
+            seed, params, iterations, pump_rate_flag, pump_is_gt_one, hp=hp
+        )
+        if self.timing == "sync" and c.is_cuda:
+            torch.cuda.synchronize(c.device)
+        solve_time = (time.time() - solve_time_start) / batch_size
+
+        lo, hi = self.solution_bounds
+        problem_variables = c
+        pp_time = 0.0
+
+        # Float64-grade readout: the change of variables and the f32 energy
+        # pass run on the device; only energies and ambiguous rows cross.
+        objval = instance.compute_energy_readout64(
+            problem_variables, change_vars=("boxqp", lo, hi, params.S),
+        )
+
+        if self.timing == "async":
+            solve_time = (time.time() - solve_time_start) / batch_size - pp_time
+
+        return Solution(
+            problem_size=instance.problem_size,
+            batch_size=batch_size,
+            instance_name=instance.name,
+            iterations=iterations,
+            objective_values=objval,
+            solve_time=solve_time,
+            pp_time=pp_time,
+            optimal_value=instance.optimal_sol,
+            best_value=instance.best_sol,
+            num_frac_values=instance.num_frac_values,
+            solution_vector=instance.solution_vector,
+            variables={
+                "problem_variables": problem_variables,
+                "s": s,
+            },
+            device=self.device,
+        )
