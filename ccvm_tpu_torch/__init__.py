@@ -6,8 +6,9 @@ the NVIDIA H100 (``csrc/``, built with ``nvcc`` at first use).  Entry points
 run on the card ("cuda") unless the caller asks for "cpu", where each kernel's
 plain PyTorch version runs instead.
 
-This slice carries the DL-CCVM solve (plain and Adam); the other solvers,
-post-processing, metadata and plotting arrive in later slices (ROADMAP.md).
+This slice carries the DL-CCVM and MF-CCVM solves (plain and Adam) and the
+grad-descent post-processor; the Langevin solvers, the other
+post-processors, metadata and plotting arrive in later slices (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
@@ -18,6 +19,7 @@ from ccvm_tpu_torch.solvers import (
     AdamParameters,
     CCVMSolver,
     DLSolver,
+    MFSolver,
 )
 
 __all__ = [
@@ -26,4 +28,5 @@ __all__ = [
     "AdamParameters",
     "CCVMSolver",
     "DLSolver",
+    "MFSolver",
 ]

@@ -1,0 +1,147 @@
+// Device code shared by the whole-solve kernels of csrc/ (dl_solve.cu,
+// mf_solve.cu): the thread tile, Philox4x32-10, the four Wiener transforms
+// of ccvm_tpu/ops/pallas_kernels.py:152-319 (pair and single draws), the
+// safety clip and the in-loop Adam update (pallas_kernels.py:465-480).
+// ops/philox.py reproduces the noise bit for bit.  ops/build.py names each
+// library by a hash of its .cu and of every header here, so an edit to this
+// file rebuilds every kernel.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ccvm {
+
+constexpr int TR = 4;  // trajectory rows per thread
+constexpr int TC = 4;  // columns per thread = words of one Philox call
+constexpr int kMaxThreads = 256;
+
+enum Rng { kPopcount32 = 0, kPopcount16 = 1, kPopcount = 2, kBoxMuller = 3 };
+
+// Philox streams (counter word 3) a pair transform consumes per element.
+__host__ __device__ constexpr int streams_of(int rng) {
+  return rng == kPopcount16 ? 1 : rng == kPopcount ? 6 : 2;
+}
+
+// ... and a single draw: the first normal of the pair, from the first
+// streams (a single popcount16 draw is a popcount32 one).
+__host__ __device__ constexpr int streams_one_of(int rng) {
+  return rng == kPopcount ? 3 : rng == kBoxMuller ? 2 : 1;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// The Philox key of seed + instance.
+__device__ __forceinline__ uint2 seed_key(unsigned long long seed, int inst) {
+  const unsigned long long s = seed + (unsigned long long)inst;
+  return make_uint2((unsigned)s, (unsigned)(s >> 32));
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The four Wiener transforms of pallas_kernels.py:152-254 on Philox words
+// (w[k] is the element's word of stream k).
+template <int RNG>
+__device__ __forceinline__ void normal_pair(const unsigned* w, float& z1,
+                                            float& z2) {
+  if constexpr (RNG == kPopcount16) {
+    z1 = (float)(__popc(w[0] & 0xFFFFu) - 8) * 0.5f;
+    z2 = (float)(__popc(w[0] >> 16) - 8) * 0.5f;
+  } else if constexpr (RNG == kPopcount32) {
+    const float inv = 0.35355339059327373f;  // 1/sqrt(8)
+    z1 = (float)(__popc(w[0]) - 16) * inv;
+    z2 = (float)(__popc(w[1]) - 16) * inv;
+  } else if constexpr (RNG == kPopcount) {
+    const float inv = 0.24935148656368256f;  // 1/sqrt(16 + 1/12)
+    const float u23 = 1.0f / 8388608.0f;
+    const float ua = (float)(w[2] & 0x7FFFFFu) * u23;
+    const float ub = (float)(w[5] & 0x7FFFFFu) * u23;
+    z1 = ((float)(__popc(w[0]) + __popc(w[1]) - 32) + (ua - 0.5f)) * inv;
+    z2 = ((float)(__popc(w[3]) + __popc(w[4]) - 32) + (ub - 0.5f)) * inv;
+  } else {
+    const float u23 = 1.0f / 8388608.0f;
+    const float u1 = ((float)(w[0] & 0x7FFFFFu) + 1.0f) * u23;
+    const float u2 = (float)(w[1] & 0x7FFFFFu) * u23;
+    const float r = sqrtf(-2.0f * logf(u1));
+    const float theta = 6.2831854820251465f * u2;
+    z1 = r * cosf(theta);
+    z2 = r * sinf(theta);
+  }
+}
+
+// The single draw of _noise_one (pallas_kernels.py:301-319): the first
+// normal of the pair, from streams_one_of(RNG) words.
+template <int RNG>
+__device__ __forceinline__ float normal_one(const unsigned* w) {
+  if constexpr (RNG == kPopcount16 || RNG == kPopcount32) {
+    return (float)(__popc(w[0]) - 16) * 0.35355339059327373f;
+  } else if constexpr (RNG == kPopcount) {
+    const float ua = (float)(w[2] & 0x7FFFFFu) * (1.0f / 8388608.0f);
+    return ((float)(__popc(w[0]) + __popc(w[1]) - 32) + (ua - 0.5f)) *
+           0.24935148656368256f;
+  } else {
+    const float u23 = 1.0f / 8388608.0f;
+    const float u1 = ((float)(w[0] & 0x7FFFFFu) + 1.0f) * u23;
+    const float u2 = (float)(w[1] & 0x7FFFFFu) * u23;
+    return sqrtf(-2.0f * logf(u1)) * cosf(6.2831854820251465f * u2);
+  }
+}
+
+__device__ __forceinline__ float clip(float x, float b) {
+  return fminf(fmaxf(x, -b), b);
+}
+
+// Adam filtering of one gradient element; P carries beta1, one_minus_beta1,
+// beta2, one_minus_beta2 and alpha.  b1i, b2i are the bias corrections
+// 1 - beta^(i+1) of the step.
+template <bool BETA2_ONE, bool ADD_ASSIGN, class P>
+__device__ __forceinline__ float adam(float grad, float& m, float& v,
+                                      float b1i, float b2i, const P& p) {
+  m = p.beta1 * m + p.one_minus_beta1 * grad;
+  const float mhat = m / b1i;
+  float update;
+  if (BETA2_ONE) {
+    update = p.alpha * mhat;
+  } else {
+    v = p.beta2 * v + p.one_minus_beta2 * (grad * grad);
+    const float vhat = v / b2i;
+    update = p.alpha * mhat / (sqrtf(vhat) + 1e-8f);
+  }
+  return ADD_ASSIGN ? grad + update : update;
+}
+
+// Threads and shared-memory bytes of a launch whose block holds Q
+// (np x np) and `x_arrays` x rows of stride np + 4 per trajectory; non-zero
+// when the tile does not fit one block (ops/build.py launch_shape picks
+// rows_per_block).
+inline int launch_shape(int n, int rows_per_block, int x_arrays, int* threads,
+                        long long* smem_bytes) {
+  const int np = (n + TC - 1) / TC * TC;
+  const int groups = np / TC;
+  const int rgroups = rows_per_block / TR;
+  *threads = groups * rgroups;
+  *smem_bytes = (long long)(np * np + x_arrays * rows_per_block * (np + 4)) *
+                (long long)sizeof(float);
+  return (*threads <= kMaxThreads && rows_per_block % TR == 0) ? 0 : 1;
+}
+
+}  // namespace ccvm

@@ -38,26 +38,22 @@
 //   * the grid is (ceil(batch/R), instances): blockIdx.y is the instance.
 // Tensor cores (3xTF32 wgmma), TMA and persistent blocks are later work.
 //
-// Specialisations (the template parameters) are chosen at build time with
-// -D flags by ccvm_tpu_torch/ops/build.py; each build exports ccvm_dl_solve.
+// Philox, the Wiener transforms, the clip and the Adam update are shared with
+// mf_solve.cu through ccvm_common.cuh.  Specialisations (the template
+// parameters) are chosen at build time with -D flags by
+// ccvm_tpu_torch/ops/build.py; each build exports ccvm_dl_solve.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "ccvm_common.cuh"
+
 namespace {
 
-constexpr int TR = 4;  // trajectory rows per thread
-constexpr int TC = 4;  // columns per thread = words of one Philox call
-constexpr int kMaxThreads = 256;
+using namespace ccvm;
+
 constexpr float kSafetyBound = 1.0e3f;  // _DL_SAFETY_BOUND
-
-enum Rng { kPopcount32 = 0, kPopcount16 = 1, kPopcount = 2, kBoxMuller = 3 };
-
-// Philox streams (counter word 3) a transform consumes per element.
-__host__ __device__ constexpr int streams_of(int rng) {
-  return rng == kPopcount16 ? 1 : rng == kPopcount ? 6 : 2;
-}
 
 struct DLScalars {
   float pump, S, dt, noise_ratio, fs, g, lo, hi, T;
@@ -65,79 +61,6 @@ struct DLScalars {
   float noise_scale;
 };
 static_assert(sizeof(DLScalars) == 15 * sizeof(float), "DLScalars layout");
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ unsigned word_of(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// The four Wiener transforms of pallas_kernels.py:152-254 on Philox words
-// (w[k] is the element's word of stream k).
-template <int RNG>
-__device__ __forceinline__ void normal_pair(const unsigned* w, float& z1,
-                                            float& z2) {
-  if constexpr (RNG == kPopcount16) {
-    z1 = (float)(__popc(w[0] & 0xFFFFu) - 8) * 0.5f;
-    z2 = (float)(__popc(w[0] >> 16) - 8) * 0.5f;
-  } else if constexpr (RNG == kPopcount32) {
-    const float inv = 0.35355339059327373f;  // 1/sqrt(8)
-    z1 = (float)(__popc(w[0]) - 16) * inv;
-    z2 = (float)(__popc(w[1]) - 16) * inv;
-  } else if constexpr (RNG == kPopcount) {
-    const float inv = 0.24935148656368256f;  // 1/sqrt(16 + 1/12)
-    const float u23 = 1.0f / 8388608.0f;
-    const float ua = (float)(w[2] & 0x7FFFFFu) * u23;
-    const float ub = (float)(w[5] & 0x7FFFFFu) * u23;
-    z1 = ((float)(__popc(w[0]) + __popc(w[1]) - 32) + (ua - 0.5f)) * inv;
-    z2 = ((float)(__popc(w[3]) + __popc(w[4]) - 32) + (ub - 0.5f)) * inv;
-  } else {
-    const float u23 = 1.0f / 8388608.0f;
-    const float u1 = ((float)(w[0] & 0x7FFFFFu) + 1.0f) * u23;
-    const float u2 = (float)(w[1] & 0x7FFFFFu) * u23;
-    const float r = sqrtf(-2.0f * logf(u1));
-    const float theta = 6.2831854820251465f * u2;
-    z1 = r * cosf(theta);
-    z2 = r * sinf(theta);
-  }
-}
-
-__device__ __forceinline__ float clip(float x, float b) {
-  return fminf(fmaxf(x, -b), b);
-}
-
-template <bool BETA2_ONE, bool ADD_ASSIGN>
-__device__ __forceinline__ float adam(float grad, float& m, float& v,
-                                      float b1i, float b2i,
-                                      const DLScalars& p) {
-  m = p.beta1 * m + p.one_minus_beta1 * grad;
-  const float mhat = m / b1i;
-  float update;
-  if (BETA2_ONE) {
-    update = p.alpha * mhat;
-  } else {
-    v = p.beta2 * v + p.one_minus_beta2 * (grad * grad);
-    const float vhat = v / b2i;
-    update = p.alpha * mhat / (sqrtf(vhat) + 1e-8f);
-  }
-  return ADD_ASSIGN ? grad + update : update;
-}
 
 template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool PUMP_RATE_FLAG,
           bool PUMP_GT_ONE, bool NOISE, int RNG>
@@ -180,8 +103,7 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     const int j = col0 + jj;
     g3[jj] = j < n ? v[(size_t)inst * n + j] * span / (2.0f * S_d) : 0.0f;
   }
-  const unsigned long long ks64 = seed + (unsigned long long)inst;
-  const uint2 key = make_uint2((unsigned)ks64, (unsigned)(ks64 >> 32));
+  const uint2 key = seed_key(seed, inst);
 
   float c[TR][TC], s[TR][TC];
   float mc[TR][TC], vc[TR][TC], ms[TR][TC], vs[TR][TC];
@@ -343,23 +265,6 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #define CCVM_RNG 1
 #endif
 
-namespace {
-
-// Threads and shared-memory bytes of a launch; non-zero when the tile does
-// not fit one block (ops/dl_kernels.py launch_shape picks rows_per_block).
-int launch_shape(int n, int rows_per_block, int* threads,
-                 long long* smem_bytes) {
-  const int np = (n + TC - 1) / TC * TC;
-  const int groups = np / TC;
-  const int rgroups = rows_per_block / TR;
-  *threads = groups * rgroups;
-  *smem_bytes = (long long)(np * np + 2 * rows_per_block * (np + 4)) *
-                (long long)sizeof(float);
-  return (*threads <= kMaxThreads && rows_per_block % TR == 0) ? 0 : 1;
-}
-
-}  // namespace
-
 extern "C" {
 
 // q (I, n, n), v (I, n), c_out / s_out (I, batch, n): float32, contiguous,
@@ -373,7 +278,7 @@ int ccvm_dl_solve(const float* q, const float* v, float* c_out, float* s_out,
   memcpy(&p, scalars, sizeof(DLScalars));
   int threads;
   long long smem;
-  if (launch_shape(n, rows_per_block, &threads, &smem))
+  if (ccvm::launch_shape(n, rows_per_block, 2, &threads, &smem))
     return (int)cudaErrorInvalidConfiguration;
   auto kernel = dl_solve_kernel<CCVM_ADAM != 0, CCVM_BETA2_ONE != 0,
                                 CCVM_ADD_ASSIGN != 0, CCVM_PUMP_RATE_FLAG != 0,

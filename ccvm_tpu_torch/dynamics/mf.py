@@ -1,0 +1,207 @@
+"""MF-CCVM (measurement-feedback) dynamics for BoxQP, in PyTorch.
+
+Mean-field SDE over (mu, sigma) with a measured field mu_tilde (reference
+``mf_solver.py:141-198``, ``:493-593``; JAX ``ccvm_tpu/dynamics/mf.py``):
+
+    j_i       = j * exp(-3 (i+1)/T)
+    W         ~ N(0,1);  w_inc = W / sqrt(dt)          (note the division!)
+    mu_tilde  = mu + sqrt(1/(4 j_i)) * w_inc;  mu_tilde_c = clip(mu_tilde,+-S)
+    pump_inst = pump * rate + 1 + j_i,  rate = (i+1)/T (or 1)
+    drift_mu  = (-(1+j_i) + pump_inst - g^2 mu^2) mu
+                + fs * ( -(1/4) ((mu_tilde_c*(u-l)/S + (u+l)) @ Q) (u-l)/S
+                         - V (u-l)/(2S) )
+    drift_sig = 2(-(1+j_i) + pump_inst - 3 g^2 mu^2) sigma
+                - 2 j_i (sigma - 1/2)^2 + (1+j_i) + 2 g^2 mu^2
+    mu       += dt * (drift_mu + sqrt(j_i)(sigma - 1/2) w_inc)
+    sigma    += dt * drift_sig
+
+The *same* Wiener draw feeds both the measured field and the mu diffusion in
+one iteration, and the readout is the mu_tilde of the **last** iteration
+(computed from the pre-update mu), clamped to +-S only after the loop.
+
+All scalar arithmetic runs on float32 0-dim tensors on the state's device,
+so the plain solve rounds as the CUDA kernel does.  The step functions take
+the standard-normal draw ``w`` as an argument.  Only a scalar ``S`` is
+ported in this slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ccvm_tpu_torch.dynamics import common
+from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
+
+# Reference _MF_SAFETY_BOUND (pallas_kernels.py:259-271): the kernel clips mu
+# here every step, far above any physical amplitude.  The JAX lax path has no
+# such clip.
+MF_SAFETY_BOUND = 1.0e5
+
+
+class MFParams(NamedTuple):
+    """Per-solve parameters (``mf_solver.py:120-139`` + call args), each a
+    Python float holding a float32 value."""
+
+    pump: float
+    S: float
+    dt: float
+    j: float
+    feedback_scale: float
+    g: float
+    lower_limit: float
+    upper_limit: float
+    iterations: float
+
+
+def _scalars(p: MFParams, device) -> MFParams:
+    """MFParams as float32 0-dim tensors on one device."""
+    return MFParams(
+        *(torch.tensor(float(x), dtype=torch.float32, device=device) for x in p)
+    )
+
+
+def feedback_terms(mu_tilde_c, q_matrix, v_vector, S, lower_limit, upper_limit):
+    """fs-independent feedback terms (``mf_solver.py:176-189``)."""
+    span = upper_limit - lower_limit
+    mid = upper_limit + lower_limit
+    x = mu_tilde_c * span / S + mid
+    qx = common.dense_matvec(x, q_matrix)
+    term2_1 = -0.25 * qx * span / S
+    term2_2 = -v_vector * span / (2 * S)
+    return term2_1 + term2_2
+
+
+def _physical_drift(mu, sigma, pump, j, g):
+    """The pump and measurement terms: mu's ``(-(1+j) + pump - g^2 mu^2) mu``
+    and the whole drift of sigma (``mf_solver.py:141-198``)."""
+    mu_pow = torch.square(mu)
+    mu_term1 = (-(1 + j) + pump - g**2 * mu_pow) * mu
+    sigma_term1 = 2 * (-(1 + j) + pump - 3 * g**2 * mu_pow) * sigma
+    sigma_term2 = -2 * j * torch.square(sigma - 0.5)
+    sigma_term3 = (1 + j) + 2 * g**2 * mu_pow
+    return mu_term1, sigma_term1 + sigma_term2 + sigma_term3
+
+
+def drift_boxqp(
+    mu, mu_tilde, sigma, pump, j, g, S, fs, q_matrix, v_vector,
+    lower_limit=0, upper_limit=1,
+):
+    """Drift of mu and sigma (``mf_solver.py:141-198``).  ``pump`` here is
+    the instantaneous pump."""
+    mu_term1, drift_sigma = _physical_drift(mu, sigma, pump, j, g)
+    fb = feedback_terms(mu_tilde, q_matrix, v_vector, S, lower_limit, upper_limit)
+    return mu_term1 + fs * fb, drift_sigma
+
+
+def grads_boxqp(mu_tilde, S, fs, q_matrix, v_vector, lower_limit=0,
+                upper_limit=1):
+    """Feedback-only gradient for the Adam path (``mf_solver.py:200-233``)."""
+    return fs * feedback_terms(
+        mu_tilde, q_matrix, v_vector, S, lower_limit, upper_limit
+    )
+
+
+def _fi1(p, i):
+    """(i + 1) as a float32 tensor, as the kernel's schedules use it."""
+    return torch.full((), float(i) + 1.0, dtype=torch.float32,
+                      device=p.iterations.device)
+
+
+def measurement_strength(p, i):
+    """j_i = j e^{-3(i+1)/T} (``mf_solver.py:550``)."""
+    return p.j * torch.exp(-_fi1(p, i) / p.iterations * 3.0)
+
+
+def _rate(p, i, pump_rate_flag: bool):
+    if not pump_rate_flag:
+        return torch.ones((), dtype=torch.float32, device=p.iterations.device)
+    return _fi1(p, i) / p.iterations
+
+
+def _measure(p, i, mu, w, sqrt_dt, pump_rate_flag):
+    """The step's j_i, w_inc, mu_tilde, its clamp and the pump."""
+    j_i = measurement_strength(p, i)
+    w_inc = w / sqrt_dt
+    mu_tilde = mu + torch.sqrt(1.0 / (4.0 * j_i)) * w_inc
+    mu_tilde_c = torch.clamp(mu_tilde, -p.S, p.S)
+    pump_inst = p.pump * _rate(p, i, pump_rate_flag) + 1.0 + j_i
+    return j_i, w_inc, mu_tilde, mu_tilde_c, pump_inst
+
+
+def make_step(q_matrix, v_vector, p: MFParams, pump_rate_flag: bool):
+    """``step((mu, sigma, mu_tilde), i, w) -> (mu, sigma, mu_tilde)``; ``w``
+    is a standard-normal draw shaped like the state."""
+    p = _scalars(p, q_matrix.device)
+    sqrt_dt = torch.sqrt(p.dt)
+
+    def step(state, i, w):
+        mu, sigma, _ = state
+        j_i, w_inc, mu_tilde, mu_tilde_c, pump_inst = _measure(
+            p, i, mu, w, sqrt_dt, pump_rate_flag
+        )
+        drift_mu, drift_sigma = drift_boxqp(
+            mu, mu_tilde_c, sigma, pump_inst, j_i, p.g, p.S, p.feedback_scale,
+            q_matrix, v_vector, p.lower_limit, p.upper_limit,
+        )
+        mu_diffusion = torch.sqrt(j_i) * (sigma - 0.5) * w_inc
+        mu = mu + p.dt * (drift_mu + mu_diffusion)
+        sigma = sigma + p.dt * drift_sigma
+        return (mu, sigma, mu_tilde)
+
+    return step
+
+
+def make_adam_step(
+    q_matrix, v_vector, p: MFParams, pump_rate_flag: bool, hp: AdamHyperparameters,
+):
+    """Adam variant (``mf_solver.py:595-764``): Adam filters the fs-scaled
+    feedback only.  State is ``(mu, sigma, mu_tilde, m_mu, v_mu)``."""
+    p = _scalars(p, q_matrix.device)
+    sqrt_dt = torch.sqrt(p.dt)
+
+    def step(state, i, w):
+        mu, sigma, _, m_mu, v_mu = state
+        j_i, w_inc, mu_tilde, mu_tilde_c, pump_inst = _measure(
+            p, i, mu, w, sqrt_dt, pump_rate_flag
+        )
+        grads_mu = grads_boxqp(
+            mu_tilde_c, p.S, p.feedback_scale, q_matrix, v_vector,
+            p.lower_limit, p.upper_limit,
+        )
+        grads_mu, m_mu, v_mu = common.adam_moment_update(grads_mu, m_mu, v_mu, i, hp)
+        mu_drift, sigma_drift = _physical_drift(mu, sigma, pump_inst, j_i, p.g)
+        mu_drift = mu_drift + torch.sqrt(j_i) * (sigma - 0.5) * w_inc
+        new_mu = mu + p.dt * (grads_mu + mu_drift)
+        sigma = sigma + p.dt * sigma_drift
+        return (new_mu, sigma, mu_tilde, m_mu, v_mu)
+
+    return step
+
+
+def solve(q_matrix, v_vector, params: MFParams, *, iterations, batch_size,
+          pump_rate_flag=True, hp=None, draw=None):
+    """Plain MF-CCVM solve (JAX ``dynamics/mf.py`` ``solve``); returns
+    ``(mu, mu_tilde clamped to +-S, sigma)``.
+
+    ``q_matrix`` is (n, n) or a stack (I, n, n) with ``v_vector`` (I, 1, n).
+    ``draw(i)`` gives step ``i``'s standard-normal draw shaped like the
+    state; ``None`` integrates without noise.  mu is clipped at
+    ``MF_SAFETY_BOUND`` every step, as the kernel does."""
+    n = q_matrix.shape[-1]
+    shape = tuple(q_matrix.shape[:-2]) + (int(batch_size), n)
+    mu0 = torch.zeros(shape, dtype=torch.float32, device=q_matrix.device)
+    sigma0 = torch.full_like(mu0, 0.5)
+    if hp is None:
+        step = make_step(q_matrix, v_vector, params, pump_rate_flag)
+        state = (mu0, sigma0, mu0)
+    else:
+        step = make_adam_step(q_matrix, v_vector, params, pump_rate_flag, hp)
+        state = (mu0, sigma0, mu0, mu0, mu0)
+    for i in range(int(iterations)):
+        w = mu0 if draw is None else draw(i)
+        state = step(state, i, w)
+        state = (state[0].clamp(-MF_SAFETY_BOUND, MF_SAFETY_BOUND),) + state[1:]
+    S = float(params.S)
+    return state[0], state[2].clamp(-S, S), state[1]

@@ -3,7 +3,7 @@
 Tests build both frameworks' objects from the same numbers: a JAX
 ``ProblemInstance``'s host arrays (``_q64``, ``_v64``, ``q_matrix``,
 ``v_vector``, ``scaled_by``) or a JAX ``DLParams`` / ``AdamHyperparameters``'
-fields become the port's counterparts.  This module takes NumPy arrays and
+fields (or ``MFParams``') become the port's counterparts.  This module takes NumPy arrays and
 plain values only and imports nothing of the JAX package.
 """
 
@@ -13,6 +13,7 @@ import numpy as np
 
 from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 from ccvm_tpu_torch.dynamics.dl import DLParams
+from ccvm_tpu_torch.dynamics.mf import MFParams
 from ccvm_tpu_torch.problem_classes.boxqp.problem_instance import ProblemInstance
 from ccvm_tpu_torch.runtime import put
 
@@ -52,6 +53,16 @@ def dl_params_from_numpy(pump, S, dt, noise_ratio, feedback_scale, g,
     if any(np.ndim(x) for x in vals):
         raise ValueError("DLParams fields must be scalars in this port")
     return DLParams(*(float(np.float32(x)) for x in vals))
+
+
+def mf_params_from_numpy(pump, S, dt, j, feedback_scale, g, lower_limit,
+                         upper_limit, iterations):
+    """``MFParams`` from the JAX ``MFParams`` fields (arrays or floats)."""
+    vals = (pump, S, dt, j, feedback_scale, g, lower_limit, upper_limit,
+            iterations)
+    if any(np.ndim(x) for x in vals):
+        raise ValueError("MFParams fields must be scalars in this port")
+    return MFParams(*(float(np.float32(x)) for x in vals))
 
 
 def adam_from_numpy(alpha, beta1, beta2, add_assign):

@@ -29,28 +29,13 @@ from ccvm_tpu_torch.runtime import fp32_matmul
 # a bound far above any physical amplitude keeps an overshooting explicit
 # Euler step from cascading to Inf.
 DL_SAFETY_BOUND = 1.0e3
-# Shared memory one block may use on Hopper (227 KB).
-_SMEM_LIMIT = 232448
-_TILE = 4  # rows and columns of a thread's tile (csrc/dl_solve.cu TR, TC)
-_MAX_THREADS = 256  # csrc/dl_solve.cu kMaxThreads
-_MAX_ROW_GROUPS = 16  # at most 64 trajectories per block
 
 
 def launch_shape(n: int):
     """(rows per block, threads, shared-memory bytes) of the kernel at
-    problem size ``n``; raises when Q plus the tile does not fit a block."""
-    np_ = -(-n // _TILE) * _TILE
-    groups = np_ // _TILE
-    row_groups = min(_MAX_ROW_GROUPS, _MAX_THREADS // groups)
-    rows = row_groups * _TILE
-    smem = 4 * (np_ * np_ + 2 * rows * (np_ + 4))
-    if row_groups < 1 or smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"problem size N={n} does not fit the DL kernel: Q plus a tile of "
-            f"trajectories needs {smem} bytes of shared memory (limit "
-            f"{_SMEM_LIMIT}) and {groups} column groups (limit {_MAX_THREADS})"
-        )
-    return rows, groups * row_groups, smem
+    problem size ``n`` (Q and two x arrays, c and s, per block); raises when
+    they do not fit a block."""
+    return build.launch_shape(n, 2, "DL")
 
 
 def _scalars(params, hp, noise_scale):
@@ -118,13 +103,13 @@ def dl_solve(
         noise=float(noise_scale) != 0.0,
         rng=philox.RNG_NAMES.index(rng) if float(noise_scale) != 0.0 else 1,
     )
-    lib = build.load(spec)
+    launch = build.load(spec)
     c = torch.empty((num_instances, batch_size, n), dtype=torch.float32,
                     device=q.device)
     s = torch.empty_like(c)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ccvm_dl_solve(
+        err = launch(
             q.data_ptr(), v.data_ptr(), c.data_ptr(), s.data_ptr(),
             num_instances, int(batch_size), n, int(iterations),
             int(seed) % 2**64, _scalars(params, hp, float(noise_scale)), rows,

@@ -20,8 +20,10 @@ Words are held in int64 tensors with values in [0, 2**32).  A product of two
 16-bit halves.
 
 The transforms keep the names and the moments of ``_RNG_NAMES``
-(``pallas_kernels.py:152-257``); each returns the pair ``(z1, z2)`` of
-normals for the c and s quadratures.
+(``pallas_kernels.py:152-257``).  :func:`wiener_pair` gives the pair
+``(z1, z2)`` of normals for the c and s quadratures (DL); :func:`wiener_one`
+gives the single draw of the kernels that take one per step (MF), as
+``_noise_one`` does (``pallas_kernels.py:301-319``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ import torch
 RNG_NAMES = ("popcount32", "popcount16", "popcount", "box_muller")
 # Philox streams (counter word 3) each transform consumes per element.
 STREAMS = {"popcount16": 1, "popcount32": 2, "box_muller": 2, "popcount": 6}
+# ... and for a single draw: the first normal of the pair, whose words come
+# from the first streams (popcount16 draws one popcount32 normal instead).
+STREAMS_ONE = {"popcount16": 1, "popcount32": 1, "box_muller": 2, "popcount": 3}
 
 _M0 = 0xD2511F53
 _M1 = 0xCD9E8D57
@@ -114,37 +119,48 @@ def popcount16_pair(w):
     return z1, z2
 
 
-def popcount32_pair(w0, w1):
+def popcount32_one(w):
     """One normal per word: popcount - 16 is Binomial(32, 1/2) centred,
     scaled to unit variance.  Lattice spacing 1/sqrt(8) ~ 0.354, support
     +-5.66 (``_normal_one_popcount``, ``pallas_kernels.py:185-201``)."""
-    return tuple(
-        (popcount(w) - 16).to(torch.float32) * POPC32_INV_STD for w in (w0, w1)
-    )
+    return (popcount(w) - 16).to(torch.float32) * POPC32_INV_STD
+
+
+def popcount32_pair(w0, w1):
+    return popcount32_one(w0), popcount32_one(w1)
+
+
+def popcount_one(b1, b2, b3):
+    """A normal from three words: popcount(b1) + popcount(b2) - 32 plus a
+    23-bit uniform on [-1/2, 1/2), scaled to unit variance; support about
+    +-8.1 (``_normal_pair_popcount``, ``pallas_kernels.py:204-232``)."""
+    pc = popcount(b1) + popcount(b2)
+    u = (b3 & 0x7FFFFF).to(torch.float32) * _INV_2_23
+    return ((pc - 32).to(torch.float32) + (u - 0.5)) * POPC_INV_STD
 
 
 def popcount_pair(w0, w1, w2, w3, w4, w5):
-    """Each normal from three words: popcount(b1) + popcount(b2) - 32 plus a
-    23-bit uniform on [-1/2, 1/2), scaled to unit variance; support about
-    +-8.1 (``_normal_pair_popcount``, ``pallas_kernels.py:204-232``)."""
+    return popcount_one(w0, w1, w2), popcount_one(w3, w4, w5)
 
-    def one(b1, b2, b3):
-        pc = popcount(b1) + popcount(b2)
-        u = (b3 & 0x7FFFFF).to(torch.float32) * _INV_2_23
-        return ((pc - 32).to(torch.float32) + (u - 0.5)) * POPC_INV_STD
 
-    return one(w0, w1, w2), one(w3, w4, w5)
+def _box_muller_polar(w0, w1):
+    u1 = ((w0 & 0x7FFFFF).to(torch.float32) + 1.0) * _INV_2_23
+    u2 = (w1 & 0x7FFFFF).to(torch.float32) * _INV_2_23
+    return torch.sqrt(-2.0 * torch.log(u1)), _TWO_PI * u2
 
 
 def box_muller_pair(w0, w1):
     """Exact Gaussians from 23-bit uniforms, u1 in (0, 1] so the log is
     finite; |z| <= sqrt(2 * 23 ln 2) ~ 5.65 (``_normal_pair_box_muller``,
     ``pallas_kernels.py:152-170``)."""
-    u1 = ((w0 & 0x7FFFFF).to(torch.float32) + 1.0) * _INV_2_23
-    u2 = (w1 & 0x7FFFFF).to(torch.float32) * _INV_2_23
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    theta = _TWO_PI * u2
+    r, theta = _box_muller_polar(w0, w1)
     return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def box_muller_one(w0, w1):
+    """The first normal of :func:`box_muller_pair`, ``r cos(theta)``."""
+    r, theta = _box_muller_polar(w0, w1)
+    return r * torch.cos(theta)
 
 
 TRANSFORMS = {
@@ -152,6 +168,14 @@ TRANSFORMS = {
     "popcount32": popcount32_pair,
     "popcount": popcount_pair,
     "box_muller": box_muller_pair,
+}
+# Single draws: the half-word split of popcount16 pays only for pairs, so a
+# single popcount16 draw is a popcount32 one (pallas_kernels.py:307-310).
+TRANSFORMS_ONE = {
+    "popcount16": popcount32_one,
+    "popcount32": popcount32_one,
+    "popcount": popcount_one,
+    "box_muller": box_muller_one,
 }
 
 
@@ -163,3 +187,11 @@ def wiener_pair(seed: int, step: int, rows: torch.Tensor, n: int, rng: str,
     ws = [words(seed, step, rows, n, k, instance) for k in range(STREAMS[rng])]
     return TRANSFORMS[rng](*ws)
 
+
+def wiener_one(seed: int, step: int, rows: torch.Tensor, n: int, rng: str,
+               instance=0):
+    """The kernel's single standard-normal draw ``w`` for one step."""
+    if rng not in TRANSFORMS_ONE:
+        raise ValueError(f"rng must be one of {RNG_NAMES}, got {rng!r}")
+    ws = [words(seed, step, rows, n, k, instance) for k in range(STREAMS_ONE[rng])]
+    return TRANSFORMS_ONE[rng](*ws)

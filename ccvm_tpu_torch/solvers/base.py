@@ -21,6 +21,13 @@ from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.runtime import resolve_device
 
 
+def not_ported(feature, item):
+    """The error a feature not ported yet raises, naming its ROADMAP item."""
+    return NotImplementedError(
+        f"{feature} is not ported to ccvm_tpu_torch yet (ROADMAP.md, {item})"
+    )
+
+
 class MachineType:
     """The type of machine we are simulating (``ccvm_solver.py:15-22``)."""
 

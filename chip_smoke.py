@@ -11,24 +11,32 @@ exits non-zero without printing a result:
 1. device: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does;
 2. build: compiles every kernel specialisation the run launches from
-   ``ccvm_tpu_torch/csrc`` (one nvcc each, in parallel) into build/kernels;
+   ``ccvm_tpu_torch/csrc`` (one nvcc each, all started together) into
+   build/kernels, and prints what ptxas reports;
 3. noise off: each kernel against its plain PyTorch version on the card, on
-   the scaled N=70 instance, batch 1024, 300 iterations (DL pump 12, and
-   DL-Adam with beta2 0.999 and 1.0); plus a stacked two-instance launch
-   against two serial launches, bit for bit;
+   the scaled N=70 instance, batch 1024, 300 iterations (DL pump 12, DL-Adam
+   with beta2 0.999 and 1.0; MF with the tuned N=70 parameters, MF-Adam with
+   beta2 0.999 and 1.0); plus, for each of DL and MF, a stacked two-instance
+   launch against two serial launches, bit for bit;
 4. noise on, same Philox words: kernel against plain, 100 iterations;
 5. noise on, statistics: 15,000 iterations at batch 4096, kernel against
    plain; every success probability within 5 combined binomial sigmas + 0.01
-   (the band of tools/tpu_validate.py);
-6. main path: ``DLSolver(device="cuda", batch_size=65536)`` on
-   tuningH070-100-0.in with the tuned N=70 parameters, 15,000 iterations, a
-   warm-up then seeds 1-3, with the launch counts zeroed just before and read
-   just after, and the kernel's own time read from CUDA events around each
-   launch; then the DL-Adam path through the same façade, one solve;
+   (the band of tools/tpu_validate.py).  MF's readouts go through the change
+   of variables, grad-descent and ``compute_energy_readout64``, as the
+   façade's do;
+6. main paths, through the façades, on tuningH070-100-0.in with the tuned
+   N=70 parameters, batch 65536, 15,000 iterations, a warm-up then seeds 1-3,
+   with the launch counts zeroed just before and read just after, and the
+   kernel's own time read from CUDA events around each launch:
+   ``DLSolver(device="cuda")`` (then one DL-Adam solve), and
+   ``MFSolver(device="cuda")`` with ``post_processor="grad-descent"`` and
+   g 0.01 (then one MF-Adam solve);
 7. kernels: each kernel against its plain version at the main-path shape
    (same seed, so the same noise), then one JSON line with each kernel's
    launches, time, bound, plain time and largest error against its plain
-   version;
+   version.  Every kernel is held elementwise over its whole main-shape
+   solve; MF is also held after 100 and 1,000 steps, and its difference by
+   depth is printed;
 8. the last line: {"ok": true, "device": {...}}.
 """
 
@@ -49,20 +57,27 @@ TUNED = os.path.join(REPO, "examples", "tuned_parameters.json")
 N = 70
 MAIN_BATCH = 65536
 ITERATIONS = 15000
-G = 0.05
+G = 0.05  # DL
+MF_G = 0.01  # MFSolver's default, as bench.py's MF row runs it
 # Kernel against plain: fp32 sum order differs (cuBLAS against the kernel's
 # FMA chain) and nvcc contracts multiply-adds, so the two agree to round-off,
-# not bit for bit.  The dynamics contract, so the difference stays at
-# round-off over a whole solve.
+# not bit for bit.
 PARITY_TOL = 1e-4
-# Elementwise flops per state element per step (drift, schedules, noise
-# scaling, clip), beside the 4*N flops of the two matvecs; the Adam variant
-# adds the moment updates of both quadratures.
-ELEMENTWISE_FLOPS = {"dl_solve": 40, "dl_adam_solve": 64}
+# fp32 operations per element of (batch, N) state per step, beside the
+# 2*N of each matvec, counted from csrc/dl_solve.cu and csrc/mf_solve.cu
+# (drift, schedules, noise scaling, divisions, clips; Philox's integer work
+# is not counted).  DL does two matvecs a step, MF one.
+ELEMENTWISE_FLOPS = {"dl_solve": 40, "dl_adam_solve": 64,
+                     "mf_solve": 40, "mf_adam_solve": 55}
+MATVECS = {"dl_solve": 2, "dl_adam_solve": 2, "mf_solve": 1, "mf_adam_solve": 1}
+OUTPUTS = {"dl_solve": 2, "dl_adam_solve": 2, "mf_solve": 3, "mf_adam_solve": 3}
 # Published dense fp32 (non-tensor-core) peaks and memory rates of H100
 # parts, by a substring of the nvidia-smi name (NVIDIA data sheets).
 PEAKS = (("PCIe", 51.2e12, 2.0e12), ("NVL", 60.0e12, 3.9e12),
          ("H100", 66.9e12, 3.35e12))
+# bench.py's MF row on a TPU v5 lite in round 5 (BENCH_r05.json): a quality
+# reference for the port, not a speed target.
+TPU_R5_MF_P01 = 1.000
 
 
 def log(msg):
@@ -78,10 +93,11 @@ def card_peaks(name):
 
 def bound_ms(kernel, batch, n, iterations, name):
     """Least time for the work: operations over the fp32 peak, or bytes
-    (Q and V read once, c and s written once) over the memory rate."""
+    (Q and V read once, each output written once) over the memory rate."""
     flops_peak, bw = card_peaks(name)
-    flops = (4 * batch * n * n + ELEMENTWISE_FLOPS[kernel] * batch * n) * iterations
-    nbytes = 4 * (n * n + n + 2 * batch * n)
+    flops = (2 * MATVECS[kernel] * batch * n * n
+             + ELEMENTWISE_FLOPS[kernel] * batch * n) * iterations
+    nbytes = 4 * (n * n + n + OUTPUTS[kernel] * batch * n)
     t_ops, t_bytes = flops / flops_peak, nbytes / bw
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -102,6 +118,10 @@ def success_band_ok(perf_a, perf_b, batch):
     return ok
 
 
+def max_diff(a, b):
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "ccvm_tpu_torch")):
         raise SystemExit("chip_smoke: ccvm_tpu_torch/ is missing; run from a checkout")
@@ -112,8 +132,10 @@ def main():
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from ccvm_tpu_torch import AdamParameters, DLSolver, ProblemInstance, Solution
-    from ccvm_tpu_torch.ops import build, dl_kernels
+    from ccvm_tpu_torch import (AdamParameters, DLSolver, MFSolver,
+                                ProblemInstance, Solution)
+    from ccvm_tpu_torch.ops import build, dl_kernels, mf_kernels
+    from ccvm_tpu_torch.post_processor import PostProcessorGradDescent
 
     # 1. device
     smi = subprocess.run(
@@ -127,8 +149,10 @@ def main():
 
     # 2. build
     with open(TUNED) as f:
-        tuned = json.load(f)["dl"][str(N)]
+        tuned_all = json.load(f)
+    tuned, mf_tuned = tuned_all["dl"][str(N)], tuned_all["mf"][str(N)]
     pk = {N: {**tuned, "iterations": ITERATIONS}}
+    mf_pk = {N: {**mf_tuned, "iterations": ITERATIONS}}
     adam_hps = {b2: AdamParameters(beta2=b2).to_hyperparameters()
                 for b2 in (0.999, 1.0)}
 
@@ -137,31 +161,48 @@ def main():
                             hp is not None and hp.add_assign, True,
                             tuned["pump"] > 1, noise, 1)
 
+    def mf_spec(hp=None, noise=True):
+        return build.MFSpec(hp is not None, hp is not None and hp.beta2 == 1.0,
+                            hp is not None and hp.add_assign, True, noise, 0)
+
     specs = [spec(), spec(noise=False), spec(adam_hps[0.999]),
-             spec(adam_hps[0.999], noise=False), spec(adam_hps[1.0], noise=False)]
+             spec(adam_hps[0.999], noise=False), spec(adam_hps[1.0], noise=False),
+             mf_spec(), mf_spec(noise=False), mf_spec(adam_hps[0.999]),
+             mf_spec(adam_hps[0.999], noise=False),
+             mf_spec(adam_hps[1.0], noise=False)]
     t0 = time.perf_counter()
     reports = build.build(specs)
     log(f"phase 2 build: {len(reports)} libraries in "
-        f"{time.perf_counter() - t0:.1f} s from ccvm_tpu_torch/csrc/dl_solve.cu")
+        f"{time.perf_counter() - t0:.1f} s from ccvm_tpu_torch/csrc "
+        f"(dl_solve.cu, mf_solve.cu, ccvm_common.cuh)")
     for s, rep in reports.items():
         regs = [ln.strip() for ln in rep.splitlines() if "registers" in ln]
-        log(f"  spec {s.tag()}: {regs[-1] if regs else rep.strip()[-200:]}")
+        log(f"  {type(s).__name__} {s.tag()}: {regs[-1] if regs else rep.strip()[-200:]}")
 
     # Scaled instances on the card, through the user-facing entry points.
-    def instance(path):
+    def instance(path, solver_cls=DLSolver):
         inst = ProblemInstance(device="cuda", instance_type="tuning", file_path=path)
-        inst.scale_coefs(DLSolver(device="cuda").get_scaling_factor(inst.q_matrix))
+        inst.scale_coefs(solver_cls(device="cuda").get_scaling_factor(inst.q_matrix))
         return inst
 
     inst = instance(INSTANCE)
+    mf_inst = instance(INSTANCE, MFSolver)
     solver = DLSolver(device="cuda", batch_size=MAIN_BATCH)
     solver.parameter_key = pk
     solver.solution_bounds = inst.solution_bounds
+    mf_solver = MFSolver(device="cuda", batch_size=MAIN_BATCH)
+    mf_solver.parameter_key = mf_pk
+    mf_solver.solution_bounds = mf_inst.solution_bounds
 
     def params(iterations):
         return solver._make_params(tuned["pump"], 1.0, tuned["dt"],
                                    tuned["noise_ratio"], tuned["feedback_scale"],
                                    G, iterations)
+
+    def mf_params(iterations):
+        return mf_solver._make_params(mf_tuned["pump"], mf_tuned["S"],
+                                      mf_tuned["dt"], mf_tuned["j"],
+                                      mf_tuned["feedback_scale"], MF_G, iterations)
 
     def run_pair(seed, batch, iterations, hp, noise_scale, q=None, v=None):
         kw = dict(iterations=iterations, batch_size=batch, pump_rate_flag=True,
@@ -177,21 +218,43 @@ def main():
         plain_s = time.perf_counter() - t
         for x in (ck, sk):
             assert torch.isfinite(x).all(), "kernel output is not finite"
-        err = max((ck - cr).abs().max().item(), (sk - sr).abs().max().item())
-        return (ck, sk), (cr, sr), err, plain_s
+        return (ck, sk), (cr, sr), max_diff((ck, sk), (cr, sr)), plain_s
 
-    max_err = {"dl_solve": 0.0, "dl_adam_solve": 0.0}
+    def mf_run_pair(seed, batch, iterations, hp, noise_scale):
+        kw = dict(iterations=iterations, batch_size=batch, pump_rate_flag=True,
+                  noise_scale=noise_scale, rng="popcount32", hp=hp)
+        p = mf_params(iterations)
+        out = mf_kernels.mf_solve(seed, mf_inst.q_matrix, mf_inst.v_vector, p, **kw)
+        t = time.perf_counter()
+        ref = mf_kernels.mf_solve_reference(seed, mf_inst.q_matrix,
+                                            mf_inst.v_vector, p, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        for x in out:
+            assert torch.isfinite(x).all(), "kernel output is not finite"
+        return out, ref, max_diff(out, ref), plain_s
+
+    max_err = {"dl_solve": 0.0, "dl_adam_solve": 0.0, "mf_solve": 0.0,
+               "mf_adam_solve": 0.0}
     cases = [("dl_solve", None, "DL pump 12"),
              ("dl_adam_solve", adam_hps[0.999], "DL-Adam beta2 0.999"),
              ("dl_adam_solve", adam_hps[1.0], "DL-Adam beta2 1.0")]
+    mf_cases = [("mf_solve", None, "MF"),
+                ("mf_adam_solve", adam_hps[0.999], "MF-Adam beta2 0.999"),
+                ("mf_adam_solve", adam_hps[1.0], "MF-Adam beta2 1.0")]
+
+    def hold(kname, label, err, what):
+        max_err[kname] = max(max_err[kname], err)
+        log(f"{what} {label}: max |kernel - plain| = {err:.3e} (tol {PARITY_TOL})")
+        assert err <= PARITY_TOL, f"{label}: {what} parity {err} > {PARITY_TOL}"
 
     # 3. noise off
     for kname, hp, label in cases:
-        _, _, err, _ = run_pair(0, 1024, 300, hp, 0.0)
-        max_err[kname] = max(max_err[kname], err)
-        log(f"phase 3 noise off {label}: max |kernel - plain| of c, s = {err:.3e}"
-            f" (tol {PARITY_TOL})")
-        assert err <= PARITY_TOL, f"{label}: noise-off parity {err} > {PARITY_TOL}"
+        hold(kname, label, run_pair(0, 1024, 300, hp, 0.0)[2],
+             "phase 3 noise off, 300 steps, c and s,")
+    for kname, hp, label in mf_cases:
+        hold(kname, label, mf_run_pair(0, 1024, 300, hp, 0.0)[2],
+             "phase 3 noise off, 300 steps, mu, mu_tilde and sigma,")
     second = instance(SECOND_INSTANCE)
     q2 = torch.stack([inst.q_matrix, second.q_matrix])
     v2 = torch.stack([inst.v_vector, second.v_vector])
@@ -202,133 +265,219 @@ def main():
         ci, si = dl_kernels.dl_solve(11 + i, q2[i], v2[i], params(300), **kw)
         assert torch.equal(cs[i], ci) and torch.equal(ss[i], si), \
             f"stacked instance {i} differs from a serial launch with seed {11 + i}"
+    mf_second = instance(SECOND_INSTANCE, MFSolver)
+    q2 = torch.stack([mf_inst.q_matrix, mf_second.q_matrix])
+    v2 = torch.stack([mf_inst.v_vector, mf_second.v_vector])
+    kw = dict(iterations=300, batch_size=1024, pump_rate_flag=True,
+              rng="popcount32")
+    stacked = mf_kernels.mf_solve(11, q2, v2, mf_params(300), **kw)
+    for i in range(2):
+        serial = mf_kernels.mf_solve(11 + i, q2[i], v2[i], mf_params(300), **kw)
+        assert all(torch.equal(a[i], b) for a, b in zip(stacked, serial)), \
+            f"stacked MF instance {i} differs from a serial launch with seed {11 + i}"
     log("phase 3 stacked: a two-instance launch equals serial launches with "
-        "seeds 11 and 12 bit for bit")
+        "seeds 11 and 12 bit for bit (DL and MF)")
 
     # 4. noise on, the same Philox words
     for kname, hp, label in cases[:2]:
-        _, _, err, _ = run_pair(5, 1024, 100, hp, 1.0)
-        max_err[kname] = max(max_err[kname], err)
-        log(f"phase 4 noise on {label}, popcount16, 100 steps: max |kernel - "
-            f"plain| = {err:.3e} (tol {PARITY_TOL})")
-        assert err <= PARITY_TOL, f"{label}: noise-on parity {err} > {PARITY_TOL}"
+        hold(kname, label, run_pair(5, 1024, 100, hp, 1.0)[2],
+             "phase 4 noise on, popcount16, 100 steps,")
+    for kname, hp, label in mf_cases[:2]:
+        hold(kname, label, mf_run_pair(5, 1024, 100, hp, 1.0)[2],
+             "phase 4 noise on, popcount32, 100 steps,")
 
     # 5. noise on, statistics over a full-length solve
+    def performance(instance_, energies, batch):
+        return Solution(
+            problem_size=N, batch_size=batch, instance_name=instance_.name,
+            iterations=ITERATIONS, objective_values=energies, solve_time=0.0,
+            pp_time=0.0, optimal_value=instance_.optimal_sol,
+            best_value=instance_.best_sol, num_frac_values=instance_.num_frac_values,
+            solution_vector=[], variables={}).solution_performance
+
     (ck, _), (cr, _), err, plain_s = run_pair(21, 4096, ITERATIONS, None, 1.0)
     cv = ("boxqp", *inst.solution_bounds, 1.0)
-    perf = []
-    for c in (ck, cr):
-        e = inst.compute_energy_readout64(c, change_vars=cv)
-        perf.append(Solution(
-            problem_size=N, batch_size=4096, instance_name=inst.name,
-            iterations=ITERATIONS, objective_values=e, solve_time=0.0,
-            pp_time=0.0, optimal_value=inst.optimal_sol,
-            best_value=inst.best_sol, num_frac_values=inst.num_frac_values,
-            solution_vector=[], variables={}).solution_performance)
-    log(f"phase 5 statistics: batch 4096, {ITERATIONS} steps, plain version "
+    perf = [performance(inst, inst.compute_energy_readout64(c, change_vars=cv), 4096)
+            for c in (ck, cr)]
+    log(f"phase 5 DL statistics: batch 4096, {ITERATIONS} steps, plain version "
         f"{plain_s:.2f} s, max |kernel - plain| = {err:.3e}")
-    assert success_band_ok(perf[0], perf[1], 4096), "success probabilities disagree"
+    assert success_band_ok(perf[0], perf[1], 4096), "DL success probabilities disagree"
 
-    # 6. main path, through the façade
-    class EventTimedDLSolver(DLSolver):
-        """DLSolver whose one kernel launch per solve is bracketed by CUDA
-        events on the launch stream, so the kernel's own time is read from
-        the main-path run itself."""
+    out, ref, err, plain_s = mf_run_pair(21, 4096, ITERATIONS, None, 1.0)
+    lo, hi = mf_inst.solution_bounds
+    perf = []
+    for mt in (out[1], ref[1]):
+        confs = PostProcessorGradDescent().postprocess(
+            mf_solver.change_variables(mt, lo, hi, mf_tuned["S"]),
+            mf_inst.q_matrix, mf_inst.v_vector)
+        perf.append(performance(mf_inst, mf_inst.compute_energy_readout64(confs), 4096))
+    log(f"phase 5 MF statistics: batch 4096, {ITERATIONS} steps, readout through "
+        f"grad-descent, plain version {plain_s:.2f} s, max |kernel - plain| = "
+        f"{err:.3e}")
+    assert success_band_ok(perf[0], perf[1], 4096), "MF success probabilities disagree"
 
-        kernel_events = []
+    # 6. main paths, through the façades
+    def event_timed(cls):
+        class EventTimed(cls):
+            """A façade whose one kernel launch per solve is bracketed by
+            CUDA events on the launch stream, so the kernel's own time is
+            read from the main-path run itself."""
 
-        def _solve(self, *args, **kwargs):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            out = super()._solve(*args, **kwargs)
-            end.record()
-            self.kernel_events.append((start, end))
-            return out
+            kernel_events = []
 
-    main_solver = EventTimedDLSolver(device="cuda", batch_size=MAIN_BATCH,
-                                     timing="async")
-    main_solver.parameter_key = pk
-    main_solver(inst, seed=0)  # warm-up
-    torch.cuda.synchronize()
-    main_solver.kernel_events.clear()
-    dl_kernels.dl_solve.dl_launches = 0
-    dl_kernels.dl_solve.dl_adam_launches = 0
-    best_wall, best, walls = float("inf"), None, []
-    for seed in (1, 2, 3):
+            def _solve(self, *args, **kwargs):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = super()._solve(*args, **kwargs)
+                end.record()
+                self.kernel_events.append((start, end))
+                return out
+
+        return EventTimed
+
+    def zero_counts():
+        dl_kernels.dl_solve.dl_launches = dl_kernels.dl_solve.dl_adam_launches = 0
+        mf_kernels.mf_solve.mf_launches = mf_kernels.mf_solve.mf_adam_launches = 0
+
+    def counts():
+        return {"dl_solve": dl_kernels.dl_solve.dl_launches,
+                "dl_adam_solve": dl_kernels.dl_solve.dl_adam_launches,
+                "mf_solve": mf_kernels.mf_solve.mf_launches,
+                "mf_adam_solve": mf_kernels.mf_solve.mf_adam_launches}
+
+    def main_path(cls, pkey, instance_, label, **call):
+        main_solver = event_timed(cls)(device="cuda", batch_size=MAIN_BATCH,
+                                       timing="async")
+        main_solver.parameter_key = pkey
+        main_solver(instance_, seed=0, **call)  # warm-up
+        torch.cuda.synchronize()
+        main_solver.kernel_events.clear()
+        zero_counts()
+        best_wall, best, walls = float("inf"), None, []
+        for seed in (1, 2, 3):
+            t = time.perf_counter()
+            sol = main_solver(instance_, seed=seed, **call)
+            wall = time.perf_counter() - t
+            walls.append(wall)
+            if wall < best_wall:
+                best_wall, best = wall, sol
+        launched = counts()
+        torch.cuda.synchronize()
+        kernel_ms = [a.elapsed_time(b) for a, b in main_solver.kernel_events]
+        assert len(kernel_ms) == 3, kernel_ms
+        c = best.variables["problem_variables"]
+        assert c.shape == (MAIN_BATCH, N) and c.is_cuda
+        assert torch.isfinite(c).all()
+        assert np.all(np.isfinite(best.objective_values))
+        perf_main = best.solution_performance
+        log(f"phase 6 {label} main path: N={N} batch={MAIN_BATCH} iterations="
+            f"{ITERATIONS} best wall {best_wall:.3f} s (walls {walls}), "
+            f"{ITERATIONS * MAIN_BATCH / best_wall:.4g} traj-iter/s, kernel's own "
+            f"time (CUDA events) {kernel_ms} ms, P(0.1%)={perf_main['optimal']:.4f} "
+            f"P(1%)={perf_main['one_percent']:.4f} best="
+            f"{best.best_objective_value:.3f}/{best.optimal_value:.3f}, launches "
+            f"{launched}")
+        assert perf_main["one_percent"] >= 0.95, perf_main
+        return best, launched
+
+    def adam_path(cls, pkey, instance_, label, **call):
+        adam_solver = cls(device="cuda", batch_size=MAIN_BATCH, timing="async")
+        adam_solver.parameter_key = pkey
+        zero_counts()
         t = time.perf_counter()
-        sol = main_solver(inst, seed=seed)
+        sol = adam_solver(instance_, seed=1, algorithm_parameters=AdamParameters(),
+                          **call)
         wall = time.perf_counter() - t
-        walls.append(wall)
-        if wall < best_wall:
-            best_wall, best = wall, sol
-    launches = {"dl_solve": dl_kernels.dl_solve.dl_launches,
-                "dl_adam_solve": dl_kernels.dl_solve.dl_adam_launches}
-    assert launches == {"dl_solve": 3, "dl_adam_solve": 0}, launches
-    torch.cuda.synchronize()
-    main_kernel_ms = [a.elapsed_time(b) for a, b in main_solver.kernel_events]
-    assert len(main_kernel_ms) == 3, main_kernel_ms
-    c = best.variables["problem_variables"]
-    assert c.shape == (MAIN_BATCH, N) and c.is_cuda
-    assert torch.isfinite(c).all() and c.abs().max().item() <= 1.0
-    assert np.all(np.isfinite(best.objective_values))
-    perf_main = best.solution_performance
-    log(f"phase 6 main path: N={N} batch={MAIN_BATCH} iterations={ITERATIONS} "
-        f"best wall {best_wall:.3f} s (walls {walls}), "
-        f"{ITERATIONS * MAIN_BATCH / best_wall:.4g} traj-iter/s, kernel's own "
-        f"time (CUDA events) {main_kernel_ms} ms, P(0.1%)={perf_main['optimal']:.4f} "
-        f"P(1%)={perf_main['one_percent']:.4f} best="
-        f"{best.best_objective_value:.3f}/{best.optimal_value:.3f}, launches "
-        f"{launches}")
-    assert perf_main["one_percent"] >= 0.95, perf_main
+        launched = counts()
+        assert np.all(np.isfinite(sol.objective_values))
+        log(f"phase 6 {label} path: wall {wall:.3f} s, "
+            f"P(0.1%)={sol.solution_performance['optimal']:.4f} "
+            f"P(1%)={sol.solution_performance['one_percent']:.4f} best="
+            f"{sol.best_objective_value:.3f}, launches {launched}")
+        return launched
 
-    adam_solver = DLSolver(device="cuda", batch_size=MAIN_BATCH, timing="async")
-    adam_solver.parameter_key = pk
-    dl_kernels.dl_solve.dl_launches = 0
-    dl_kernels.dl_solve.dl_adam_launches = 0
-    t = time.perf_counter()
-    sol_adam = adam_solver(inst, seed=1, algorithm_parameters=AdamParameters())
-    wall_adam = time.perf_counter() - t
-    launches["dl_adam_solve"] = dl_kernels.dl_solve.dl_adam_launches
-    assert (dl_kernels.dl_solve.dl_launches, launches["dl_adam_solve"]) == (0, 1)
-    assert np.all(np.isfinite(sol_adam.objective_values))
-    log(f"phase 6 DL-Adam path: wall {wall_adam:.3f} s, "
-        f"P(0.1%)={sol_adam.solution_performance['optimal']:.4f} "
-        f"P(1%)={sol_adam.solution_performance['one_percent']:.4f} best="
-        f"{sol_adam.best_objective_value:.3f}, launches "
-        f"{launches['dl_adam_solve']}")
+    launches = {}
+    best, launched = main_path(DLSolver, pk, inst, "DL")
+    assert launched == {"dl_solve": 3, "dl_adam_solve": 0, "mf_solve": 0,
+                        "mf_adam_solve": 0}, launched
+    assert best.variables["problem_variables"].abs().max().item() <= 1.0
+    launches["dl_solve"] = launched["dl_solve"]
+    launched = adam_path(DLSolver, pk, inst, "DL-Adam")
+    assert (launched["dl_solve"], launched["dl_adam_solve"]) == (0, 1), launched
+    launches["dl_adam_solve"] = launched["dl_adam_solve"]
+
+    best, launched = main_path(MFSolver, mf_pk, mf_inst, "MF (grad-descent)",
+                               post_processor="grad-descent", g=MF_G)
+    assert launched == {"dl_solve": 0, "dl_adam_solve": 0, "mf_solve": 3,
+                        "mf_adam_solve": 0}, launched
+    c = best.variables["problem_variables"]
+    assert c.min().item() >= lo and c.max().item() <= hi
+    log(f"  quality reference: bench.py's MF row on a TPU v5 lite in round 5 "
+        f"gave P(0.1%)={TPU_R5_MF_P01:.3f}")
+    launches["mf_solve"] = launched["mf_solve"]
+    launched = adam_path(MFSolver, mf_pk, mf_inst, "MF-Adam (grad-descent)",
+                         post_processor="grad-descent", g=MF_G)
+    assert (launched["mf_solve"], launched["mf_adam_solve"]) == (0, 1), launched
+    launches["mf_adam_solve"] = launched["mf_adam_solve"]
 
     # 7. kernels: time, bound and plain time at the main-path shape
-    kernels = []
-    main_hp = {"dl_solve": None, "dl_adam_solve": adam_hps[0.999]}
-    replaces = {"dl_solve": "ccvm_tpu/ops/pallas_kernels.py:843",
-                "dl_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:977"}
-    for kname, hp in main_hp.items():
-        kw = dict(iterations=ITERATIONS, batch_size=MAIN_BATCH,
-                  pump_rate_flag=True, pump_is_gt_one=tuned["pump"] > 1,
-                  rng="popcount16", hp=hp)
-        p = params(ITERATIONS)
+    def timed(fn):
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        times = []
-        for rep in range(2):
-            events[0].record()
-            out = dl_kernels.dl_solve(100, inst.q_matrix, inst.v_vector, p, **kw)
-            events[1].record()
-            torch.cuda.synchronize()
-            times.append(events[0].elapsed_time(events[1]))
         events[0].record()
-        ref = dl_kernels.dl_solve_reference(100, inst.q_matrix, inst.v_vector, p, **kw)
+        out = fn()
         events[1].record()
         torch.cuda.synchronize()
-        plain_ms = events[0].elapsed_time(events[1])
-        err = max((a - b).abs().max().item() for a, b in zip(out, ref))
-        max_err[kname] = max(max_err[kname], err)
-        log(f"phase 7 {kname} at the main-path shape, same noise: max |kernel - "
-            f"plain| = {err:.3e} (tol {PARITY_TOL})")
-        assert err <= PARITY_TOL, f"{kname}: main-shape parity {err} > {PARITY_TOL}"
+        return out, events[0].elapsed_time(events[1])
+
+    kernels = []
+    main_hp = {"dl_solve": None, "dl_adam_solve": adam_hps[0.999],
+               "mf_solve": None, "mf_adam_solve": adam_hps[0.999]}
+    replaces = {"dl_solve": "ccvm_tpu/ops/pallas_kernels.py:843",
+                "dl_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:977",
+                "mf_solve": "ccvm_tpu/ops/pallas_kernels.py:1085",
+                "mf_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:1224"}
+    for kname, hp in main_hp.items():
+        is_mf = kname.startswith("mf")
+        if is_mf:
+            p = mf_params(ITERATIONS)
+            kw = dict(iterations=ITERATIONS, batch_size=MAIN_BATCH,
+                      pump_rate_flag=True, rng="popcount32", hp=hp)
+            q, v = mf_inst.q_matrix, mf_inst.v_vector
+            kernel, plain = mf_kernels.mf_solve, mf_kernels.mf_solve_reference
+        else:
+            p = params(ITERATIONS)
+            kw = dict(iterations=ITERATIONS, batch_size=MAIN_BATCH,
+                      pump_rate_flag=True, pump_is_gt_one=tuned["pump"] > 1,
+                      rng="popcount16", hp=hp)
+            q, v = inst.q_matrix, inst.v_vector
+            kernel, plain = dl_kernels.dl_solve, dl_kernels.dl_solve_reference
+        times = []
+        for rep in range(2):
+            out, ms = timed(lambda: kernel(100, q, v, p, **kw))
+            times.append(ms)
+        ref, plain_ms = timed(lambda: plain(100, q, v, p, **kw))
+        err = max_diff(out, ref)
+        if is_mf:
+            # Elementwise at every depth; the growth with depth is printed.
+            growth = {ITERATIONS: err}
+            for depth in (100, 1000):
+                short = dict(kw, iterations=depth)
+                pd = mf_params(depth)
+                growth[depth] = max_diff(kernel(100, q, v, pd, **short),
+                                         plain(100, q, v, pd, **short))
+            log(f"phase 7 {kname} at the main-path shape, same noise: max |kernel"
+                f" - plain| by depth {dict(sorted(growth.items()))}")
+            for depth, depth_err in sorted(growth.items()):
+                hold(kname, kname, depth_err,
+                     f"phase 7 main-path shape, {depth} steps,")
+            assert all(torch.isfinite(x).all() for x in out)
+        else:
+            hold(kname, kname, err, "phase 7 main-path shape, same noise,")
         b_ms, b_by = bound_ms(kname, MAIN_BATCH, N, ITERATIONS, name)
+        source = "mf_solve.cu" if is_mf else "dl_solve.cu"
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "ccvm_tpu_torch/csrc/dl_solve.cu",
+            "source": f"ccvm_tpu_torch/csrc/{source}",
             "replaces": replaces[kname], "launches": launches[kname],
             "max_abs_err": max_err[kname], "ms": min(times),
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,

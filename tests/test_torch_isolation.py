@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from ccvm_tpu_torch.dynamics.dl import DLParams
-from ccvm_tpu_torch.ops import build, dl_kernels
+from ccvm_tpu_torch.dynamics.mf import MFParams
+from ccvm_tpu_torch.ops import build, dl_kernels, mf_kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ccvm_tpu_torch")
@@ -24,6 +25,8 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
     code = (
         "import sys, ccvm_tpu_torch, ccvm_tpu_torch.interop;"
         "import ccvm_tpu_torch.ops.dl_kernels, ccvm_tpu_torch.ops.build;"
+        "import ccvm_tpu_torch.ops.mf_kernels, ccvm_tpu_torch.solvers.mf;"
+        "import ccvm_tpu_torch.post_processor;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -79,6 +82,78 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.build([spec])
 
 
+def test_mf_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    spec = build.MFSpec(True, False, True, True, True, 0)
+    assert spec.defines() == ["-DCCVM_ADAM=1", "-DCCVM_BETA2_ONE=0",
+                              "-DCCVM_ADD_ASSIGN=1", "-DCCVM_PUMP_RATE_FLAG=1",
+                              "-DCCVM_NOISE=1", "-DCCVM_RNG=0"]
+    monkeypatch.setattr(build, "library_path", lambda s: str(tmp_path / "x.so"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build([spec])
+
+
+def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path):
+    """An edit to a shared header renames every library, so a stale one is
+    never loaded."""
+    for f in os.listdir(build.CSRC):
+        (tmp_path / f).write_bytes(open(os.path.join(build.CSRC, f), "rb").read())
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    dl = build.DLSpec(False, False, False, True, True, True, 1)
+    mf = build.MFSpec(False, False, False, True, True, 0)
+    before = {s: build.library_path(s) for s in (dl, mf)}
+    assert os.path.basename(before[dl]).startswith("libdl_solve_")
+    assert os.path.basename(before[mf]).startswith("libmf_solve_")
+    with open(tmp_path / "ccvm_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(build.library_path(s) != before[s] for s in (dl, mf))
+
+
+def test_loaded_library_is_found_without_touching_the_sources(monkeypatch):
+    """A launch after a spec's first load reads no source from disk."""
+    dl = build.DLSpec(False, False, False, True, True, True, 0)
+    mf = build.MFSpec(False, False, False, True, True, 0)
+    monkeypatch.setattr(build, "_LIBS", {(build.DLSpec, dl): "dl",
+                                         (build.MFSpec, mf): "mf"})
+
+    def no_disk(*_):
+        raise AssertionError("the sources were read on a cache hit")
+
+    monkeypatch.setattr(build, "library_path", no_disk)
+    monkeypatch.setattr(build, "_source_hash", no_disk)
+    assert (build.load(dl), build.load(mf)) == ("dl", "mf")
+
+
+class _CudaLike:
+    """Stands in for a float32 CUDA tensor on a host without a card."""
+
+    def __init__(self, shape):
+        self.shape, self.ndim, self.dtype = shape, len(shape), torch.float32
+        self.device = torch.device("cuda")
+
+    def __getitem__(self, _):
+        return _CudaLike((1,) + self.shape)
+
+    def contiguous(self):
+        return self
+
+
+def test_mf_solve_on_cuda_tensors_never_reaches_the_plain_version(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(mf_kernels, "mf_solve_reference", plain)
+    p = MFParams(0.0, 20.0, 0.0025, 5.0, 400.0, 0.01, 0.0, 1.0, 10.0)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        mf_kernels.mf_solve(1, _CudaLike((12, 12)), _CudaLike((12,)), p,
+                            iterations=10, batch_size=8, pump_rate_flag=True)
+
+
 def test_dl_solve_on_cpu_tensors_is_the_reference():
     rng = np.random.RandomState(3)
     a = rng.randn(12, 12).astype(np.float32)
@@ -94,6 +169,34 @@ def test_dl_solve_on_cpu_tensors_is_the_reference():
     # The plain version is not a launch of the kernel.
     assert before == (dl_kernels.dl_solve.dl_launches,
                       dl_kernels.dl_solve.dl_adam_launches)
+
+
+def test_mf_solve_on_cpu_tensors_is_the_reference():
+    rng = np.random.RandomState(3)
+    a = rng.randn(12, 12).astype(np.float32)
+    q = torch.from_numpy((a + a.T) / 2)
+    v = torch.from_numpy(rng.randn(12).astype(np.float32))
+    p = MFParams(0.5, 20.0, 0.0025, 5.0, 400.0, 0.01, 0.0, 1.0, 40.0)
+    kw = dict(iterations=40, batch_size=8, pump_rate_flag=True, rng="popcount32")
+    before = (mf_kernels.mf_solve.mf_launches, mf_kernels.mf_solve.mf_adam_launches)
+    out = mf_kernels.mf_solve(3, q, v, p, **kw)
+    ref = mf_kernels.mf_solve_reference(3, q, v, p, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(out, ref))
+    # The plain version is not a launch of the kernel.
+    assert before == (mf_kernels.mf_solve.mf_launches,
+                      mf_kernels.mf_solve.mf_adam_launches)
+    with pytest.raises(ValueError, match="scalar S"):
+        mf_kernels.mf_solve(3, q, v, p._replace(S=np.ones(12)), **kw)
+
+
+def test_mf_launch_shape_fits_the_bundled_sizes_and_rejects_huge_n():
+    rows, threads, smem = mf_kernels.launch_shape(70)
+    assert (rows, threads) == (56, 252) and smem <= build.SMEM_LIMIT
+    for n in range(2, 71):
+        rows, threads, smem = mf_kernels.launch_shape(n)
+        assert rows % 4 == 0 and threads <= 256 and smem <= build.SMEM_LIMIT
+    with pytest.raises(ValueError, match="does not fit the MF kernel"):
+        mf_kernels.launch_shape(400)
 
 
 def test_launch_shape_fits_the_bundled_sizes_and_rejects_huge_n():

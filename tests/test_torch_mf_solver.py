@@ -1,0 +1,171 @@
+"""The port's MFSolver façade against the JAX one, its guard rails, and the
+DL façade with grad-descent (CPU).
+
+MF's noise enters through the measured field, not through ``g``, so the
+façades are compared with the noise off on both sides: the JAX lax path with
+``common.normal`` patched to zeros, the port's plain version with
+``noise_scale=0``.  Objective values agree to rtol 1e-4 (float32 round-off
+over a few hundred steps), and the statistics exactly.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from ccvm_tpu import AdamParameters as JAdamParameters
+from ccvm_tpu import DLSolver as JDLSolver
+from ccvm_tpu import MFSolver as JMFSolver
+from ccvm_tpu import ProblemInstance as JProblemInstance
+from ccvm_tpu.dynamics import common as jcommon
+from ccvm_tpu_torch import AdamParameters, DLSolver, MFSolver, ProblemInstance
+from ccvm_tpu_torch.ops import mf_kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEST020 = os.path.join(REPO, "tests", "data", "test020.in")
+PARAMS = {20: {"pump": 0.5, "feedback_scale": 4000.0, "j": 5.0, "S": 20.0,
+               "dt": 0.0025, "iterations": 300}}
+DL_PARAMS = {20: {"pump": 8.0, "feedback_scale": 100.0, "noise_ratio": 10.0,
+                  "dt": 0.001, "iterations": 200}}
+
+
+@pytest.fixture
+def noise_off(monkeypatch):
+    """No noise on either side.  The JAX solve is jitted, so its trace cache
+    is cleared around the patch: a trace with zero noise must not serve (or
+    be served by) a solve elsewhere in the process."""
+    monkeypatch.setattr(jcommon, "normal",
+                        lambda key, shape, dtype=jnp.float32: jnp.zeros(shape, dtype))
+    monkeypatch.setattr(mf_kernels, "mf_solve",
+                        functools.partial(mf_kernels.mf_solve, noise_scale=0.0))
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _solve(solver_cls, instance_cls, params=PARAMS, batch=64, **call):
+    solver = solver_cls(device="cpu", batch_size=batch)
+    solver.parameter_key = params
+    inst = instance_cls(device="cpu", file_path=TEST020, instance_type="test")
+    inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+    return solver(inst, seed=3, **call)
+
+
+def _agree(sol_t, sol_j):
+    np.testing.assert_allclose(np.asarray(sol_t.objective_values),
+                               np.asarray(sol_j.objective_values), rtol=1e-4)
+    assert sol_t.solution_performance == sol_j.solution_performance
+    assert sol_t.best_objective_value == pytest.approx(
+        sol_j.best_objective_value, rel=1e-6)
+
+
+@pytest.mark.parametrize("post_processor", [None, "grad-descent"])
+@pytest.mark.parametrize("adam", [False, True])
+def test_mf_facades_agree_without_noise(noise_off, post_processor, adam):
+    jcall = {"post_processor": post_processor}
+    tcall = dict(jcall)
+    if adam:
+        jcall["algorithm_parameters"] = JAdamParameters(alpha=0.05)
+        tcall["algorithm_parameters"] = AdamParameters(alpha=0.05)
+    sol_j = _solve(JMFSolver, JProblemInstance, **jcall)
+    sol_t = _solve(MFSolver, ProblemInstance, **tcall)
+    _agree(sol_t, sol_j)
+    pv = sol_t.variables["problem_variables"]
+    assert pv.shape == (64, 20) and 0.0 <= pv.min() and pv.max() <= 1.0
+    np.testing.assert_allclose(sol_t.variables["mu"].numpy(),
+                               np.asarray(sol_j.variables["mu"]), atol=1e-3)
+    assert (sol_t.pp_time > 0) == (post_processor is not None)
+
+
+@pytest.mark.parametrize("adam", [False, True])
+def test_dl_facade_with_grad_descent_agrees_without_diffusion(adam):
+    jcall, tcall = {}, {}
+    if adam:
+        jcall["algorithm_parameters"] = JAdamParameters(alpha=0.05)
+        tcall["algorithm_parameters"] = AdamParameters(alpha=0.05)
+    sol_j = _solve(JDLSolver, JProblemInstance, DL_PARAMS, g=0.0,
+                   post_processor="grad-descent", **jcall)
+    sol_t = _solve(DLSolver, ProblemInstance, DL_PARAMS, g=0.0,
+                   post_processor="grad-descent", **tcall)
+    _agree(sol_t, sol_j)
+    assert sol_t.pp_time > 0
+
+
+def test_mf_noise_on_solve_is_seeded():
+    a = _solve(MFSolver, ProblemInstance, batch=16)
+    b = _solve(MFSolver, ProblemInstance, batch=16)
+    assert np.array_equal(a.objective_values, b.objective_values)
+    assert np.all(np.isfinite(a.objective_values))
+
+
+def test_machine_time_and_energy_match_jax():
+    frame = pd.DataFrame({"iterations": [300.0, 500.0], "pp_time": [0.01, 0.03],
+                          "solve_time": [0.2, 0.4]})
+    j, t = JMFSolver(device="cpu"), MFSolver(device="cpu")
+    j.parameter_key = t.parameter_key = PARAMS
+    for machine in ("mf-ccvm", "cpu", "gpu"):
+        assert t.machine_energy(machine)(frame, 20) == pytest.approx(
+            j.machine_energy(machine)(frame, 20), rel=1e-12)
+        assert t.machine_time(machine)(dataframe=frame, problem_size=20) == \
+            pytest.approx(j.machine_time(machine)(dataframe=frame, problem_size=20),
+                          rel=1e-12)
+    custom = dict(t._default_optics_machine_parameters, laser_power=2e-3)
+    assert t.machine_energy("mf-ccvm", custom)(frame, 20) == pytest.approx(
+        j.machine_energy("mf-ccvm", custom)(frame, 20), rel=1e-12)
+    with pytest.raises(ValueError, match="Missing required keys"):
+        t.machine_energy("mf-ccvm", {"laser_clock": 1e-10})
+    with pytest.raises(ValueError, match="Mismatch"):
+        t.machine_energy("dl-ccvm")
+
+
+@pytest.mark.parametrize(
+    "call",
+    [{"evolution_step_size": 10}, {"post_processor": "bfgs"}],
+    ids=["evolution", "post_processor"],
+)
+def test_features_left_out_raise(call):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _solve(MFSolver, ProblemInstance, batch=8, **call)
+
+
+def test_per_variable_s_mesh_and_tune_raise():
+    params = {20: dict(PARAMS[20], S=np.full(20, 20.0))}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _solve(MFSolver, ProblemInstance, params, batch=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MFSolver(device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MFSolver(device="cpu").tune([])
+
+
+def test_parameter_key_and_devices():
+    solver = MFSolver(device="cpu")
+    with pytest.raises(ValueError, match="not valid for this solver"):
+        solver.parameter_key = {20: {"pump": 0.0}}
+    solver.parameter_key = {30: PARAMS[20]}
+    inst = ProblemInstance(device="cpu", file_path=TEST020)
+    with pytest.raises(KeyError, match="not defined"):
+        solver(inst)
+    for bad in ("tpu", "gpu", "cuda:0"):
+        with pytest.raises(ValueError, match="Given device is not available"):
+            MFSolver(device=bad)
+    with pytest.raises(ValueError, match="backend"):
+        MFSolver(device="cpu", backend="pallas")
+    with pytest.raises(ValueError, match="kernel_rng"):
+        MFSolver(device="cpu", kernel_rng="mersenne")
+    with pytest.raises(ValueError, match="must match"):
+        MFSolver(device="cpu").__call__(mock.Mock(device="cuda"))
+
+
+def test_cuda_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MFSolver(device="cuda")

@@ -82,3 +82,41 @@ def test_stacked_instance_draws_match_seed_plus_instance():
     stacked = philox.words(5, 2, rows, 10, 0, instance=torch.arange(3))
     for i in range(3):
         assert torch.equal(stacked[i], philox.words(5 + i, 2, rows, 10, 0))
+
+
+def _single_draws(rng, n_draws=10**6, n=100):
+    rows = torch.arange(n_draws // n, dtype=torch.int64)
+    return philox.wiener_one(1234, 7, rows, n, rng).double().numpy()
+
+
+@pytest.mark.parametrize("rng", philox.RNG_NAMES)
+def test_single_draw_moments_lattice_and_support(rng):
+    z = _single_draws(rng)
+    assert abs(z.mean()) < 5 / np.sqrt(z.size)
+    assert abs(z.var() - 1.0) < 5 * np.sqrt(2.0 / z.size)
+    # A single popcount16 draw is a popcount32 one (pallas_kernels.py:307-310).
+    spacing, support = _SHAPES["popcount32" if rng == "popcount16" else rng]
+    assert np.abs(z).max() <= support + 1e-6
+    if spacing is not None:
+        k = z / spacing
+        np.testing.assert_allclose(k, np.round(k), atol=1e-5)
+
+
+@pytest.mark.parametrize("rng", philox.RNG_NAMES)
+def test_single_draw_is_the_first_of_the_pair_on_the_first_streams(rng):
+    """The stream mapping of _noise_one: the first normal of the pair
+    transform (popcount32's for popcount16), from streams 0..k-1 only."""
+    rows = torch.arange(24, dtype=torch.int64)
+    one = philox.wiener_one(42, 5, rows, 30, rng, instance=torch.arange(2))
+    pair_rng = "popcount32" if rng == "popcount16" else rng
+    first, _ = philox.wiener_pair(42, 5, rows, 30, pair_rng, torch.arange(2))
+    assert torch.equal(one, first)
+    assert philox.STREAMS_ONE[rng] == {"popcount32": 1, "popcount16": 1,
+                                       "box_muller": 2, "popcount": 3}[rng]
+    words = [philox.words(42, 5, rows, 30, k) for k in range(philox.STREAMS_ONE[rng])]
+    assert torch.equal(philox.TRANSFORMS_ONE[rng](*words), one[0])
+
+
+def test_single_draw_rejects_unknown_rng():
+    with pytest.raises(ValueError, match="rng must be one of"):
+        philox.wiener_one(0, 0, torch.arange(2), 4, "mersenne")
