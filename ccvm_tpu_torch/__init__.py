@@ -6,9 +6,10 @@ the NVIDIA H100 (``csrc/``, built with ``nvcc`` at first use).  Entry points
 run on the card ("cuda") unless the caller asks for "cpu", where each kernel's
 plain PyTorch version runs instead.
 
-This slice carries the DL-CCVM and MF-CCVM solves (plain and Adam) and the
-grad-descent post-processor; the Langevin solvers, the other
-post-processors, metadata and plotting arrive in later slices (ROADMAP.md).
+It carries the four SDE solver families, each plain and Adam: DL-CCVM,
+MF-CCVM, Langevin and pumped Langevin, and the grad-descent post-processor;
+the other post-processors, metadata and plotting arrive in later slices
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"
@@ -19,7 +20,9 @@ from ccvm_tpu_torch.solvers import (
     AdamParameters,
     CCVMSolver,
     DLSolver,
+    LangevinSolver,
     MFSolver,
+    PumpedLangevinSolver,
 )
 
 __all__ = [
@@ -29,4 +32,6 @@ __all__ = [
     "CCVMSolver",
     "DLSolver",
     "MFSolver",
+    "LangevinSolver",
+    "PumpedLangevinSolver",
 ]

@@ -1,7 +1,9 @@
-// Device code shared by the whole-solve kernels of csrc/ (dl_solve.cu,
-// mf_solve.cu): the thread tile, Philox4x32-10, the four Wiener transforms
-// of ccvm_tpu/ops/pallas_kernels.py:152-319 (pair and single draws), the
-// safety clip and the in-loop Adam update (pallas_kernels.py:465-480).
+// Device code shared by the whole-solve kernels of csrc/ (dl_solve.cu for
+// DL-CCVM, mf_solve.cu for MF-CCVM, langevin_solve.cu for Langevin and
+// pumped Langevin): the thread tile, Philox4x32-10, the four Wiener
+// transforms of ccvm_tpu/ops/pallas_kernels.py:152-319 (pair and single
+// draws), the safety clip and the in-loop Adam update
+// (pallas_kernels.py:465-480).
 // ops/philox.py reproduces the noise bit for bit.  ops/build.py names each
 // library by a hash of its .cu and of every header here, so an edit to this
 // file rebuilds every kernel.

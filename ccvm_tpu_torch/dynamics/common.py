@@ -57,6 +57,15 @@ def adam_moment_update(grads, m, v, i, hp: AdamHyperparameters):
     return effective, m, v
 
 
+def float32_scalars(p, device):
+    """A parameter tuple with each field as a float32 0-dim tensor on
+    ``device``, so the plain solves round their scalar arithmetic as the CUDA
+    kernels do."""
+    return type(p)(
+        *(torch.tensor(float(x), dtype=torch.float32, device=device) for x in p)
+    )
+
+
 def dense_matvec(x, q_matrix):
     """The hot-path contraction x @ Q for a (batch, n) or (I, batch, n)
     state against (n, n) or (I, n, n) Q (reference ``dl_solver.py:529-537``).
@@ -70,6 +79,13 @@ def change_variables_boxqp(problem_variables, lower_limit=0, upper_limit=1, S=1)
     return 0.5 * problem_variables / S * (upper_limit - lower_limit) + 0.5 * (
         upper_limit + lower_limit
     )
+
+
+def langevin_change_variables(c, S):
+    """The Langevin family's readout map ``(c + S) / (2 S)``, applied BEFORE
+    post-processing (reference ``langevin_solver.py:716-722``); it hardcodes
+    the [0, 1] box, as the reference does."""
+    return (c + S) / (2 * S)
 
 
 def fit_to_constraints_boxqp(c, lower_clamp, upper_clamp):

@@ -1,0 +1,107 @@
+"""Langevin dynamics for BoxQP, in PyTorch.
+
+SDE (reference ``langevin_solver.py:368-435``; JAX
+``ccvm_tpu/dynamics/langevin.py``):
+
+    scale  = (u - l) / (2 S);  x = c * scale + (u + l) / 2
+    drift  = -((x @ Q) + V) * scale
+    c     += dt * fs * drift + (sigma * sqrt(dt)) * w,   w ~ N(0, 1)
+    c      = clip(c, -S, S)                              (every step)
+
+The Adam variant (``langevin_solver.py:437-561``) runs the whole drift
+through bias-corrected Adam moments before the update.
+
+The operation order is the fused kernel's (``pallas_kernels.py:508-514``),
+``(sigma * sqrt(dt)) * w``, not the lax path's ``sigma * (w * sqrt(dt))``;
+the two differ by float32 round-off only.  All scalar arithmetic runs on
+float32 0-dim tensors on the state's device, so the plain solve rounds as
+the CUDA kernel does.  The step functions take the standard-normal draw
+``w`` as an argument.  Only a scalar ``S`` is ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ccvm_tpu_torch.dynamics import common
+from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
+
+
+class LangevinParams(NamedTuple):
+    """Per-solve parameters (reference parameter_key keys
+    ``langevin_solver.py:96-115`` plus the box bounds), each a Python float
+    holding a float32 value."""
+
+    S: float
+    dt: float
+    sigma: float
+    feedback_scale: float
+    lower_limit: float
+    upper_limit: float
+
+
+def drift_boxqp(c, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1):
+    """Langevin drift, which is also its gradient
+    (``langevin_solver.py:117-166``)."""
+    scale = (upper_limit - lower_limit) / (2 * S)
+    x = c * scale + (upper_limit + lower_limit) / 2
+    qx = common.dense_matvec(x, q_matrix)
+    return -(qx + v_vector) * scale
+
+
+def _drift(p, q_matrix, v_vector, c):
+    return drift_boxqp(c, q_matrix, v_vector, p.lower_limit, p.upper_limit, p.S)
+
+
+def make_step(q_matrix, v_vector, p: LangevinParams):
+    """``step(c, i, w) -> c``; ``w`` is a standard-normal draw shaped like
+    ``c``."""
+    p = common.float32_scalars(p, q_matrix.device)
+    dt_fs = p.dt * p.feedback_scale
+    diffusion = p.sigma * torch.sqrt(p.dt)
+
+    def step(c, i, w):
+        c = c + dt_fs * _drift(p, q_matrix, v_vector, c) + diffusion * w
+        return torch.clamp(c, -p.S, p.S)
+
+    return step
+
+
+def make_adam_step(q_matrix, v_vector, p: LangevinParams, hp: AdamHyperparameters):
+    """Adam-filtered step; ``step((c, m, v), i, w) -> (c, m, v)``
+    (``langevin_solver.py:437-561``)."""
+    p = common.float32_scalars(p, q_matrix.device)
+    dt_fs = p.dt * p.feedback_scale
+    diffusion = p.sigma * torch.sqrt(p.dt)
+
+    def step(state, i, w):
+        c, m, v = state
+        grads = _drift(p, q_matrix, v_vector, c)
+        grads, m, v = common.adam_moment_update(grads, m, v, i, hp)
+        c = c + dt_fs * grads + diffusion * w
+        return (torch.clamp(c, -p.S, p.S), m, v)
+
+    return step
+
+
+def solve(q_matrix, v_vector, params: LangevinParams, *, iterations, batch_size,
+          hp=None, draw=None):
+    """Plain Langevin solve (JAX ``dynamics/langevin.py`` ``solve``) from
+    c = 0; returns the final c.
+
+    ``q_matrix`` is (n, n) or a stack (I, n, n) with ``v_vector`` (I, 1, n).
+    ``draw(i)`` gives step ``i``'s standard-normal draw shaped like the
+    state; ``None`` integrates without noise."""
+    n = q_matrix.shape[-1]
+    shape = tuple(q_matrix.shape[:-2]) + (int(batch_size), n)
+    c0 = torch.zeros(shape, dtype=torch.float32, device=q_matrix.device)
+    if hp is None:
+        step, state = make_step(q_matrix, v_vector, params), c0
+    else:
+        step = make_adam_step(q_matrix, v_vector, params, hp)
+        state = (c0, c0, c0)
+    for i in range(int(iterations)):
+        state = step(state, i, c0 if draw is None else draw(i))
+    return state if hp is None else state[0]

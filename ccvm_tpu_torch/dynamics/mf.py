@@ -55,13 +55,6 @@ class MFParams(NamedTuple):
     iterations: float
 
 
-def _scalars(p: MFParams, device) -> MFParams:
-    """MFParams as float32 0-dim tensors on one device."""
-    return MFParams(
-        *(torch.tensor(float(x), dtype=torch.float32, device=device) for x in p)
-    )
-
-
 def feedback_terms(mu_tilde_c, q_matrix, v_vector, S, lower_limit, upper_limit):
     """fs-independent feedback terms (``mf_solver.py:176-189``)."""
     span = upper_limit - lower_limit
@@ -133,7 +126,7 @@ def _measure(p, i, mu, w, sqrt_dt, pump_rate_flag):
 def make_step(q_matrix, v_vector, p: MFParams, pump_rate_flag: bool):
     """``step((mu, sigma, mu_tilde), i, w) -> (mu, sigma, mu_tilde)``; ``w``
     is a standard-normal draw shaped like the state."""
-    p = _scalars(p, q_matrix.device)
+    p = common.float32_scalars(p, q_matrix.device)
     sqrt_dt = torch.sqrt(p.dt)
 
     def step(state, i, w):
@@ -158,7 +151,7 @@ def make_adam_step(
 ):
     """Adam variant (``mf_solver.py:595-764``): Adam filters the fs-scaled
     feedback only.  State is ``(mu, sigma, mu_tilde, m_mu, v_mu)``."""
-    p = _scalars(p, q_matrix.device)
+    p = common.float32_scalars(p, q_matrix.device)
     sqrt_dt = torch.sqrt(p.dt)
 
     def step(state, i, w):

@@ -2,9 +2,12 @@
 
 Tests build both frameworks' objects from the same numbers: a JAX
 ``ProblemInstance``'s host arrays (``_q64``, ``_v64``, ``q_matrix``,
-``v_vector``, ``scaled_by``) or a JAX ``DLParams`` / ``AdamHyperparameters``'
-fields (or ``MFParams``') become the port's counterparts.  This module takes NumPy arrays and
-plain values only and imports nothing of the JAX package.
+``v_vector``, ``scaled_by``) or the fields of a JAX ``DLParams``,
+``MFParams``, ``LangevinParams``, ``PumpedLangevinParams`` or
+``AdamHyperparameters`` become the port's counterparts, for the three solver
+families ported (DL, MF, and Langevin with pumped Langevin).  This module
+takes NumPy arrays and plain values only and imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ import numpy as np
 
 from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 from ccvm_tpu_torch.dynamics.dl import DLParams
+from ccvm_tpu_torch.dynamics.langevin import LangevinParams
 from ccvm_tpu_torch.dynamics.mf import MFParams
+from ccvm_tpu_torch.dynamics.pumped_langevin import PumpedLangevinParams
 from ccvm_tpu_torch.problem_classes.boxqp.problem_instance import ProblemInstance
 from ccvm_tpu_torch.runtime import put
 
@@ -55,14 +60,34 @@ def dl_params_from_numpy(pump, S, dt, noise_ratio, feedback_scale, g,
     return DLParams(*(float(np.float32(x)) for x in vals))
 
 
+def _scalar_params(cls, vals):
+    if any(np.ndim(x) for x in vals):
+        raise ValueError(f"{cls.__name__} fields must be scalars in this port")
+    return cls(*(float(np.float32(x)) for x in vals))
+
+
 def mf_params_from_numpy(pump, S, dt, j, feedback_scale, g, lower_limit,
                          upper_limit, iterations):
     """``MFParams`` from the JAX ``MFParams`` fields (arrays or floats)."""
-    vals = (pump, S, dt, j, feedback_scale, g, lower_limit, upper_limit,
-            iterations)
-    if any(np.ndim(x) for x in vals):
-        raise ValueError("MFParams fields must be scalars in this port")
-    return MFParams(*(float(np.float32(x)) for x in vals))
+    return _scalar_params(MFParams, (pump, S, dt, j, feedback_scale, g,
+                                     lower_limit, upper_limit, iterations))
+
+
+def langevin_params_from_numpy(S, dt, sigma, feedback_scale, lower_limit,
+                               upper_limit):
+    """``LangevinParams`` from the JAX ``LangevinParams`` fields (arrays or
+    floats)."""
+    return _scalar_params(LangevinParams, (S, dt, sigma, feedback_scale,
+                                           lower_limit, upper_limit))
+
+
+def pumped_langevin_params_from_numpy(pump, S, dt, sigma, feedback_scale,
+                                      lower_limit, upper_limit, iterations):
+    """``PumpedLangevinParams`` from the JAX ``PumpedLangevinParams``
+    fields (arrays or floats)."""
+    return _scalar_params(PumpedLangevinParams, (
+        pump, S, dt, sigma, feedback_scale, lower_limit, upper_limit,
+        iterations))
 
 
 def adam_from_numpy(alpha, beta1, beta2, add_assign):

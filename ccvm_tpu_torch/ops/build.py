@@ -90,6 +90,25 @@ class MFSpec(NamedTuple):
     tag = _tag
 
 
+class LangevinSpec(NamedTuple):
+    """One specialisation of ``langevin_solve_kernel``
+    (csrc/langevin_solve.cu): Langevin or pumped Langevin, plain or Adam."""
+
+    pumped: bool
+    adam: bool
+    beta2_one: bool
+    add_assign: bool
+    pump_rate_flag: bool
+    noise: bool
+    rng: int  # index into ops.philox.RNG_NAMES
+
+    source = "langevin_solve.cu"
+    symbol = "ccvm_langevin_solve"
+    argtypes = _HEAD + [ctypes.c_void_p] + _TAIL  # c
+    defines = _defines
+    tag = _tag
+
+
 def launch_shape(n: int, x_arrays: int, kernel: str):
     """(rows per block, threads, shared-memory bytes) of a whole-solve
     kernel at problem size ``n`` whose block holds Q and ``x_arrays`` x rows

@@ -57,11 +57,15 @@ def _energy_and_bound(confs, q_matrix, v_vector, scaled_by):
 
 
 def _apply_cv(pv, cv_mode, lo, hi, S):
-    """Change of variables applied inside the readout; the expression
-    matches :func:`ccvm_tpu_torch.dynamics.common.change_variables_boxqp`.
-    Only the DL solver's "boxqp" mode is ported in this slice."""
+    """Change of variables applied inside the readout; the expressions
+    match :func:`ccvm_tpu_torch.dynamics.common.change_variables_boxqp`
+    ("boxqp", the DL solver's) and
+    :func:`ccvm_tpu_torch.dynamics.common.langevin_change_variables`
+    ("langevin", which hardcodes the [0, 1] box and ignores lo and hi)."""
     if cv_mode == "boxqp":
         return 0.5 * pv / S * (hi - lo) + 0.5 * (hi + lo)
+    if cv_mode == "langevin":
+        return (pv + S) / (2 * S)
     raise ValueError(f"unknown change-of-variables mode {cv_mode!r}")
 
 
@@ -301,8 +305,8 @@ class ProblemInstance:
         ``gap_margin`` overrides with a fixed margin in gap points.  Falls
         back to :meth:`compute_energy_host64` when no optimum is recorded.
 
-        ``change_vars``: optional ``(mode, lo, hi, S)`` with mode "boxqp"
-        and scalar ``S``; ``confs`` is then the RAW
+        ``change_vars``: optional ``(mode, lo, hi, S)`` with mode in
+        {"boxqp", "langevin"} and scalar ``S``; ``confs`` is then the RAW
         readout variable and the change of variables runs on the device.
         ``confs`` stays on the device; only energies and ambiguous rows
         cross to the host.

@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from ccvm_tpu_torch.dynamics.dl import DLParams
+from ccvm_tpu_torch.dynamics.langevin import LangevinParams
 from ccvm_tpu_torch.dynamics.mf import MFParams
-from ccvm_tpu_torch.ops import build, dl_kernels, mf_kernels
+from ccvm_tpu_torch.dynamics.pumped_langevin import PumpedLangevinParams
+from ccvm_tpu_torch.ops import build, dl_kernels, langevin_kernels, mf_kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ccvm_tpu_torch")
@@ -26,6 +28,9 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import sys, ccvm_tpu_torch, ccvm_tpu_torch.interop;"
         "import ccvm_tpu_torch.ops.dl_kernels, ccvm_tpu_torch.ops.build;"
         "import ccvm_tpu_torch.ops.mf_kernels, ccvm_tpu_torch.solvers.mf;"
+        "import ccvm_tpu_torch.ops.langevin_kernels, ccvm_tpu_torch.solvers.langevin;"
+        "import ccvm_tpu_torch.solvers.pumped_langevin;"
+        "import ccvm_tpu_torch.dynamics.langevin, ccvm_tpu_torch.dynamics.pumped_langevin;"
         "import ccvm_tpu_torch.post_processor;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
@@ -94,6 +99,19 @@ def test_mf_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.build([spec])
 
 
+def test_langevin_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    spec = build.LangevinSpec(True, True, False, True, True, True, 0)
+    assert spec.defines() == ["-DCCVM_PUMPED=1", "-DCCVM_ADAM=1",
+                              "-DCCVM_BETA2_ONE=0", "-DCCVM_ADD_ASSIGN=1",
+                              "-DCCVM_PUMP_RATE_FLAG=1", "-DCCVM_NOISE=1",
+                              "-DCCVM_RNG=0"]
+    monkeypatch.setattr(build, "library_path", lambda s: str(tmp_path / "x.so"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build([spec])
+
+
 def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path):
     """An edit to a shared header renames every library, so a stale one is
     never loaded."""
@@ -102,12 +120,14 @@ def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path)
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
     dl = build.DLSpec(False, False, False, True, True, True, 1)
     mf = build.MFSpec(False, False, False, True, True, 0)
-    before = {s: build.library_path(s) for s in (dl, mf)}
+    lgv = build.LangevinSpec(False, False, False, False, False, True, 0)
+    before = {s: build.library_path(s) for s in (dl, mf, lgv)}
     assert os.path.basename(before[dl]).startswith("libdl_solve_")
     assert os.path.basename(before[mf]).startswith("libmf_solve_")
+    assert os.path.basename(before[lgv]).startswith("liblangevin_solve_")
     with open(tmp_path / "ccvm_common.cuh", "a") as f:
         f.write("// edited\n")
-    assert all(build.library_path(s) != before[s] for s in (dl, mf))
+    assert all(build.library_path(s) != before[s] for s in (dl, mf, lgv))
 
 
 def test_loaded_library_is_found_without_touching_the_sources(monkeypatch):
@@ -152,6 +172,68 @@ def test_mf_solve_on_cuda_tensors_never_reaches_the_plain_version(monkeypatch, t
     with pytest.raises(RuntimeError, match="nvcc not found"):
         mf_kernels.mf_solve(1, _CudaLike((12, 12)), _CudaLike((12,)), p,
                             iterations=10, batch_size=8, pump_rate_flag=True)
+
+
+_LANGEVIN_CASES = {
+    "langevin": (langevin_kernels.langevin_solve, "langevin_solve_reference",
+                 LangevinParams(0.5, 0.002, 0.5, 2.0, 0.0, 1.0), {}),
+    "pumped": (langevin_kernels.pumped_langevin_solve,
+               "pumped_langevin_solve_reference",
+               PumpedLangevinParams(1.0, 0.5, 0.002, 0.25, 1.0, 0.0, 1.0, 40.0),
+               {"pump_rate_flag": True}),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_LANGEVIN_CASES))
+def test_langevin_solves_on_cuda_tensors_never_reach_the_plain_version(
+        monkeypatch, tmp_path, family):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    solve, reference, p, kw = _LANGEVIN_CASES[family]
+    monkeypatch.setattr(langevin_kernels, reference, plain)
+    monkeypatch.setattr(langevin_kernels, "_reference", plain)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        solve(1, _CudaLike((12, 12)), _CudaLike((12,)), p, iterations=10,
+              batch_size=8, **kw)
+
+
+def _launch_counts():
+    return (langevin_kernels.langevin_solve.langevin_launches,
+            langevin_kernels.langevin_solve.langevin_adam_launches,
+            langevin_kernels.pumped_langevin_solve.pumped_launches,
+            langevin_kernels.pumped_langevin_solve.pumped_adam_launches)
+
+
+@pytest.mark.parametrize("family", sorted(_LANGEVIN_CASES))
+def test_langevin_solves_on_cpu_tensors_are_the_reference(family):
+    rng = np.random.RandomState(3)
+    a = rng.randn(12, 12).astype(np.float32)
+    q = torch.from_numpy((a + a.T) / 2)
+    v = torch.from_numpy(rng.randn(12).astype(np.float32))
+    solve, reference, p, kw = _LANGEVIN_CASES[family]
+    kw = dict(kw, iterations=40, batch_size=8, rng="popcount32")
+    before = _launch_counts()
+    c = solve(3, q, v, p, **kw)
+    assert torch.equal(c, getattr(langevin_kernels, reference)(3, q, v, p, **kw))
+    # The plain version is not a launch of the kernel.
+    assert before == _launch_counts()
+    with pytest.raises(ValueError, match="scalar S"):
+        solve(3, q, v, p._replace(S=np.ones(12)), **kw)
+
+
+def test_langevin_launch_shape_is_mf_s():
+    """One x array per block, as MF: at N=70, 56 trajectories and 252
+    threads in 37,760 bytes of shared memory."""
+    assert langevin_kernels.launch_shape(70) == (56, 252, 37760)
+    for n in range(2, 71):
+        assert langevin_kernels.launch_shape(n) == mf_kernels.launch_shape(n)
+    with pytest.raises(ValueError, match="does not fit the Langevin kernel"):
+        langevin_kernels.launch_shape(400)
 
 
 def test_dl_solve_on_cpu_tensors_is_the_reference():

@@ -120,6 +120,44 @@ def test_readout64_with_change_vars_matches(path):
         sol_j.best_objective_value, rel=1e-12)
 
 
+def test_fused_langevin_change_vars_matches_mapping_first():
+    """``change_vars=("langevin", lo, hi, S)`` maps ``(c + S) / (2S)`` inside
+    the readout: the same energies and statistics as mapping first and
+    reading out after (``tests/unit/test_readout_fusion.py:54``)."""
+    from ccvm_tpu.dynamics.common import langevin_change_variables as jmap
+    from ccvm_tpu_torch.dynamics.common import langevin_change_variables
+
+    path = os.path.join(REPO, "examples", "benchmarking_instances", "Size70",
+                        "tuningH070-100-0.in")
+    _, it = _readout_pair(path)
+    rng = np.random.RandomState(11)
+    S = np.float32(0.5)
+    c = rng.uniform(-S, S, (512, it.problem_size)).astype(np.float32)
+    # Rows near the recorded solution's corner sit near the gap thresholds.
+    corner = (2 * np.asarray(it.solution_vector, np.float32) - 1) * S
+    c[:64] = np.clip(corner + rng.normal(0, 0.005, (64, it.problem_size)), -S, S)
+    c_t = torch.from_numpy(c)
+    torch.testing.assert_close(
+        tpi._apply_cv(c_t, "langevin", torch.tensor(0.0), torch.tensor(1.0),
+                      torch.tensor(S)),
+        langevin_change_variables(c_t, torch.tensor(S)), rtol=0, atol=0)
+    np.testing.assert_array_equal(langevin_change_variables(c_t, float(S)).numpy(),
+                                  np.asarray(jmap(jnp.asarray(c), S)))
+    fused = it.compute_energy_readout64(c_t, change_vars=("langevin", 0.0, 1.0, S))
+    mapped = it.compute_energy_readout64(langevin_change_variables(c_t, float(S)))
+    np.testing.assert_array_equal(fused, mapped)
+    kw = dict(problem_size=it.problem_size, batch_size=512, instance_name="x",
+              iterations=1, solve_time=0.0, pp_time=0.0,
+              optimal_value=it.optimal_sol, best_value=it.best_sol,
+              num_frac_values=it.num_frac_values, solution_vector=[],
+              variables={})
+    perf = TSolution(objective_values=fused, **kw).solution_performance
+    assert perf == TSolution(objective_values=mapped, **kw).solution_performance
+    assert perf["one_percent"] > 0  # the rows near the corner
+    with pytest.raises(ValueError, match="unknown change-of-variables"):
+        it.compute_energy_readout64(c_t, change_vars=("mf", 0.0, 1.0, S))
+
+
 @pytest.mark.parametrize("trailing_tab", [True, False])
 def test_write_sample_rows_matches(trailing_tab):
     import io
