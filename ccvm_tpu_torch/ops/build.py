@@ -109,6 +109,27 @@ class LangevinSpec(NamedTuple):
     tag = _tag
 
 
+class DLVariantSpec(NamedTuple):
+    """One specialisation of ``dl_variant_kernel`` (csrc/dl_variants.cu):
+    the race harness's v2 or v3 DL step."""
+
+    v3: bool
+    fuse: bool  # both matvecs in one pass over Q
+    unroll: int  # steps per outer iteration
+    noise: bool
+    rng: int  # index into ops.philox.HARNESS_RNG_NAMES
+
+    source = "dl_variants.cu"
+    symbol = "ccvm_dl_variant"
+    argtypes = _HEAD + [ctypes.c_void_p] * 2 + _TAIL  # c, s
+    defines = _defines
+
+    def tag(self):
+        # Lettered, since unroll may take two digits.
+        return (f"v{3 if self.v3 else 2}f{int(self.fuse)}u{self.unroll}"
+                f"n{int(self.noise)}r{self.rng}")
+
+
 def launch_shape(n: int, x_arrays: int, kernel: str):
     """(rows per block, threads, shared-memory bytes) of a whole-solve
     kernel at problem size ``n`` whose block holds Q and ``x_arrays`` x rows

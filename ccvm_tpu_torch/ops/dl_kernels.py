@@ -53,9 +53,11 @@ def _scalars(params, hp, noise_scale):
     return (ctypes.c_float * 15)(*vals.tolist())
 
 
-def _check(q_matrix, v_vector, params):
+def check_problem(q_matrix, v_vector, kernel="dl_solve"):
+    """Raise unless Q is a float32 (n, n) or (I, n, n) and V a float32 (n,)
+    or (I, n) on Q's device."""
     if q_matrix.dtype != torch.float32 or v_vector.dtype != torch.float32:
-        raise TypeError("dl_solve takes float32 Q and V")
+        raise TypeError(f"{kernel} takes float32 Q and V")
     if q_matrix.ndim not in (2, 3) or q_matrix.shape[-1] != q_matrix.shape[-2]:
         raise ValueError(f"Q must be (n, n) or (I, n, n), got {tuple(q_matrix.shape)}")
     if tuple(v_vector.shape) != tuple(q_matrix.shape[:-1]):
@@ -64,6 +66,10 @@ def _check(q_matrix, v_vector, params):
         )
     if v_vector.device != q_matrix.device:
         raise ValueError("Q and V must lie on the same device")
+
+
+def _check(q_matrix, v_vector, params):
+    check_problem(q_matrix, v_vector)
     if np.ndim(params.S) != 0:
         raise ValueError("the DL kernel takes a scalar S")
 

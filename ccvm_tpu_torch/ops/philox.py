@@ -23,7 +23,9 @@ The transforms keep the names and the moments of ``_RNG_NAMES``
 (``pallas_kernels.py:152-257``).  :func:`wiener_pair` gives the pair
 ``(z1, z2)`` of normals for the c and s quadratures (DL); :func:`wiener_one`
 gives the single draw of the kernels that take one per step (MF), as
-``_noise_one`` does (``pallas_kernels.py:301-319``).
+``_noise_one`` does (``pallas_kernels.py:301-319``).  :func:`harness_pair`
+gives the pairs of the DL race harness's transforms (:data:`HARNESS_RNGS`),
+which the variant kernels of ``csrc/dl_variants.cu`` draw.
 """
 
 from __future__ import annotations
@@ -179,13 +181,50 @@ TRANSFORMS_ONE = {
 }
 
 
+def popcount2_one(b1, b2):
+    """A normal from two words: popcount(b1) + popcount(b2) - 32 is
+    Binomial(64, 1/2) centred, variance 16, scaled by 1/4; no uniform
+    smoothing, so lattice spacing 0.25 and support +-8
+    (``noise_popcount2``, ``tools/kernel_experiments.py:68-78``)."""
+    return (popcount(b1) + popcount(b2) - 32).to(torch.float32) * 0.25
+
+
+def popcount2_pair(w0, w1, w2, w3):
+    return popcount2_one(w0, w1), popcount2_one(w2, w3)
+
+
+# The DL race harness's transforms (``tools/kernel_experiments.py:81-85``)
+# by its own names: (pair transform, Philox streams per element).  The
+# kernel of csrc/dl_variants.cu takes the index of a name here.  popcount2
+# is the harness's alone: it is not a ``kernel_rng`` of the façades.
+HARNESS_RNGS = {
+    "popcount1": (popcount32_pair, 2),
+    "popcount2": (popcount2_pair, 4),
+    "popcount3(prod)": (popcount_pair, 6),
+}
+HARNESS_RNG_NAMES = tuple(HARNESS_RNGS)
+
+
+def _pair(transform, streams, seed, step, rows, n, instance):
+    ws = [words(seed, step, rows, n, k, instance) for k in range(streams)]
+    return transform(*ws)
+
+
 def wiener_pair(seed: int, step: int, rows: torch.Tensor, n: int, rng: str,
                 instance=0):
     """The kernel's standard-normal pair ``(w_c, w_s)`` for one step."""
     if rng not in TRANSFORMS:
         raise ValueError(f"rng must be one of {RNG_NAMES}, got {rng!r}")
-    ws = [words(seed, step, rows, n, k, instance) for k in range(STREAMS[rng])]
-    return TRANSFORMS[rng](*ws)
+    return _pair(TRANSFORMS[rng], STREAMS[rng], seed, step, rows, n, instance)
+
+
+def harness_pair(seed: int, step: int, rows: torch.Tensor, n: int, name: str,
+                 instance=0):
+    """The variant kernel's pair ``(z1, z2)`` for one step, by a name of
+    :data:`HARNESS_RNGS`; ``popcount1`` draws what ``popcount32`` does."""
+    if name not in HARNESS_RNGS:
+        raise ValueError(f"rng_name must be one of {HARNESS_RNG_NAMES}, got {name!r}")
+    return _pair(*HARNESS_RNGS[name], seed, step, rows, n, instance)
 
 
 def wiener_one(seed: int, step: int, rows: torch.Tensor, n: int, rng: str,

@@ -35,16 +35,28 @@ exits non-zero without printing a result:
    ``PumpedLangevinSolver(device="cuda")`` with grad-descent and
    ``kernel_rng="popcount32"`` (then one Adam solve each, with the tuned Adam
    parameters);
-7. kernels: each kernel timed at the main-path shape and held against its
-   plain version (same seed, so the same noise), then one JSON line with
-   each kernel's launches, time, bound, plain time (and the steps it
-   covers) and largest error against its plain version.  The Langevin
+7. kernels: each solver kernel timed at the main-path shape and held
+   against its plain version (same seed, so the same noise), for the JSON
+   line printed after phase 8 with each kernel's launches, time, bound,
+   plain time (and the steps it covers) and largest error against its
+   plain version.  The Langevin
    family is held elementwise after 100, 1,000 and 15,000 steps (past 100
    steps at LANGEVIN_DEEP_TOL, with at most LANGEVIN_DEEP_SHARE of the
    elements over PARITY_TOL), MF after 100 and 1,000, DL after 1,000 (their
    15,000-step errors are recorded in PERF.md); the difference by depth is
    printed, and every kernel is measured before a failed hold raises;
-8. the last line: {"ok": true, "device": {...}}.
+8. the DL race harness (``ccvm_tpu_torch/tools/kernel_experiments.py``,
+   kernels of ``csrc/dl_variants.cu``) on the scaled N=70 instance with the
+   DL tuned parameters: each v2 / v3 specialisation against its plain
+   version noise off (batch 1024, 304 steps, and v3 over 300 for its tail)
+   and noise on (104 steps, popcount1 and popcount2), a stacked launch
+   against serial ones; v2 and v3 success probabilities within the band of
+   the production kernel's (batch 4096, 15,000 steps); the race itself,
+   ``race("cuda", ...)``, at the harness's shape (batch 1000, n 20) and at
+   the main shape, with the launch counts zeroed before and read after; and
+   the dl_v2 / dl_v3 rows of the kernels line (time at the main shape,
+   plain time and hold over 1,000 steps);
+9. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -90,17 +102,22 @@ EARLIER_PLAIN_DEPTH = 1000
 # csrc/langevin_solve.cu (drift, schedules, noise scaling, divisions, clips,
 # Adam; Philox's integer work is not counted).  DL does two matvecs a step,
 # the others one.
+# The race harness's variants (csrc/dl_variants.cu, popcount1): v2 rebuilds
+# x and scales the feedback twice, v3 does neither and sums c^2 + s^2 once.
 ELEMENTWISE_FLOPS = {"dl_solve": 40, "dl_adam_solve": 64,
                      "mf_solve": 40, "mf_adam_solve": 55,
                      "langevin_solve": 12, "langevin_adam_solve": 26,
                      "pumped_langevin_solve": 17,
-                     "pumped_langevin_adam_solve": 31}
+                     "pumped_langevin_adam_solve": 31,
+                     "dl_v2": 42, "dl_v3": 34}
 MATVECS = {"dl_solve": 2, "dl_adam_solve": 2, "mf_solve": 1, "mf_adam_solve": 1,
            "langevin_solve": 1, "langevin_adam_solve": 1,
-           "pumped_langevin_solve": 1, "pumped_langevin_adam_solve": 1}
+           "pumped_langevin_solve": 1, "pumped_langevin_adam_solve": 1,
+           "dl_v2": 2, "dl_v3": 2}
 OUTPUTS = {"dl_solve": 2, "dl_adam_solve": 2, "mf_solve": 3, "mf_adam_solve": 3,
            "langevin_solve": 1, "langevin_adam_solve": 1,
-           "pumped_langevin_solve": 1, "pumped_langevin_adam_solve": 1}
+           "pumped_langevin_solve": 1, "pumped_langevin_adam_solve": 1,
+           "dl_v2": 2, "dl_v3": 2}
 KERNELS = tuple(MATVECS)
 # Published dense fp32 (non-tensor-core) peaks and memory rates of H100
 # parts, by a substring of the nvidia-smi name (NVIDIA data sheets).
@@ -133,7 +150,7 @@ def bound_ms(kernel, batch, n, iterations, name):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def success_band_ok(perf_a, perf_b, batch):
+def success_band_ok(perf_a, perf_b, batch, names=("kernel", "plain")):
     """tools/tpu_validate.py:96-106: |pa - pb| <= 5 sigma + 0.01."""
     import numpy as np
 
@@ -144,8 +161,8 @@ def success_band_ok(perf_a, perf_b, batch):
         tol = 5 * sig + 0.01
         good = abs(pa - pb) <= tol
         ok &= bool(good)
-        log(f"  {'ok ' if good else 'FAIL'} {gap:<13} kernel={pa:.4f} "
-            f"plain={pb:.4f} tol={tol:.4f}")
+        log(f"  {'ok ' if good else 'FAIL'} {gap:<13} {names[0]}={pa:.4f} "
+            f"{names[1]}={pb:.4f} tol={tol:.4f}")
     return ok
 
 
@@ -172,8 +189,10 @@ def main():
                                 MFSolver, ProblemInstance, PumpedLangevinSolver,
                                 Solution)
     from ccvm_tpu_torch.dynamics.common import langevin_change_variables
-    from ccvm_tpu_torch.ops import build, dl_kernels, langevin_kernels, mf_kernels
+    from ccvm_tpu_torch.ops import (build, dl_kernels, dl_variant_kernels,
+                                    langevin_kernels, mf_kernels, philox)
     from ccvm_tpu_torch.post_processor import PostProcessorGradDescent
+    from ccvm_tpu_torch.tools import kernel_experiments
 
     # 1. device
     smi = subprocess.run(
@@ -224,14 +243,37 @@ def main():
                   lgv_spec(pumped, adam_hps[0.999]),
                   lgv_spec(pumped, adam_hps[0.999], noise=False),
                   lgv_spec(pumped, adam_hps[1.0], noise=False)]
+    # The race harness's variants: (v3, fuse, unroll, rng name) of phase 8's
+    # noise-off holds (rng unused), its noise-on holds and its race rows.
+    variant_cases = {
+        "off": [(False, False, 8, None), (False, True, 8, None),
+                (True, False, 8, None), (True, False, 16, None)],
+        "on": [(False, False, 8, "popcount1"), (False, True, 8, "popcount1"),
+               (False, False, 8, "popcount2"), (True, False, 8, "popcount1"),
+               (True, False, 8, "popcount2"), (True, False, 16, "popcount1"),
+               (True, False, 16, "popcount2")],
+    }
+
+    def variant_spec(v3, fuse, unroll, rng_name):
+        noise = rng_name is not None
+        return build.DLVariantSpec(
+            v3, fuse, unroll, noise,
+            philox.HARNESS_RNG_NAMES.index(rng_name) if noise else 0)
+
+    specs += [variant_spec(*case) for cases in variant_cases.values()
+              for case in cases]
     t0 = time.perf_counter()
     reports = build.build(specs)
     log(f"phase 2 build: {len(reports)} libraries in "
         f"{time.perf_counter() - t0:.1f} s from ccvm_tpu_torch/csrc "
-        f"(dl_solve.cu, mf_solve.cu, langevin_solve.cu, ccvm_common.cuh)")
+        f"(dl_solve.cu, mf_solve.cu, langevin_solve.cu, dl_variants.cu, "
+        f"ccvm_common.cuh)")
     for s, rep in reports.items():
-        regs = [ln.strip() for ln in rep.splitlines() if "registers" in ln]
-        log(f"  {type(s).__name__} {s.tag()}: {regs[-1] if regs else rep.strip()[-200:]}")
+        lines = [ln.strip() for ln in rep.splitlines()]
+        regs = [ln for ln in lines if "registers" in ln]
+        spills = [ln for ln in lines if "spill" in ln]
+        log(f"  {type(s).__name__} {s.tag()}: "
+            f"{regs[-1] if regs else rep.strip()[-200:]}; {spills[-1] if spills else ''}")
 
     # Scaled instances on the card, through the user-facing entry points.
     def instance(path, solver_cls=DLSolver):
@@ -486,6 +528,8 @@ def main():
                                   "pumped_launches"),
         "pumped_langevin_adam_solve": (langevin_kernels.pumped_langevin_solve,
                                        "pumped_adam_launches"),
+        "dl_v2": (dl_variant_kernels.dl_v2, "launches"),
+        "dl_v3": (dl_variant_kernels.dl_v3, "launches"),
     }
     assert tuple(counters) == KERNELS
 
@@ -694,6 +738,139 @@ def main():
         log(f"phase 7 {kname}: kernel {min(times):.1f} ms (reps {times}), plain "
             f"{plain_ms:.1f} ms over {plain_depth} steps, bound {b_ms:.1f} ms "
             f"({b_by}) at batch {MAIN_BATCH}, N={N}, {ITERATIONS} steps")
+
+    # 8. the DL race harness: each variant against its plain version, its
+    # statistics against production's, the race, and its kernels-line row
+    t8 = time.perf_counter()
+    variant_fns = {"dl_v2": (dl_variant_kernels.dl_v2,
+                             dl_variant_kernels.dl_v2_reference),
+                   "dl_v3": (dl_variant_kernels.dl_v3,
+                             dl_variant_kernels.dl_v3_reference)}
+
+    def variant_pv(iterations):
+        """The DL tuned parameters as the harness's params_vec, T = iterations."""
+        return np.array(list(params(iterations)), np.float32)
+
+    def variant_run(v3, seed, batch, iterations, rng_name, unroll, fuse=False,
+                    noise_scale=1.0, plain=True):
+        """(kernel name, kernel outputs, error, plain ms) of a variant; with
+        ``plain`` False the plain version is not run (error and ms None)."""
+        kname = "dl_v3" if v3 else "dl_v2"
+        kernel, reference = variant_fns[kname]
+        kw = dict(iterations=iterations, batch_size=batch, unroll=unroll,
+                  rng_name=rng_name or "popcount1", noise_scale=noise_scale)
+        if not v3:
+            kw["fuse_matvec"] = fuse
+        pv = variant_pv(iterations)
+        out = kernel(seed, inst.q_matrix, inst.v_vector, pv, **kw)
+        for x in out:
+            assert torch.isfinite(x).all(), f"{kname} output is not finite"
+        if not plain:
+            return kname, out, None, None
+        ref, ms = timed(lambda: reference(seed, inst.q_matrix, inst.v_vector, pv, **kw))
+        return kname, out, max_diff(out, ref), ms
+
+    def variant_label(v3, fuse, unroll, rng_name):
+        knobs = [rng_name] if rng_name else []
+        knobs += [] if v3 else [f"fuse{int(fuse)}"]
+        return " ".join([f"v{3 if v3 else 2}", *knobs, f"unroll{unroll}"])
+
+    # Noise off: 304 steps (a multiple of 16, so v2 runs whole unrolled
+    # bodies), and v3 over 300 steps with unroll 16 for its tail of 12.
+    for v3, fuse, unroll, _ in variant_cases["off"]:
+        kname, _, err, _ = variant_run(v3, 0, 1024, 304, None, unroll, fuse, 0.0)
+        hold(kname, variant_label(v3, fuse, unroll, None), err,
+             "phase 8 noise off, 304 steps, c and s,")
+    kname, _, err, _ = variant_run(True, 0, 1024, 300, None, 16, noise_scale=0.0)
+    hold(kname, "v3 unroll16, tail of 12", err, "phase 8 noise off, 300 steps, c and s,")
+    # Noise on, the same Philox words: 104 steps (v3 unroll 16: a tail of 8).
+    for v3, fuse, unroll, rng_name in variant_cases["on"]:
+        kname, _, err, _ = variant_run(v3, 5, 1024, 104, rng_name, unroll, fuse)
+        hold(kname, variant_label(v3, fuse, unroll, rng_name), err,
+             "phase 8 noise on, 104 steps, c and s,")
+    # A stacked launch against serial launches with seed + i.
+    q2 = torch.stack([inst.q_matrix, second.q_matrix])
+    v2 = torch.stack([inst.v_vector, second.v_vector])
+    for kname, kernel_kw in (("dl_v2", dict(fuse_matvec=False)), ("dl_v3", {})):
+        kernel = variant_fns[kname][0]
+        kw = dict(kernel_kw, iterations=104, batch_size=1024, rng_name="popcount2",
+                  unroll=8)
+        cs, ss = kernel(11, q2, v2, variant_pv(104), **kw)
+        for i in range(2):
+            ci, si = kernel(11 + i, q2[i], v2[i], variant_pv(104), **kw)
+            assert torch.equal(cs[i], ci) and torch.equal(ss[i], si), \
+                f"stacked {kname} instance {i} differs from a serial launch"
+    log("phase 8 stacked: a two-instance dl_v2 and dl_v3 launch equals serial "
+        "launches with seeds 11 and 12 bit for bit")
+
+    # Statistics: the variants solve the production kernel's problem.
+    cv = ("boxqp", *inst.solution_bounds, 1.0)
+    cp, _ = dl_kernels.dl_solve(21, inst.q_matrix, inst.v_vector, params(ITERATIONS),
+                                iterations=ITERATIONS, batch_size=4096,
+                                pump_rate_flag=True, pump_is_gt_one=True,
+                                rng="popcount16")
+    perf_prod = performance(inst, inst.compute_energy_readout64(cp, change_vars=cv), 4096)
+    for v3 in (False, True):
+        kname, (ck, _), _, _ = variant_run(v3, 21, 4096, ITERATIONS, "popcount1", 8,
+                                           plain=False)
+        perf_v = performance(inst, inst.compute_energy_readout64(ck, change_vars=cv), 4096)
+        log(f"phase 8 {kname} statistics: batch 4096, {ITERATIONS} steps, popcount1 "
+            f"unroll 8, against the production kernel (popcount16, clip)")
+        assert success_band_ok(perf_v, perf_prod, 4096, (kname, "dl_solve")), \
+            f"{kname} success probabilities disagree with production"
+
+    # The race, through the harness's entry point; the launch counts of its
+    # two runs are the variants' main-path launches.
+    race_shapes = {
+        "harness shape, batch 1000, n 20, i1 20000, i2 100000":
+            dict(batch=1000, n=20, i1=20_000, i2=100_000),
+        f"main shape, batch {MAIN_BATCH}, the N={N} instance, i1 1000, i2 5000":
+            dict(batch=MAIN_BATCH, n=N, i1=1000, i2=5000, q=inst.q_matrix,
+                 v=inst.v_vector),
+    }
+    zero_counts()
+    races = {shape: kernel_experiments.race("cuda", reps=3, **kw)
+             for shape, kw in race_shapes.items()}
+    launched = counts()
+    assert launched["dl_v2"] > 0 and launched["dl_v3"] > 0, launched
+    assert launched == only(dl_solve=launched["dl_solve"], dl_v2=launched["dl_v2"],
+                            dl_v3=launched["dl_v3"]), launched
+    launches.update(dl_v2=launched["dl_v2"], dl_v3=launched["dl_v3"])
+    for shape, rows in races.items():
+        log(f"phase 8 race, {shape}, T 15000, CUDA events, best of 3, {smi}:")
+        for row in rows:
+            log(f"  {kernel_experiments.format_row(row)}")
+    log(f"phase 8 race launches: {launched}")
+
+    # Kernels line: full-depth time, 1,000-step plain time and hold.
+    for kname, v3 in (("dl_v2", False), ("dl_v3", True)):
+        kernel, _ = variant_fns[kname]
+        kw = dict(iterations=ITERATIONS, batch_size=MAIN_BATCH, rng_name="popcount1",
+                  unroll=8)
+        if not v3:
+            kw["fuse_matvec"] = False
+        pv = variant_pv(ITERATIONS)
+        times = [timed(lambda: kernel(100, inst.q_matrix, inst.v_vector, pv, **kw))[1]
+                 for _ in range(2)]
+        _, _, err, plain_ms = variant_run(v3, 100, MAIN_BATCH, EARLIER_PLAIN_DEPTH,
+                                          "popcount1", 8)
+        hold(kname, kname, err, f"phase 8 main-path shape, {EARLIER_PLAIN_DEPTH} steps,",
+             defer=True)
+        b_ms, b_by = bound_ms(kname, MAIN_BATCH, N, ITERATIONS, name)
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "ccvm_tpu_torch/csrc/dl_variants.cu",
+            "replaces": f"tools/kernel_experiments.py:{201 if v3 else 91}",
+            "launches": launches[kname], "max_abs_err": max_err[kname],
+            "ms": min(times), "plain_ms": plain_ms,
+            "plain_iterations": EARLIER_PLAIN_DEPTH,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        log(f"phase 8 {kname} (popcount1, unroll 8{'' if v3 else ', fuse 0'}): kernel "
+            f"{min(times):.1f} ms (reps {times}), plain {plain_ms:.1f} ms over "
+            f"{EARLIER_PLAIN_DEPTH} steps, bound {b_ms:.1f} ms ({b_by}) at batch "
+            f"{MAIN_BATCH}, N={N}, {ITERATIONS} steps")
+    log(f"phase 8 DL race harness: {time.perf_counter() - t8:.1f} s")
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -14,7 +14,9 @@ import torch
 
 from ccvm_tpu_torch import (AdamParameters, DLSolver, LangevinSolver, MFSolver,
                             ProblemInstance, PumpedLangevinSolver)
-from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
+from ccvm_tpu_torch.ops import (build, dl_kernels, dl_variant_kernels,
+                                langevin_kernels, mf_kernels, philox)
+from ccvm_tpu_torch.tools.kernel_experiments import harness_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INSTANCE = os.path.join(REPO, "tests", "data", "test020.in")
@@ -129,3 +131,67 @@ def test_langevin_kernels_stacked_equal_serial_launches(family, pump_rate_flag):
     stacked = kernel(11, q2, v2, p, **kw)
     for i in range(2):
         assert torch.equal(stacked[i], kernel(11 + i, q2[i], v2[i], p, **kw))
+
+
+# (variant, fuse, unroll) of each race-harness specialisation held here:
+# 200 steps leave v3 unroll 16 a tail of 8.
+_VARIANTS = [("v2", False, 1), ("v2", True, 8), ("v3", False, 8), ("v3", False, 16)]
+
+
+@pytest.fixture(scope="module")
+def variant_problem():
+    """The scaled test instance on the card, with every specialisation below
+    built first in one parallel nvcc run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    build.build([
+        build.DLVariantSpec(variant == "v3", fuse, unroll, noise, rng)
+        for variant, fuse, unroll in _VARIANTS
+        for noise, rng in [(False, 0)] + [(True, r) for r in range(3)]
+    ])
+    inst = ProblemInstance(device="cuda", file_path=INSTANCE, instance_type="test")
+    inst.scale_coefs(DLSolver(device="cuda").get_scaling_factor(inst.q_matrix))
+    return inst.q_matrix, inst.v_vector
+
+
+def _variant(variant, fuse, unroll, **kw):
+    """(kernel wrapper, plain version, keyword arguments) of a variant."""
+    kw = dict(kw, unroll=unroll)
+    if variant == "v2":
+        return (dl_variant_kernels.dl_v2, dl_variant_kernels.dl_v2_reference,
+                dict(kw, fuse_matvec=fuse))
+    return dl_variant_kernels.dl_v3, dl_variant_kernels.dl_v3_reference, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("rng_name", philox.HARNESS_RNG_NAMES)
+@pytest.mark.parametrize("variant,fuse,unroll", _VARIANTS)
+def test_dl_variant_kernels_match_plain(variant_problem, variant, fuse, unroll,
+                                        rng_name, noise_scale):
+    q, v = variant_problem
+    kernel, plain, kw = _variant(variant, fuse, unroll, iterations=200,
+                                 batch_size=300, rng_name=rng_name,
+                                 noise_scale=noise_scale)
+    ck, sk = kernel(4, q, v, harness_params(200), **kw)
+    cr, sr = plain(4, q, v, harness_params(200), **kw)
+    torch.cuda.synchronize()
+    assert ck.shape == sk.shape == (300, 20)
+    assert torch.isfinite(ck).all() and torch.isfinite(sk).all()
+    assert (ck - cr).abs().max().item() <= TOL
+    assert (sk - sr).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,fuse,unroll", [("v2", True, 8), ("v3", False, 8)])
+def test_dl_variant_stacked_equals_serial_launches(variant_problem, variant, fuse,
+                                                   unroll):
+    q, v = variant_problem
+    q2 = torch.stack([q, q.flip(0, 1)])
+    v2 = torch.stack([v, v.flip(0)])
+    kernel, _, kw = _variant(variant, fuse, unroll, iterations=96, batch_size=130,
+                             rng_name="popcount2")
+    cs, ss = kernel(11, q2, v2, harness_params(96), **kw)
+    for i in range(2):
+        ci, si = kernel(11 + i, q2[i], v2[i], harness_params(96), **kw)
+        assert torch.equal(cs[i], ci) and torch.equal(ss[i], si)

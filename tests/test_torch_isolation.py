@@ -17,7 +17,9 @@ from ccvm_tpu_torch.dynamics.dl import DLParams
 from ccvm_tpu_torch.dynamics.langevin import LangevinParams
 from ccvm_tpu_torch.dynamics.mf import MFParams
 from ccvm_tpu_torch.dynamics.pumped_langevin import PumpedLangevinParams
-from ccvm_tpu_torch.ops import build, dl_kernels, langevin_kernels, mf_kernels
+from ccvm_tpu_torch.ops import (build, dl_kernels, dl_variant_kernels,
+                                langevin_kernels, mf_kernels)
+from ccvm_tpu_torch.tools import kernel_experiments
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ccvm_tpu_torch")
@@ -32,6 +34,7 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import ccvm_tpu_torch.solvers.pumped_langevin;"
         "import ccvm_tpu_torch.dynamics.langevin, ccvm_tpu_torch.dynamics.pumped_langevin;"
         "import ccvm_tpu_torch.post_processor;"
+        "import ccvm_tpu_torch.ops.dl_variant_kernels, ccvm_tpu_torch.tools.kernel_experiments;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -288,3 +291,70 @@ def test_launch_shape_fits_the_bundled_sizes_and_rejects_huge_n():
         dl_kernels.launch_shape(n)
     with pytest.raises(ValueError, match="does not fit"):
         dl_kernels.launch_shape(400)
+
+
+def test_dl_variant_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    spec = build.DLVariantSpec(True, False, 16, True, 1)
+    assert spec.defines() == ["-DCCVM_V3=1", "-DCCVM_FUSE=0", "-DCCVM_UNROLL=16",
+                              "-DCCVM_NOISE=1", "-DCCVM_RNG=1"]
+    monkeypatch.setattr(build, "library_path", lambda s: str(tmp_path / "x.so"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build([spec])
+
+
+def test_dl_variant_libraries_are_named_by_spec_source_and_headers(monkeypatch, tmp_path):
+    for f in os.listdir(build.CSRC):
+        (tmp_path / f).write_bytes(open(os.path.join(build.CSRC, f), "rb").read())
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    specs = [build.DLVariantSpec(False, False, 8, True, 0),
+             build.DLVariantSpec(False, True, 8, True, 0),
+             build.DLVariantSpec(True, False, 1, True, 1),
+             build.DLVariantSpec(True, False, 16, False, 0)]
+    before = [build.library_path(s) for s in specs]
+    assert len(set(before)) == len(specs)
+    assert all(os.path.basename(p).startswith("libdl_variants_") for p in before)
+    with open(tmp_path / "ccvm_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(build.library_path(s) != p for s, p in zip(specs, before))
+
+
+@pytest.mark.parametrize("name", ["dl_v2", "dl_v3"])
+def test_dl_variants_on_cuda_tensors_never_reach_the_plain_version(
+        monkeypatch, tmp_path, name):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for attr in ("dl_v2_reference", "dl_v3_reference", "_reference"):
+        monkeypatch.setattr(dl_variant_kernels, attr, plain)
+    kw = dict(iterations=16, batch_size=8, rng_name="popcount1", unroll=8)
+    if name == "dl_v2":
+        kw["fuse_matvec"] = True
+    before = (dl_variant_kernels.dl_v2.launches, dl_variant_kernels.dl_v3.launches)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(dl_variant_kernels, name)(
+            1, _CudaLike((12, 12)), _CudaLike((12,)),
+            kernel_experiments.harness_params(16), **kw)
+    # A launch that never happened is not counted.
+    assert before == (dl_variant_kernels.dl_v2.launches,
+                      dl_variant_kernels.dl_v3.launches)
+
+
+def test_dl_variant_launch_shape_is_dl_s():
+    for n in range(2, 71):
+        assert dl_variant_kernels.launch_shape(n) == dl_kernels.launch_shape(n)
+    with pytest.raises(ValueError, match="does not fit the DL variant kernel"):
+        dl_variant_kernels.launch_shape(400)
+
+
+def test_race_on_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        kernel_experiments.race("cuda", batch=8, n=6, i1=8, i2=16, reps=1)
+    with pytest.raises(RuntimeError, match="is_available"):
+        kernel_experiments.main(["--n", "6", "--batch", "8"])
