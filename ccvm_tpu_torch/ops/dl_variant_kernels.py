@@ -36,12 +36,6 @@ from ccvm_tpu_torch.runtime import fp32_matmul
 PARAM_NAMES = ("pump", "S", "dt", "noise_ratio", "fs", "g", "lo", "hi", "T")
 
 
-def launch_shape(n: int):
-    """(rows per block, threads, shared-memory bytes) at problem size ``n``:
-    Q and two state arrays per block, as the production DL kernel."""
-    return build.launch_shape(n, 2, "DL variant")
-
-
 def _params(params_vec):
     """The nine parameters as float32 values; raises for pump <= 1, where
     S_d = sqrt(pump - 1) is not a number."""
@@ -115,7 +109,8 @@ def _launch(v3, seed, q_matrix, v_vector, pv, *, iterations, batch_size,
     q = (q_matrix if stacked else q_matrix[None]).contiguous()
     v = (v_vector if stacked else v_vector[None]).contiguous()
     num_instances, n = q.shape[0], q.shape[-1]
-    rows, _, _ = launch_shape(n)
+    # Q and two state arrays per block, as the production DL kernel.
+    rows, _, _ = build.launch_shape(n, 2, "DL variant")
     noise = float(noise_scale) != 0.0
     spec = build.DLVariantSpec(
         v3=v3, fuse=bool(fuse_matvec), unroll=int(unroll), noise=noise,

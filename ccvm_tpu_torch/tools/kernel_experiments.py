@@ -7,6 +7,8 @@ v3's change of variables folded into Q once.  Each row is timed at two
 iteration counts and reported as the marginal time per step,
 ``(w(i2) - w(i1)) / (i2 - i1)``, which cancels the launch and set-up; on the
 card ``w`` is read from CUDA events around one call, the best of ``reps``.
+:func:`race_rounds` repeats the race, the row order reversed every other
+round, and reports each row's median over the rounds and its range.
 
     python -m ccvm_tpu_torch.tools.kernel_experiments --batch 1000 --iters 15000 --n 20
 
@@ -21,6 +23,7 @@ whether its outputs stayed finite.
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 
 import numpy as np
@@ -44,6 +47,19 @@ ROWS = (
     ("v2 popcount1 fuse1 unroll8", "v2",
      dict(rng_name="popcount1", fuse_matvec=True, unroll=8)),
     ("production dl_solve popcount16 (clip)", "production", {}),
+)
+LABELS = tuple(label for label, _, _ in ROWS)
+
+# (knob, base row, changed row): each knob's effect is the changed row's
+# median us/step less the base row's.
+KNOBS = (
+    ("fused c/s matvec (v2)", LABELS[0], LABELS[5]),
+    ("prescaled Q (v3 against v2)", LABELS[0], LABELS[1]),
+    ("popcount2 against popcount1, unroll 8", LABELS[1], LABELS[2]),
+    ("popcount2 against popcount1, unroll 16", LABELS[3], LABELS[4]),
+    ("unroll 16 against 8, popcount1", LABELS[1], LABELS[3]),
+    ("unroll 16 against 8, popcount2", LABELS[2], LABELS[4]),
+    ("production against v2 fused", LABELS[5], LABELS[6]),
 )
 
 
@@ -70,17 +86,19 @@ _FUNCTIONS = {
 }
 
 
-def _runner(kind, kw, q, v, pv, batch, plain):
-    """``run(iterations) -> (c, s)`` of one row, seed 0: the kernel's
-    wrapper, or with ``plain`` its plain version (which needs no whole
-    unrolled bodies)."""
+def runner(kind, kw, q, v, pv, batch, plain, seed=0, noise_scale=1.0):
+    """``run(iterations) -> (c, s)`` of one row (``kind`` and ``kw`` as in
+    :data:`ROWS`): the kernel's wrapper, or with ``plain`` its plain version
+    (which needs no whole unrolled bodies)."""
     fn = _FUNCTIONS[kind][int(plain)]
     if kind == "production":
         p = DLParams(*(float(x) for x in pv))
         return lambda iters: fn(
-            0, q, v, p, iterations=iters, batch_size=batch,
-            pump_rate_flag=True, pump_is_gt_one=True, rng="popcount16")
-    return lambda iters: fn(0, q, v, pv, iterations=iters, batch_size=batch, **kw)
+            seed, q, v, p, iterations=iters, batch_size=batch,
+            pump_rate_flag=True, pump_is_gt_one=True, rng="popcount16",
+            noise_scale=noise_scale)
+    return lambda iters: fn(seed, q, v, pv, iterations=iters, batch_size=batch,
+                            noise_scale=noise_scale, **kw)
 
 
 def _wall(device, run, iters):
@@ -98,15 +116,17 @@ def _wall(device, run, iters):
     return time.perf_counter() - t, out
 
 
-def race(device, batch, n, i1, i2, reps=5, *, iters=15000, q=None, v=None):
+def race(device, batch, n, i1, i2, reps=5, *, iters=15000, q=None, v=None,
+         reverse=False):
     """Race every row of :data:`ROWS` on ``device``: "cuda" launches the
     kernels ("v2" rows need ``i1`` and ``i2`` to be multiples of the row's
-    unroll), "cpu" times their plain versions.  Returns one dict per row:
-    ``label``, ``us_per_step``, ``traj_iter_per_s``, ``finite`` (both
-    outputs of the i2-step run) and the best walls ``w1_s``, ``w2_s``.
+    unroll), "cpu" times their plain versions.  Returns one dict per row, in
+    the order of :data:`ROWS`: ``label``, ``us_per_step``,
+    ``traj_iter_per_s``, ``finite`` (both outputs of the i2-step run) and
+    the best walls ``w1_s``, ``w2_s``.
 
     ``q``, ``v`` default to the harness's problem of size ``n``; ``iters`` is
-    the schedule's T."""
+    the schedule's T; ``reverse`` runs the rows last to first."""
     dev = resolve_device(device)
     if q is None:
         qn, vn = harness_problem(n)
@@ -117,8 +137,8 @@ def race(device, batch, n, i1, i2, reps=5, *, iters=15000, q=None, v=None):
         raise ValueError(f"need 0 < i1 < i2, got {i1}, {i2}")
     pv = harness_params(iters)
     rows = []
-    for label, kind, kw in ROWS:
-        run = _runner(kind, kw, q, v, pv, batch, dev.type == "cpu")
+    for label, kind, kw in (ROWS[::-1] if reverse else ROWS):
+        run = runner(kind, kw, q, v, pv, batch, dev.type == "cpu")
         _wall(dev, run, i1)  # warm-up: builds and loads the kernel
         w1 = min(_wall(dev, run, i1)[0] for _ in range(reps))
         w2, out = float("inf"), None
@@ -133,13 +153,64 @@ def race(device, batch, n, i1, i2, reps=5, *, iters=15000, q=None, v=None):
             "finite": all(bool(torch.isfinite(x).all()) for x in out),
             "w1_s": w1, "w2_s": w2,
         })
+    return rows[::-1] if reverse else rows
+
+
+def race_rounds(device, batch, n, i1, i2, rounds, reps=5, **kw):
+    """:func:`race` ``rounds`` times, the row order reversed every other
+    round, so a drift of the card over the call falls on every row alike.
+    Returns one dict per row of :data:`ROWS`: ``label``, ``us_per_step``
+    (the median over the rounds), ``us_rounds`` (every round's),
+    ``us_range`` (their max - min), ``traj_iter_per_s`` at the median and
+    ``finite`` (in every round)."""
+    if rounds < 1:
+        raise ValueError(f"rounds must be at least 1, got {rounds}")
+    runs = [race(device, batch, n, i1, i2, reps, reverse=bool(r % 2), **kw)
+            for r in range(rounds)]
+    rows = []
+    for i, label in enumerate(LABELS):
+        us = [run[i]["us_per_step"] for run in runs]
+        med = statistics.median(us)
+        rows.append({
+            "label": label, "us_per_step": med, "us_rounds": us,
+            "us_range": max(us) - min(us),
+            "traj_iter_per_s": batch / med * 1e6 if med > 0 else float("inf"),
+            "finite": all(run[i]["finite"] for run in runs),
+        })
     return rows
 
 
+def knob_effects(rows):
+    """Each knob of :data:`KNOBS` on rows of :func:`race_rounds`: ``knob``,
+    ``delta_us`` (changed median - base median), ``delta_pct`` (of the
+    base), and ``resolved``: every round of one row faster than every round
+    of the other, so the effect exceeds the rounds' spread."""
+    by_label = {r["label"]: r for r in rows}
+    effects = []
+    for knob, base, changed in KNOBS:
+        a, b = by_label[base], by_label[changed]
+        delta = b["us_per_step"] - a["us_per_step"]
+        resolved = (max(b["us_rounds"]) < min(a["us_rounds"])
+                    or max(a["us_rounds"]) < min(b["us_rounds"]))
+        effects.append({"knob": knob, "delta_us": delta,
+                         "delta_pct": 100.0 * delta / a["us_per_step"],
+                         "resolved": resolved})
+    return effects
+
+
 def format_row(row):
-    return (f"{row['label']:44s} marginal {row['us_per_step']:9.4f} us/step  "
+    rounds = len(row.get("us_rounds", ()))
+    spread = (f" median, range {row['us_range']:.4f} over {rounds} rounds"
+              if rounds > 1 else "")
+    return (f"{row['label']:44s} marginal {row['us_per_step']:9.4f} us/step{spread}  "
             f"compute-bound {row['traj_iter_per_s'] / 1e6:9.1f} M traj-it/s  "
             f"outputs {'finite' if row['finite'] else 'NOT finite'}")
+
+
+def format_effect(effect):
+    return (f"{effect['knob']:40s} {effect['delta_us']:+9.4f} us/step "
+            f"({effect['delta_pct']:+.1f}%), "
+            f"{'resolved' if effect['resolved'] else 'within the spread'}")
 
 
 def main(argv=None):

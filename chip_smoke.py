@@ -42,20 +42,25 @@ exits non-zero without printing a result:
    plain version.  The Langevin
    family is held elementwise after 100, 1,000 and 15,000 steps (past 100
    steps at LANGEVIN_DEEP_TOL, with at most LANGEVIN_DEEP_SHARE of the
-   elements over PARITY_TOL), MF after 100 and 1,000, DL after 1,000 (their
-   15,000-step errors are recorded in PERF.md); the difference by depth is
-   printed, and every kernel is measured before a failed hold raises;
+   elements over PARITY_TOL), MF after 100 and 1,000, DL after 1,000 (the
+   15,000-step errors of DL, MF and MF-Adam from earlier runs are recorded
+   in PERF.md); the difference by depth is printed, and every kernel is
+   measured before a failed hold raises;
 8. the DL race harness (``ccvm_tpu_torch/tools/kernel_experiments.py``,
    kernels of ``csrc/dl_variants.cu``) on the scaled N=70 instance with the
    DL tuned parameters: each v2 / v3 specialisation against its plain
    version noise off (batch 1024, 304 steps, and v3 over 300 for its tail)
    and noise on (104 steps, popcount1 and popcount2), a stacked launch
-   against serial ones; v2 and v3 success probabilities within the band of
-   the production kernel's (batch 4096, 15,000 steps); the race itself,
-   ``race("cuda", ...)``, at the harness's shape (batch 1000, n 20) and at
-   the main shape, with the launch counts zeroed before and read after; and
-   the dl_v2 / dl_v3 rows of the kernels line (time at the main shape,
-   plain time and hold over 1,000 steps);
+   against serial ones; every race row's kernel (production's too) against
+   its plain version at the race's own shape (the harness's problem, batch
+   1000, n 20, 296 steps, noise off and on); v2 and v3 success
+   probabilities within the band of the production kernel's (batch 4096,
+   15,000 steps); the race itself, ``race_rounds("cuda", ...)``, once at the
+   harness's shape and MAIN_RACE_ROUNDS times at the main shape (row order
+   reversed every other round; median, range and each knob's effect), with
+   the launch counts zeroed before and read after; and the dl_v2 / dl_v3
+   rows of the kernels line (time at the main shape, plain time and hold
+   over 1,000 steps);
 9. the last line: {"ok": true, "device": {...}}.
 """
 
@@ -97,6 +102,13 @@ LANGEVIN_DEEP_SHARE = 1e-4
 # at the main-path shape (each plain main-shape solve at full depth costs
 # about a minute); their kernels are timed at full depth.
 EARLIER_PLAIN_DEPTH = 1000
+# Phase 8 races the main shape this many times, the row order reversed every
+# other round, and calls a knob's effect resolved only beyond the rounds'
+# spread; a single race moved one row by 6% between two calls.
+MAIN_RACE_ROUNDS = 5
+# Phase 8 holds each race row's kernel at the harness's shape over this many
+# steps: a multiple of 8 (v2's unroll) that leaves v3 unroll 16 a tail of 8.
+HARNESS_HOLD_STEPS = 296
 # fp32 operations per element of (batch, N) state per step, beside the
 # 2*N of each matvec, counted from csrc/dl_solve.cu, csrc/mf_solve.cu and
 # csrc/langevin_solve.cu (drift, schedules, noise scaling, divisions, clips,
@@ -803,6 +815,25 @@ def main():
     log("phase 8 stacked: a two-instance dl_v2 and dl_v3 launch equals serial "
         "launches with seeds 11 and 12 bit for bit")
 
+    # Every race row's kernel against its plain version at the race's own
+    # shape: the harness's problem (unscaled Q; at n 20 a block is 5 column
+    # groups by 64 rows, and batch 1000 leaves the 16th block 40 rows) and
+    # parameters, T = steps.
+    hq, hv = (torch.from_numpy(x).cuda() for x in kernel_experiments.harness_problem(20))
+    hpv = kernel_experiments.harness_params(HARNESS_HOLD_STEPS)
+    for label, kind, row_kw in kernel_experiments.ROWS:
+        kname = "dl_solve" if kind == "production" else f"dl_{kind}"
+        for noise_scale in (0.0, 1.0):
+            out, ref = (kernel_experiments.runner(
+                kind, row_kw, hq, hv, hpv, 1000, plain, seed=9,
+                noise_scale=noise_scale)(HARNESS_HOLD_STEPS) for plain in (False, True))
+            for x in out:
+                assert x.shape == (1000, 20) and torch.isfinite(x).all(), \
+                    f"{label}: output not finite or of the wrong shape"
+            hold(kname, f"{label}, noise {'on' if noise_scale else 'off'}",
+                 max_diff(out, ref), f"phase 8 harness shape (batch 1000, n 20), "
+                 f"{HARNESS_HOLD_STEPS} steps, c and s,")
+
     # Statistics: the variants solve the production kernel's problem.
     cv = ("boxqp", *inst.solution_bounds, 1.0)
     cp, _ = dl_kernels.dl_solve(21, inst.q_matrix, inst.v_vector, params(ITERATIONS),
@@ -820,16 +851,17 @@ def main():
             f"{kname} success probabilities disagree with production"
 
     # The race, through the harness's entry point; the launch counts of its
-    # two runs are the variants' main-path launches.
+    # runs are the variants' main-path launches.
     race_shapes = {
-        "harness shape, batch 1000, n 20, i1 20000, i2 100000":
-            dict(batch=1000, n=20, i1=20_000, i2=100_000),
-        f"main shape, batch {MAIN_BATCH}, the N={N} instance, i1 1000, i2 5000":
+        "harness shape, batch 1000, n 20, i1 20000, i2 100000, best of 3":
+            dict(batch=1000, n=20, i1=20_000, i2=100_000, rounds=1, reps=3),
+        f"main shape, batch {MAIN_BATCH}, the N={N} instance, i1 1000, i2 5000, "
+        f"best of 2 in each of {MAIN_RACE_ROUNDS} rounds":
             dict(batch=MAIN_BATCH, n=N, i1=1000, i2=5000, q=inst.q_matrix,
-                 v=inst.v_vector),
+                 v=inst.v_vector, rounds=MAIN_RACE_ROUNDS, reps=2),
     }
     zero_counts()
-    races = {shape: kernel_experiments.race("cuda", reps=3, **kw)
+    races = {shape: kernel_experiments.race_rounds("cuda", **kw)
              for shape, kw in race_shapes.items()}
     launched = counts()
     assert launched["dl_v2"] > 0 and launched["dl_v3"] > 0, launched
@@ -837,9 +869,14 @@ def main():
                             dl_v3=launched["dl_v3"]), launched
     launches.update(dl_v2=launched["dl_v2"], dl_v3=launched["dl_v3"])
     for shape, rows in races.items():
-        log(f"phase 8 race, {shape}, T 15000, CUDA events, best of 3, {smi}:")
+        log(f"phase 8 race, {shape}, T 15000, CUDA events, {smi}:")
         for row in rows:
-            log(f"  {kernel_experiments.format_row(row)}")
+            log(f"  {kernel_experiments.format_row(row)} "
+                f"rounds {[round(u, 4) for u in row['us_rounds']]}")
+        if len(rows[0]["us_rounds"]) > 1:
+            log(f"phase 8 knobs at the {shape.split(',')[0]} (median against median):")
+            for effect in kernel_experiments.knob_effects(rows):
+                log(f"  {kernel_experiments.format_effect(effect)}")
     log(f"phase 8 race launches: {launched}")
 
     # Kernels line: full-depth time, 1,000-step plain time and hold.

@@ -232,3 +232,56 @@ def test_race_uses_the_harness_problem(ke):
         tke.harness_params(15000),
         np.array([8.0, np.sqrt(7.0), 0.001, 10.0, 100.0, 0.01, 0.0, 1.0, 15000.0],
                  np.float32))
+
+
+def test_race_rounds_alternate_the_row_order_and_report_median_and_range(monkeypatch):
+    order = []
+    runner = tke.runner
+
+    def recording(kind, kw, *args, **kwargs):
+        run = runner(kind, kw, *args, **kwargs)
+        label = next(lb for lb, k, w in tke.ROWS if k == kind and w == kw)
+        order.append(label)
+        return run
+
+    monkeypatch.setattr(tke, "runner", recording)
+    rows = tke.race_rounds("cpu", batch=8, n=6, i1=2, i2=4, rounds=3, reps=1)
+    labels = list(tke.LABELS)
+    assert order == labels + labels[::-1] + labels
+    assert [r["label"] for r in rows] == labels
+    for r in rows:
+        assert len(r["us_rounds"]) == 3 and r["finite"]
+        assert r["us_per_step"] == sorted(r["us_rounds"])[1]
+        assert r["us_range"] == max(r["us_rounds"]) - min(r["us_rounds"])
+        assert "over 3 rounds" in tke.format_row(r)
+    with pytest.raises(ValueError, match="rounds"):
+        tke.race_rounds("cpu", batch=8, n=6, i1=2, i2=4, rounds=0)
+
+
+def _rounds_row(label, us):
+    return {"label": label, "us_per_step": float(np.median(us)), "us_rounds": us}
+
+
+def test_knob_effects_are_resolved_only_beyond_the_spread():
+    base = {label: [60.0, 61.0, 62.0] for label in tke.LABELS}
+    base[tke.KNOBS[0][2]] = [50.0, 52.0, 53.0]  # fused: every round faster
+    base[tke.KNOBS[1][2]] = [59.0, 61.5, 63.0]  # prescaled: ranges overlap
+    effects = tke.knob_effects([_rounds_row(k, v) for k, v in base.items()])
+    assert [e["knob"] for e in effects] == [k for k, _, _ in tke.KNOBS]
+    assert effects[0]["delta_us"] == pytest.approx(-9.0)
+    assert effects[0]["delta_pct"] == pytest.approx(-900.0 / 61.0)
+    assert effects[0]["resolved"]
+    assert effects[1]["delta_us"] == pytest.approx(0.5)
+    assert not effects[1]["resolved"]
+    assert "within the spread" in tke.format_effect(effects[1])
+
+
+def test_race_cli_on_the_cpu_prints_every_row(monkeypatch, capsys):
+    monkeypatch.setattr(tke, "I1", 2)
+    monkeypatch.setattr(tke, "I2", 4)
+    tke.main(["--device", "cpu", "--batch", "4", "--n", "6"])
+    lines = capsys.readouterr().out.splitlines()
+    assert "i1=2 i2=4" in lines[0]
+    assert len(lines) == 1 + len(tke.ROWS)
+    for line, label in zip(lines[1:], tke.LABELS):
+        assert line.startswith(label) and "marginal" in line

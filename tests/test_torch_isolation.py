@@ -345,13 +345,6 @@ def test_dl_variants_on_cuda_tensors_never_reach_the_plain_version(
                       dl_variant_kernels.dl_v3.launches)
 
 
-def test_dl_variant_launch_shape_is_dl_s():
-    for n in range(2, 71):
-        assert dl_variant_kernels.launch_shape(n) == dl_kernels.launch_shape(n)
-    with pytest.raises(ValueError, match="does not fit the DL variant kernel"):
-        dl_variant_kernels.launch_shape(400)
-
-
 def test_race_on_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
