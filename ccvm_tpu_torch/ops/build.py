@@ -61,14 +61,14 @@ class DLSpec(NamedTuple):
     adam: bool
     beta2_one: bool
     add_assign: bool
-    pump_rate_flag: bool
-    pump_gt_one: bool
     noise: bool
     rng: int  # index into ops.philox.RNG_NAMES
+    mma: bool = True  # the 3xTF32 tensor-core matvec; False: fp32 CUDA cores
+    nt: int = 9  # n-tiles of 8 columns, ceil(N / 8) (0 for the CUDA-core matvec)
 
     source = "dl_solve.cu"
     symbol = "ccvm_dl_solve"
-    argtypes = _HEAD + [ctypes.c_void_p] * 2 + _TAIL  # c, s
+    argtypes = _HEAD + [ctypes.c_void_p] * 3 + _TAIL  # step table, c, s
     defines = _defines
     tag = _tag
 
@@ -149,6 +149,65 @@ def launch_shape(n: int, x_arrays: int, kernel: str):
     return rows, groups * row_groups, smem
 
 
+# Shared memory of one SM (228 KB), and what the card reserves per block.
+SM_SMEM = 233472
+_BLOCK_RESERVED_SMEM = 1024
+SMS = 132  # streaming multiprocessors of an H100 SXM
+_MAX_NT = 16  # csrc/dl_solve.cu: at most 16 n-tiles, N <= 128
+
+
+class LaunchShape(NamedTuple):
+    """A DL launch: trajectories and threads per block, shared-memory bytes,
+    N padded (to 8 for the tensor-core matvec, 4 for the CUDA cores), and
+    the blocks per SM that the kernel's launch bounds and shared memory
+    allow (the card reports the real count: ``dl_kernels.blocks_per_sm``)."""
+
+    rows: int
+    threads: int
+    smem: int
+    np: int
+    blocks_per_sm: int
+
+
+def dl_launch_shape(n: int, adam: bool, mma: bool = True) -> LaunchShape:
+    """The launch rule of csrc/dl_solve.cu (``dl_launch_shape`` there).
+
+    Tensor cores: a warp owns 8 trajectories, N is padded to a multiple of
+    8 (``nt`` = N/8 n-tiles, at most 16), and the block holds Q's 3xTF32
+    fragments (8 NP^2 bytes), a per-column offset (4 NP), and each warp its
+    lanes' own arrays, 512 bytes per n-tile and float4: DL's c and s (nt
+    float4s); DL-Adam's c and s beyond the four n-tiles it keeps in
+    registers, and its two moments (2 nt).  DL: 8 warps (64 trajectories)
+    at two blocks per SM; DL-Adam: 16 warps (128 trajectories) at one;
+    fewer warps where they do not fit.  Either way 16 warps per SM at
+    N <= 72.  The CUDA-core matvec keeps :func:`launch_shape`'s rule (two x
+    arrays).  Raises when N does not fit."""
+    if not mma:
+        rows, threads, smem = launch_shape(n, 2, "DL")
+        return LaunchShape(rows, threads, smem, -(-n // _TILE) * _TILE, 1 if adam else 2)
+    np_ = -(-n // 8) * 8
+    nt = np_ // 8
+    fixed = 8 * np_ * np_ + 4 * np_
+    per_warp = 512 * (max(0, nt - 4) + 2 * nt if adam else nt)
+    max_warps, want_blocks = (16, 1) if adam else (8, 2)
+    warps = min(max_warps, (SMEM_LIMIT - fixed) // per_warp)
+    if nt > _MAX_NT or warps < 1 or fixed > SMEM_LIMIT:
+        raise ValueError(
+            f"problem size N={n} does not fit the DL{'-Adam' if adam else ''} "
+            f"tensor-core kernel: it takes N <= {8 * _MAX_NT} (Q's fragments "
+            f"need {fixed} bytes of shared memory, limit {SMEM_LIMIT})"
+        )
+    smem = fixed + warps * per_warp
+    blocks = min(want_blocks, SM_SMEM // (smem + _BLOCK_RESERVED_SMEM))
+    return LaunchShape(8 * warps, 32 * warps, smem, np_, blocks)
+
+
+def waves(batch: int, shape: LaunchShape, sms: int = SMS) -> float:
+    """Blocks of a batch over the card's resident slots: a grid fills
+    whole waves within 10% when ``waves / ceil(waves) >= 0.9``."""
+    return -(-batch // shape.rows) / (shape.blocks_per_sm * sms)
+
+
 def find_nvcc() -> str:
     """Path of ``nvcc``; raises when the CUDA toolkit is absent."""
     for cand in (
@@ -212,17 +271,19 @@ def build(specs) -> dict:
     return reports
 
 
-def load(spec):
-    """The ctypes launch function of ``spec``, built first if needed.  A
-    process reads and hashes the sources only at its first load of a spec."""
-    key = (type(spec), spec)
+def load(spec, symbol=None, argtypes=None):
+    """The ctypes function ``symbol`` (default: the launch function
+    ``spec.symbol``, with ``spec.argtypes``) of ``spec``'s library, built
+    first if needed.  A process reads and hashes the sources only at its
+    first load of a spec's symbol."""
+    key = (type(spec), spec) if symbol is None else (type(spec), spec, symbol)
     with _LOCK:
         fn = _LIBS.get(key)
         if fn is not None:
             return fn
         build([spec])
-        fn = getattr(ctypes.CDLL(library_path(spec)), spec.symbol)
+        fn = getattr(ctypes.CDLL(library_path(spec)), symbol or spec.symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = spec.argtypes
+        fn.argtypes = spec.argtypes if symbol is None else argtypes
         _LIBS[key] = fn
         return fn

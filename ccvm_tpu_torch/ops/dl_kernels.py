@@ -31,26 +31,90 @@ from ccvm_tpu_torch.runtime import fp32_matmul
 DL_SAFETY_BOUND = 1.0e3
 
 
-def launch_shape(n: int):
+def launch_shape(n: int, adam: bool = False, mma: bool = True):
     """(rows per block, threads, shared-memory bytes) of the kernel at
-    problem size ``n`` (Q and two x arrays, c and s, per block); raises when
-    they do not fit a block."""
-    return build.launch_shape(n, 2, "DL")
+    problem size ``n`` (:func:`ccvm_tpu_torch.ops.build.dl_launch_shape`),
+    with its tensor-core matvec or, ``mma`` False, its CUDA-core one; raises
+    when they do not fit a block."""
+    return tuple(build.dl_launch_shape(n, adam, mma)[:3])
 
 
-def _scalars(params, hp, noise_scale):
-    """The kernel's 15 float32 scalars (csrc/dl_solve.cu DLScalars)."""
+def _spec(n, hp, noise_scale, rng, mma):
+    noise = float(noise_scale) != 0.0
+    return build.DLSpec(
+        adam=hp is not None,
+        beta2_one=hp is not None and hp.beta2 == 1.0,
+        add_assign=hp is not None and bool(hp.add_assign),
+        noise=noise,
+        rng=philox.RNG_NAMES.index(rng) if noise else 1,
+        mma=bool(mma),
+        nt=build.dl_launch_shape(n, hp is not None, mma).np // 8 if mma else 0,
+    )
+
+
+def blocks_per_sm(n, *, noise_scale=1.0, rng="popcount16", hp=None, mma=True):
+    """Blocks of the specialisation that :func:`dl_solve` launches with these
+    arguments (``mma`` False: the CUDA-core matvec of the race harness) that
+    the card keeps resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
+    spec = _spec(n, hp, noise_scale, rng, mma)
+    rows = build.dl_launch_shape(n, hp is not None, mma).rows
+    fn = build.load(spec, "ccvm_dl_blocks_per_sm",
+                    [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    err = fn(int(n), rows, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ccvm_dl_blocks_per_sm failed: cudaError_t {err}")
+    return blocks.value
+
+
+def _scalars(params, hp, noise_scale, pump_is_gt_one):
+    """The kernel's 20 float32 scalars (csrc/dl_solve.cu DLScalars): the
+    solve's, then its per-solve constants in float32 arithmetic, as the
+    device would round them."""
     alpha = beta1 = beta2 = 0.0
     if hp is not None:
         alpha, beta1, beta2 = hp.alpha, hp.beta1, hp.beta2
+    f = np.float32
+    pump, S, dt, g, lo, hi = (f(x) for x in (params.pump, params.S, params.dt,
+                                             params.g, params.lower_limit,
+                                             params.upper_limit))
+    s_d = np.sqrt(pump - f(1.0)) if pump_is_gt_one else S
+    span = hi - lo
     vals = np.array(
-        [params.pump, params.S, params.dt, params.noise_ratio,
-         params.feedback_scale, params.g, params.lower_limit,
-         params.upper_limit, params.iterations,
-         alpha, beta1, 1.0 - beta1, beta2, 1.0 - beta2, noise_scale],
+        [pump, S, dt, params.noise_ratio, params.feedback_scale, g, lo, hi,
+         params.iterations, alpha, beta1, 1.0 - beta1, beta2, 1.0 - beta2,
+         noise_scale,
+         s_d, span / s_d, hi + lo, f(0.25) * span / s_d, f(2.0) * g],
         np.float32,
     )
-    return (ctypes.c_float * 15)(*vals.tolist())
+    return (ctypes.c_float * 20)(*vals.tolist())
+
+
+def _step_table(params, hp, noise_scale, iterations, pump_rate_flag, device):
+    """The kernel's per-step scalars, (iterations, 8) float32 on ``device``,
+    by the plain version's own float32 operations (``dynamics/dl.py``,
+    ``dynamics/common.adam_moment_update``): fs (0.5 + rate), pump rate,
+    noise_scale sqrt(dt) nr_i, noise_scale sqrt(dt) / nr_i, and Adam's
+    1 / (1 - beta1^(i+1)), 1 / (1 - beta2^(i+1)) (1 without Adam, or for
+    beta2 = 1), then two zeros."""
+    def f32(x):
+        return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+    fi1 = torch.arange(1, int(iterations) + 1, dtype=torch.float32, device=device)
+    rate = fi1 / f32(params.iterations) if pump_rate_flag else torch.ones_like(fi1)
+    nr_i = (f32(params.noise_ratio) - 1.0) * torch.exp(
+        -fi1 / f32(params.iterations) * 3.0) + 1.0
+    noise = f32(noise_scale) * torch.sqrt(f32(params.dt))
+    ones, zeros = torch.ones_like(fi1), torch.zeros_like(fi1)
+    inv_b1 = inv_b2 = ones
+    if hp is not None:
+        inv_b1 = 1.0 / (1.0 - torch.pow(hp.beta1, fi1))
+        if hp.beta2 != 1.0:
+            inv_b2 = 1.0 / (1.0 - torch.pow(hp.beta2, fi1))
+    cols = [f32(params.feedback_scale) * (0.5 + rate), f32(params.pump) * rate,
+            noise * nr_i, noise / nr_i, inv_b1, inv_b2, zeros, zeros]
+    return torch.stack(cols, dim=1).contiguous()
 
 
 def check_problem(q_matrix, v_vector, kernel="dl_solve"):
@@ -74,14 +138,13 @@ def _check(q_matrix, v_vector, params):
         raise ValueError("the DL kernel takes a scalar S")
 
 
-def dl_solve(
-    seed, q_matrix, v_vector, params, *, iterations, batch_size,
-    pump_rate_flag, pump_is_gt_one, noise_scale=1.0, rng="popcount16",
-    hp=None,
-):
-    """Fused DL solve; ``hp`` selects the Adam variant.  Returns ``(c, s)``
-    shaped ``(batch, n)``, or ``(I, batch, n)`` for a stacked ``(I, n, n)``
-    Q, where instance ``i`` draws the noise of a solve with ``seed + i``."""
+def solve_with(mma, seed, q_matrix, v_vector, params, *, iterations,
+               batch_size, pump_rate_flag, pump_is_gt_one, noise_scale=1.0,
+               rng="popcount16", hp=None):
+    """:func:`dl_solve` with the matvec chosen: ``mma`` True is the 3xTF32
+    tensor-core design that :func:`dl_solve` launches, False the fp32
+    CUDA-core one that only the race harness launches.  Counts no launch:
+    each caller counts its own."""
     if rng not in philox.RNG_NAMES:
         raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
     _check(q_matrix, v_vector, params)
@@ -99,35 +162,48 @@ def dl_solve(
     q = (q_matrix if stacked else q_matrix[None]).contiguous()
     v = (v_vector if stacked else v_vector[None]).contiguous()
     num_instances, n = q.shape[0], q.shape[-1]
-    rows, _, _ = launch_shape(n)
-    spec = build.DLSpec(
-        adam=hp is not None,
-        beta2_one=hp is not None and hp.beta2 == 1.0,
-        add_assign=hp is not None and bool(hp.add_assign),
-        pump_rate_flag=bool(pump_rate_flag),
-        pump_gt_one=bool(pump_is_gt_one),
-        noise=float(noise_scale) != 0.0,
-        rng=philox.RNG_NAMES.index(rng) if float(noise_scale) != 0.0 else 1,
-    )
+    rows, _, _ = launch_shape(n, hp is not None, mma)
+    spec = _spec(n, hp, noise_scale, rng, mma)
     launch = build.load(spec)
+    steps = _step_table(params, hp, noise_scale, iterations, pump_rate_flag,
+                        q.device)
     c = torch.empty((num_instances, batch_size, n), dtype=torch.float32,
                     device=q.device)
     s = torch.empty_like(c)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(
-            q.data_ptr(), v.data_ptr(), c.data_ptr(), s.data_ptr(),
+            q.data_ptr(), v.data_ptr(), steps.data_ptr(), c.data_ptr(),
+            s.data_ptr(),
             num_instances, int(batch_size), n, int(iterations),
-            int(seed) % 2**64, _scalars(params, hp, float(noise_scale)), rows,
+            int(seed) % 2**64,
+            _scalars(params, hp, float(noise_scale), pump_is_gt_one), rows,
             stream,
         )
     if err != 0:
         raise RuntimeError(f"dl_solve kernel launch failed: cudaError_t {err}")
-    if hp is None:
-        dl_solve.dl_launches += 1
-    else:
-        dl_solve.dl_adam_launches += 1
     return (c, s) if stacked else (c[0], s[0])
+
+
+def dl_solve(
+    seed, q_matrix, v_vector, params, *, iterations, batch_size,
+    pump_rate_flag, pump_is_gt_one, noise_scale=1.0, rng="popcount16",
+    hp=None,
+):
+    """Fused DL solve; ``hp`` selects the Adam variant.  Returns ``(c, s)``
+    shaped ``(batch, n)``, or ``(I, batch, n)`` for a stacked ``(I, n, n)``
+    Q, where instance ``i`` draws the noise of a solve with ``seed + i``."""
+    out = solve_with(
+        True, seed, q_matrix, v_vector, params, iterations=iterations,
+        batch_size=batch_size, pump_rate_flag=pump_rate_flag,
+        pump_is_gt_one=pump_is_gt_one, noise_scale=noise_scale, rng=rng, hp=hp,
+    )
+    if q_matrix.device.type == "cuda":
+        if hp is None:
+            dl_solve.dl_launches += 1
+        else:
+            dl_solve.dl_adam_launches += 1
+    return out
 
 
 # Launch counts of the two kernels (the wrapper adds one per launch).

@@ -2,8 +2,9 @@
 
 The port of the JAX package's scratch harness ``tools/kernel_experiments.py``
 to the card.  Knobs: the Wiener transform (popcount1 / popcount2, and
-production's popcount16), the fused c/s matvec, the step-loop unroll, and
-v3's change of variables folded into Q once.  Each row is timed at two
+production's popcount16), the fused c/s matvec, the step-loop unroll, v3's
+change of variables folded into Q once, and production's matvec (3xTF32 on
+the tensor cores against fp32 on the CUDA cores).  Each row is timed at two
 iteration counts and reported as the marginal time per step,
 ``(w(i2) - w(i1)) / (i2 - i1)``, which cancels the launch and set-up; on the
 card ``w`` is read from CUDA events around one call, the best of ``reps``.
@@ -38,7 +39,9 @@ from ccvm_tpu_torch.runtime import resolve_device
 I1, I2 = 400_000, 2_000_000
 
 # (label, kernel, keyword arguments): the JAX harness's rows and labels,
-# then the fused-matvec knob, then the production kernel.
+# then the fused-matvec knob, then the DL kernel with its fp32 CUDA-core
+# matvec (csrc/dl_solve.cu's MMA = 0, :func:`cuda_core_dl_solve`) and as it
+# ships (3xTF32 on the tensor cores, ``dl_kernels.dl_solve``).
 ROWS = (
     ("v2 popcount1 fuse0 unroll8 (prev best)", "v2",
      dict(rng_name="popcount1", fuse_matvec=False, unroll=8)),
@@ -46,6 +49,7 @@ ROWS = (
       for unroll in (8, 16) for rng_name in ("popcount1", "popcount2")),
     ("v2 popcount1 fuse1 unroll8", "v2",
      dict(rng_name="popcount1", fuse_matvec=True, unroll=8)),
+    ("dl_solve CUDA-core matvec popcount16 (clip)", "cuda-core", {}),
     ("production dl_solve popcount16 (clip)", "production", {}),
 )
 LABELS = tuple(label for label, _, _ in ROWS)
@@ -59,7 +63,9 @@ KNOBS = (
     ("popcount2 against popcount1, unroll 16", LABELS[3], LABELS[4]),
     ("unroll 16 against 8, popcount1", LABELS[1], LABELS[3]),
     ("unroll 16 against 8, popcount2", LABELS[2], LABELS[4]),
-    ("production against v2 fused", LABELS[5], LABELS[6]),
+    ("production against v2 fused", LABELS[5], LABELS[7]),
+    ("CUDA-core dl_solve against v2 fused", LABELS[5], LABELS[6]),
+    ("tensor-core matvec (3xTF32 against CUDA cores)", LABELS[6], LABELS[7]),
 )
 
 
@@ -78,11 +84,25 @@ def harness_params(iters: int):
                      float(iters)], np.float32)
 
 
+def cuda_core_dl_solve(seed, q_matrix, v_vector, params, **kwargs):
+    """The DL kernel with its fp32 CUDA-core matvec (``csrc/dl_solve.cu``,
+    MMA = 0): the race row that the solvers never launch.  Arguments and
+    result of :func:`ccvm_tpu_torch.ops.dl_kernels.dl_solve`, and the same
+    plain version for CPU tensors; counts its launches in ``launches``."""
+    out = dl_kernels.solve_with(False, seed, q_matrix, v_vector, params, **kwargs)
+    if q_matrix.device.type == "cuda":
+        cuda_core_dl_solve.launches += 1
+    return out
+
+
+cuda_core_dl_solve.launches = 0
+
 # kind -> (kernel wrapper, plain version)
 _FUNCTIONS = {
     "v2": (dl_v2, dl_v2_reference),
     "v3": (dl_v3, dl_v3_reference),
     "production": (dl_kernels.dl_solve, dl_kernels.dl_solve_reference),
+    "cuda-core": (cuda_core_dl_solve, dl_kernels.dl_solve_reference),
 }
 
 
@@ -91,12 +111,12 @@ def runner(kind, kw, q, v, pv, batch, plain, seed=0, noise_scale=1.0):
     :data:`ROWS`): the kernel's wrapper, or with ``plain`` its plain version
     (which needs no whole unrolled bodies)."""
     fn = _FUNCTIONS[kind][int(plain)]
-    if kind == "production":
+    if kind in ("production", "cuda-core"):
         p = DLParams(*(float(x) for x in pv))
         return lambda iters: fn(
             seed, q, v, p, iterations=iters, batch_size=batch,
             pump_rate_flag=True, pump_is_gt_one=True, rng="popcount16",
-            noise_scale=noise_scale)
+            noise_scale=noise_scale, **kw)
     return lambda iters: fn(seed, q, v, pv, iterations=iters, batch_size=batch,
                             noise_scale=noise_scale, **kw)
 

@@ -12,7 +12,12 @@ exits non-zero without printing a result:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does;
 2. build: compiles every kernel specialisation the run launches from
    ``ccvm_tpu_torch/csrc`` (one nvcc each, all started together) into
-   build/kernels, and prints what ptxas reports;
+   build/kernels, and prints what ptxas reports; for each DL specialisation
+   the blocks per SM the card keeps resident
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and for the DL main
+   path's two (3xTF32 tensor-core matvec, noise on) it holds no spill bytes,
+   DL-Adam at 16 resident warps per SM and DL's grid at batch 65536 within
+   10% of whole waves;
 3. noise off: each kernel against its plain PyTorch version on the card, on
    the scaled N=70 instance, batch 1024, 300 iterations (DL pump 12, DL-Adam
    with beta2 0.999 and 1.0; MF, Langevin and pumped Langevin with the tuned
@@ -21,10 +26,14 @@ exits non-zero without printing a result:
    launch against two serial launches, bit for bit;
 4. noise on, same Philox words: kernel against plain, 100 iterations;
 5. noise on, statistics: 15,000 iterations at batch 4096, kernel against
-   plain; every success probability within 5 combined binomial sigmas + 0.01
-   (the band of tools/tpu_validate.py).  The readouts of MF and of the
-   Langevin family go through their change of variables, grad-descent and
-   ``compute_energy_readout64``, as the façades' do;
+   plain (DL, DL-Adam, MF, Langevin, pumped Langevin); every success
+   probability within 5 combined binomial sigmas + 0.01 (the band of
+   tools/tpu_validate.py).  The readouts of MF and of the Langevin family go
+   through their change of variables, grad-descent and
+   ``compute_energy_readout64``, as the façades' do.  The plain solves at
+   full depth, these and phase 7's, run in worker processes (spawned, one
+   fewer than the host's cores) beside phases 3-5, and all have ended
+   before phase 6;
 6. main paths, through the façades, on tuningH070-100-0.in with the tuned
    N=70 parameters, batch 65536, 15,000 iterations, a warm-up then seeds 1-3,
    with the launch counts zeroed just before and read just after, and the
@@ -39,13 +48,16 @@ exits non-zero without printing a result:
    against its plain version (same seed, so the same noise), for the JSON
    line printed after phase 8 with each kernel's launches, time, bound,
    plain time (and the steps it covers) and largest error against its
-   plain version.  The Langevin
-   family is held elementwise after 100, 1,000 and 15,000 steps (past 100
-   steps at LANGEVIN_DEEP_TOL, with at most LANGEVIN_DEEP_SHARE of the
-   elements over PARITY_TOL), MF after 100 and 1,000, DL after 1,000 (the
-   15,000-step errors of DL, MF and MF-Adam from earlier runs are recorded
-   in PERF.md); the difference by depth is printed, and every kernel is
-   measured before a failed hold raises;
+   plain version.  The bound of DL and DL-Adam is that of their 3xTF32
+   tensor-core matvecs beside the CUDA cores' elementwise work, and their
+   fp32 CUDA-core bound is a second column (``bound_fp32_ms``); DL-Adam's
+   time is held to 1.5 x DL's.  The Langevin family is held elementwise
+   after 100, 1,000 and 15,000 steps (past 100 steps at LANGEVIN_DEEP_TOL,
+   with at most LANGEVIN_DEEP_SHARE of the elements over PARITY_TOL), MF
+   after 100 and 1,000, DL after 1,000 (the 15,000-step errors of DL and MF
+   from earlier runs are recorded in PERF.md); plain times are over 1,000
+   steps; the difference by depth is printed, and every kernel is measured
+   before a failed hold raises;
 8. the DL race harness (``ccvm_tpu_torch/tools/kernel_experiments.py``,
    kernels of ``csrc/dl_variants.cu``) on the scaled N=70 instance with the
    DL tuned parameters: each v2 / v3 specialisation against its plain
@@ -55,19 +67,25 @@ exits non-zero without printing a result:
    its plain version at the race's own shape (the harness's problem, batch
    1000, n 20, 296 steps, noise off and on); v2 and v3 success
    probabilities within the band of the production kernel's (batch 4096,
-   15,000 steps); the race itself, ``race_rounds("cuda", ...)``, once at the
-   harness's shape and MAIN_RACE_ROUNDS times at the main shape (row order
-   reversed every other round; median, range and each knob's effect), with
-   the launch counts zeroed before and read after; and the dl_v2 / dl_v3
-   rows of the kernels line (time at the main shape, plain time and hold
-   over 1,000 steps);
+   15,000 steps); the DL kernel's CUDA-core matvec (the race row that
+   production does not launch) against its plain version noise off at N=70;
+   the race itself, ``race_rounds("cuda", ...)``, once at the harness's
+   shape and MAIN_RACE_ROUNDS times at the main shape (row order reversed
+   every other round; median, range and each knob's effect, the tensor-core
+   matvec among them), with the launch counts zeroed before and read after,
+   and production's median at the main shape held at or below v2 fuse1's;
+   and the dl_v2 / dl_v3 rows of the kernels line (time at the main shape,
+   plain time and hold over 1,000 steps);
 9. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import functools
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -98,9 +116,10 @@ PARITY_TOL = 1e-4
 # PARITY_TOL.
 LANGEVIN_DEEP_TOL = 2e-3
 LANGEVIN_DEEP_SHARE = 1e-4
-# Phase 7 holds DL and MF against their plain versions over this many steps
-# at the main-path shape (each plain main-shape solve at full depth costs
-# about a minute); their kernels are timed at full depth.
+# Phase 7 holds every solver kernel against its plain version over this many
+# steps at the main-path shape, and times the plain versions over them (each
+# plain main-shape solve at full depth costs a minute or more of host time);
+# the kernels are timed at full depth.
 EARLIER_PLAIN_DEPTH = 1000
 # Phase 8 races the main shape this many times, the row order reversed every
 # other round, and calls a knob's effect resolved only beyond the rounds'
@@ -131,10 +150,17 @@ OUTPUTS = {"dl_solve": 2, "dl_adam_solve": 2, "mf_solve": 3, "mf_adam_solve": 3,
            "pumped_langevin_solve": 1, "pumped_langevin_adam_solve": 1,
            "dl_v2": 2, "dl_v3": 2}
 KERNELS = tuple(MATVECS)
-# Published dense fp32 (non-tensor-core) peaks and memory rates of H100
-# parts, by a substring of the nvidia-smi name (NVIDIA data sheets).
-PEAKS = (("PCIe", 51.2e12, 2.0e12), ("NVL", 60.0e12, 3.9e12),
-         ("H100", 66.9e12, 3.35e12))
+# Published dense fp32 (non-tensor-core) peaks, memory rates and dense TF32
+# tensor-core peaks of H100 parts, by a substring of the nvidia-smi name
+# (NVIDIA data sheets; the TF32 rates are half the sparse ones quoted).
+PEAKS = (("PCIe", 51.2e12, 2.0e12, 378e12), ("NVL", 60.0e12, 3.9e12, 417.5e12),
+         ("H100", 66.9e12, 3.35e12, 494.7e12))
+# Kernels whose matvecs run as 3xTF32 on the tensor cores (three TF32
+# products per fp32 product) beside their elementwise work on the fp32 CUDA
+# cores.
+TENSOR_CORE_KERNELS = ("dl_solve", "dl_adam_solve")
+# DL-Adam's time against DL's at the main-path shape (phase 7): at most this.
+ADAM_OVER_DL = 1.5
 # bench.py's MF, Langevin and pumped rows on a TPU v5 lite in round 5
 # (BENCH_r05.json): quality references for the port, not speed targets.
 TPU_R5_P01 = {"mf": 1.000, "langevin": 0.958, "pumped": 0.994}
@@ -145,21 +171,47 @@ def log(msg):
 
 
 def card_peaks(name):
-    for key, flops, bw in PEAKS:
+    for key, flops, bw, tf32 in PEAKS:
         if key in name:
-            return flops, bw
+            return flops, bw, tf32
     raise RuntimeError(f"no published fp32 peak known for {name!r}")
 
 
-def bound_ms(kernel, batch, n, iterations, name):
-    """Least time for the work: operations over the fp32 peak, or bytes
-    (Q and V read once, each output written once) over the memory rate."""
-    flops_peak, bw = card_peaks(name)
-    flops = (2 * MATVECS[kernel] * batch * n * n
-             + ELEMENTWISE_FLOPS[kernel] * batch * n) * iterations
-    nbytes = 4 * (n * n + n + OUTPUTS[kernel] * batch * n)
-    t_ops, t_bytes = flops / flops_peak, nbytes / bw
+def bound_ms(kernel, batch, n, iterations, name, tensor_cores=None):
+    """Least time for the work: operations over the peak of the units that
+    run them, or bytes (Q and V read once, each output written once) over
+    the memory rate.  With ``tensor_cores`` (by default the kernels of
+    TENSOR_CORE_KERNELS) the matvecs run as 3xTF32 at the dense TF32 peak
+    and the elementwise work at the fp32 peak; the two pipes issue side by
+    side, so the operations take the longer of the two.  Otherwise every
+    operation runs at the fp32 peak."""
+    flops_peak, bw, tf32_peak = card_peaks(name)
+    if tensor_cores is None:
+        tensor_cores = kernel in TENSOR_CORE_KERNELS
+    matvec = 2 * MATVECS[kernel] * batch * n * n * iterations
+    elementwise = ELEMENTWISE_FLOPS[kernel] * batch * n * iterations
+    if tensor_cores:
+        t_ops = max(3 * matvec / tf32_peak, elementwise / flops_peak)
+    else:
+        t_ops = (matvec + elementwise) / flops_peak
+    t_bytes = 4 * (n * n + n + OUTPUTS[kernel] * batch * n) / bw
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def plain_solve(module, function, seed, q, v, params, kwargs):
+    """A worker process's job: one plain solve (``function`` of ``module``)
+    on the card from numpy Q and V; its outputs as numpy arrays, and its
+    seconds on the worker's clock."""
+    import importlib
+
+    import torch
+
+    fn = getattr(importlib.import_module(module), function)
+    t = time.perf_counter()
+    out = fn(seed, torch.from_numpy(q).cuda(), torch.from_numpy(v).cuda(), params,
+             **kwargs)
+    out = tuple(x.cpu().numpy() for x in (out if isinstance(out, tuple) else (out,)))
+    return out, time.perf_counter() - t
 
 
 def success_band_ok(perf_a, perf_b, batch, names=("kernel", "plain")):
@@ -186,7 +238,9 @@ def max_diff(a, b):
     return max((x - y).abs().max().item() for x, y in zip(a, b))
 
 
-def main():
+def main(cleanup):
+    """Every phase; ``cleanup`` (a contextlib.ExitStack) stops the worker
+    processes when the run ends or fails."""
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(REPO, "ccvm_tpu_torch")):
         raise SystemExit("chip_smoke: ccvm_tpu_torch/ is missing; run from a checkout")
@@ -205,6 +259,8 @@ def main():
                                     langevin_kernels, mf_kernels, philox)
     from ccvm_tpu_torch.post_processor import PostProcessorGradDescent
     from ccvm_tpu_torch.tools import kernel_experiments
+
+    failures = []  # checks that fail, raised after every kernel was measured
 
     # 1. device
     smi = subprocess.run(
@@ -230,10 +286,23 @@ def main():
     adam_hps = {b2: AdamParameters(beta2=b2).to_hyperparameters()
                 for b2 in (0.999, 1.0)}
 
-    def spec(hp=None, noise=True):
-        return build.DLSpec(hp is not None, hp is not None and hp.beta2 == 1.0,
-                            hp is not None and hp.add_assign, True,
-                            tuned["pump"] > 1, noise, 1)
+    # The DL specialisations the run launches: (problem size, Adam
+    # hyperparameters, noise, tensor-core matvec) by label.  The main path's
+    # two are "DL" and "DL-Adam"; n 20 is the race harness's shape, and
+    # "CUDA-core" the race row that production does not launch.
+    dl_cases = {
+        "DL": (N, None, True, True), "DL noise off": (N, None, False, True),
+        "DL-Adam": (N, adam_hps[0.999], True, True),
+        "DL-Adam noise off": (N, adam_hps[0.999], False, True),
+        "DL-Adam beta2 1 noise off": (N, adam_hps[1.0], False, True),
+        "DL n 20": (20, None, True, True), "DL n 20 noise off": (20, None, False, True),
+        "DL CUDA-core": (N, None, True, False),
+        "DL CUDA-core noise off": (N, None, False, False),
+        "DL-Adam CUDA-core noise off": (N, adam_hps[0.999], False, False),
+    }
+
+    def spec(n, hp, noise, mma):
+        return dl_kernels._spec(n, hp, 1.0 if noise else 0.0, "popcount16", mma)
 
     def mf_spec(hp=None, noise=True):
         return build.MFSpec(hp is not None, hp is not None and hp.beta2 == 1.0,
@@ -245,9 +314,8 @@ def main():
                                   hp is not None and hp.add_assign, pumped,
                                   noise, 0)
 
-    specs = [spec(), spec(noise=False), spec(adam_hps[0.999]),
-             spec(adam_hps[0.999], noise=False), spec(adam_hps[1.0], noise=False),
-             mf_spec(), mf_spec(noise=False), mf_spec(adam_hps[0.999]),
+    specs = [spec(*case) for case in dl_cases.values()]
+    specs += [mf_spec(), mf_spec(noise=False), mf_spec(adam_hps[0.999]),
              mf_spec(adam_hps[0.999], noise=False),
              mf_spec(adam_hps[1.0], noise=False)]
     for pumped in (False, True):
@@ -286,6 +354,31 @@ def main():
         spills = [ln for ln in lines if "spill" in ln]
         log(f"  {type(s).__name__} {s.tag()}: "
             f"{regs[-1] if regs else rep.strip()[-200:]}; {spills[-1] if spills else ''}")
+    # The DL specialisations' residency, as the card reports it, and the
+    # main path's spills, resident warps and waves.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (n, hp, noise, mma) in dl_cases.items():
+        blocks = dl_kernels.blocks_per_sm(n, noise_scale=1.0 if noise else 0.0,
+                                          hp=hp, mma=mma)
+        shape = build.dl_launch_shape(n, hp is not None, mma)
+        warps = blocks * shape.threads // 32
+        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
+        log(f"  {label} ({spec(n, hp, noise, mma).tag()}): {blocks} blocks per SM "
+            f"of {shape.threads} threads ({warps} warps), {shape.rows} trajectories "
+            f"and {shape.smem} bytes of shared memory a block; batch {MAIN_BATCH} "
+            f"is {waves:.3f} waves of {sms} SMs")
+        if label not in ("DL", "DL-Adam"):
+            continue
+        rep = reports.get(spec(n, hp, noise, mma))
+        spill = [ln for ln in (rep or "").splitlines() if "spill" in ln]
+        if rep is None:
+            log(f"  {label}: built before this run, its ptxas report not read")
+        elif not all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in spill):
+            failures.append(f"{label} spills: {spill}")
+        if label == "DL-Adam" and warps < 16:
+            failures.append(f"DL-Adam keeps {warps} warps per SM resident, not 16")
+        if label == "DL" and waves / -(-waves // 1) < 0.9:
+            failures.append(f"DL's grid fills {waves:.3f} waves, not whole ones within 10%")
 
     # Scaled instances on the card, through the user-facing entry points.
     def instance(path, solver_cls=DLSolver):
@@ -351,14 +444,15 @@ def main():
         assert torch.isfinite(ck).all(), "kernel output is not finite"
         return ck, cr, max_diff(ck, cr), plain_s
 
-    def run_pair(seed, batch, iterations, hp, noise_scale, q=None, v=None):
+    def run_pair(seed, batch, iterations, hp, noise_scale, q=None, v=None,
+                 kernel=dl_kernels.dl_solve):
         kw = dict(iterations=iterations, batch_size=batch, pump_rate_flag=True,
                   pump_is_gt_one=tuned["pump"] > 1, noise_scale=noise_scale,
                   rng="popcount16", hp=hp)
         q = inst.q_matrix if q is None else q
         v = inst.v_vector if v is None else v
         p = params(iterations)
-        ck, sk = dl_kernels.dl_solve(seed, q, v, p, **kw)
+        ck, sk = kernel(seed, q, v, p, **kw)
         t = time.perf_counter()
         cr, sr = dl_kernels.dl_solve_reference(seed, q, v, p, **kw)
         torch.cuda.synchronize()
@@ -398,16 +492,67 @@ def main():
                       (family, kname.replace("_solve", "_adam_solve"),
                        adam_hps[1.0], f"{label}-Adam beta2 1.0")]
 
-    failures = []
-
     def hold(kname, label, err, what, tol=PARITY_TOL, defer=False):
         """Hold a kernel's largest difference from its plain version; with
         ``defer`` a failure is raised only after every kernel was measured."""
-        max_err[kname] = max(max_err[kname], err)
+        max_err[kname] = max(max_err.get(kname, 0.0), err)
         log(f"{what} {label}: max |kernel - plain| = {err:.3e} (tol {tol})")
         if err > tol:
             failures.append(f"{label}: {what} parity {err} > {tol}")
             assert defer, failures[-1]
+
+    # The plain solves at full depth (phase 5's statistics, phase 7's holds of
+    # the Langevin family over 15,000 steps) are host-bound eager loops of a
+    # minute or more each: worker processes run them on the card beside
+    # phases 3-5, and every one has ended before phase 6 times anything.
+    # (kernel wrapper, plain version, seed, instance, params, kwargs) by
+    # (phase, label).
+    main_hp = {"dl_solve": None, "dl_adam_solve": adam_hps[0.999],
+               "mf_solve": None, "mf_adam_solve": adam_hps[0.999],
+               "langevin_solve": None,
+               "langevin_adam_solve": lgv_adam["langevin"].to_hyperparameters(),
+               "pumped_langevin_solve": None,
+               "pumped_langevin_adam_solve": lgv_adam["pumped"].to_hyperparameters()}
+    full = dict(iterations=ITERATIONS, noise_scale=1.0)
+    jobs = {}
+    for kname in ("langevin_solve", "langevin_adam_solve", "pumped_langevin_solve",
+                  "pumped_langevin_adam_solve"):
+        family = kname.split("_")[0]
+        kernel, plain, extra = lgv_fns(family)
+        jobs["phase 7", kname] = (
+            kernel, plain, 100, lgv_inst[family], lgv_params(family, ITERATIONS),
+            dict(extra, **full, batch_size=MAIN_BATCH, rng="popcount32",
+                 hp=main_hp[kname]))
+    for label, hp in (("DL", None), ("DL-Adam", adam_hps[0.999])):
+        jobs["phase 5", label] = (
+            dl_kernels.dl_solve, dl_kernels.dl_solve_reference, 21, inst,
+            params(ITERATIONS),
+            dict(full, batch_size=4096, pump_rate_flag=True,
+                 pump_is_gt_one=tuned["pump"] > 1, rng="popcount16", hp=hp))
+    jobs["phase 5", "MF"] = (
+        mf_kernels.mf_solve, mf_kernels.mf_solve_reference, 21, mf_inst,
+        mf_params(ITERATIONS),
+        dict(full, batch_size=4096, pump_rate_flag=True, rng="popcount32", hp=None))
+    for family in lgv_cls:
+        kernel, plain, extra = lgv_fns(family)
+        jobs["phase 5", family] = (
+            kernel, plain, 21, lgv_inst[family], lgv_params(family, ITERATIONS),
+            dict(extra, **full, batch_size=4096, rng="popcount32", hp=None))
+    workers = min(len(jobs), max(1, (os.cpu_count() or 2) - 1))
+    pool = cleanup.enter_context(concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn")))
+    cleanup.callback(pool.shutdown, cancel_futures=True)
+    t_pool = time.perf_counter()
+    futures = {key: pool.submit(plain_solve, plain.__module__, plain.__name__, seed,
+                                inst_.q_matrix.cpu().numpy(),
+                                inst_.v_vector.cpu().numpy(), p, kw)
+               for key, (_, plain, seed, inst_, p, kw) in jobs.items()}
+
+    def plain_result(key):
+        """A worker's plain outputs, back on the card, and its seconds."""
+        arrays, seconds = futures[key].result()
+        out = tuple(torch.from_numpy(a).cuda() for a in arrays)
+        return (out if len(out) > 1 else out[0]), seconds
 
     # 3. noise off
     for kname, hp, label in cases:
@@ -473,15 +618,25 @@ def main():
             best_value=instance_.best_sol, num_frac_values=instance_.num_frac_values,
             solution_vector=[], variables={}).solution_performance
 
-    (ck, _), (cr, _), err, plain_s = run_pair(21, 4096, ITERATIONS, None, 1.0)
-    cv = ("boxqp", *inst.solution_bounds, 1.0)
-    perf = [performance(inst, inst.compute_energy_readout64(c, change_vars=cv), 4096)
-            for c in (ck, cr)]
-    log(f"phase 5 DL statistics: batch 4096, {ITERATIONS} steps, plain version "
-        f"{plain_s:.2f} s, max |kernel - plain| = {err:.3e}")
-    assert success_band_ok(perf[0], perf[1], 4096), "DL success probabilities disagree"
+    def stats_pair(label):
+        """The kernel's outputs of a phase-5 job, its plain version's from the
+        worker, their largest difference and the plain seconds."""
+        kernel, _, seed, inst_, p, kw = jobs["phase 5", label]
+        out = kernel(seed, inst_.q_matrix, inst_.v_vector, p, **kw)
+        ref, plain_s = plain_result(("phase 5", label))
+        return out, ref, max_diff(out, ref), plain_s
 
-    out, ref, err, plain_s = mf_run_pair(21, 4096, ITERATIONS, None, 1.0)
+    cv = ("boxqp", *inst.solution_bounds, 1.0)
+    for label in ("DL", "DL-Adam"):
+        (ck, _), (cr, _), err, plain_s = stats_pair(label)
+        perf = [performance(inst, inst.compute_energy_readout64(c, change_vars=cv),
+                            4096) for c in (ck, cr)]
+        log(f"phase 5 {label} statistics: batch 4096, {ITERATIONS} steps, plain "
+            f"version {plain_s:.2f} s in a worker, max |kernel - plain| = {err:.3e}")
+        assert success_band_ok(perf[0], perf[1], 4096), \
+            f"{label} success probabilities disagree"
+
+    out, ref, err, plain_s = stats_pair("MF")
     lo, hi = mf_inst.solution_bounds
     perf = []
     for mt in (out[1], ref[1]):
@@ -490,12 +645,12 @@ def main():
             mf_inst.q_matrix, mf_inst.v_vector)
         perf.append(performance(mf_inst, mf_inst.compute_energy_readout64(confs), 4096))
     log(f"phase 5 MF statistics: batch 4096, {ITERATIONS} steps, readout through "
-        f"grad-descent, plain version {plain_s:.2f} s, max |kernel - plain| = "
-        f"{err:.3e}")
+        f"grad-descent, plain version {plain_s:.2f} s in a worker, max |kernel - "
+        f"plain| = {err:.3e}")
     assert success_band_ok(perf[0], perf[1], 4096), "MF success probabilities disagree"
 
     for family in lgv_cls:
-        ck, cr, err, plain_s = lgv_run_pair(family, 21, 4096, ITERATIONS, None, 1.0)
+        ck, cr, err, plain_s = stats_pair(family)
         li = lgv_inst[family]
         perf = []
         for c in (ck, cr):
@@ -504,10 +659,16 @@ def main():
                 li.q_matrix, li.v_vector)
             perf.append(performance(li, li.compute_energy_readout64(confs), 4096))
         log(f"phase 5 {family} statistics: batch 4096, {ITERATIONS} steps, readout "
-            f"through (c+S)/(2S) and grad-descent, plain version {plain_s:.2f} s, "
-            f"max |kernel - plain| = {err:.3e}")
+            f"through (c+S)/(2S) and grad-descent, plain version {plain_s:.2f} s in "
+            f"a worker, max |kernel - plain| = {err:.3e}")
         assert success_band_ok(perf[0], perf[1], 4096), \
             f"{family} success probabilities disagree"
+    # Phase 7's plain solves over 15,000 steps; then the workers stop.
+    deep_plain = {key[1]: plain_result(key)[0] for key in jobs if key[0] == "phase 7"}
+    pool.shutdown()
+    log(f"phase 5 workers: {len(jobs)} plain solves at full depth in {workers} "
+        f"processes, all ended {time.perf_counter() - t_pool:.1f} s after the first "
+        f"started")
 
     # 6. main paths, through the façades
     def event_timed(cls):
@@ -659,12 +820,6 @@ def main():
         return out, events[0].elapsed_time(events[1])
 
     kernels = []
-    main_hp = {"dl_solve": None, "dl_adam_solve": adam_hps[0.999],
-               "mf_solve": None, "mf_adam_solve": adam_hps[0.999],
-               "langevin_solve": None,
-               "langevin_adam_solve": lgv_adam["langevin"].to_hyperparameters(),
-               "pumped_langevin_solve": None,
-               "pumped_langevin_adam_solve": lgv_adam["pumped"].to_hyperparameters()}
     replaces = {"dl_solve": "ccvm_tpu/ops/pallas_kernels.py:843",
                 "dl_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:977",
                 "mf_solve": "ccvm_tpu/ops/pallas_kernels.py:1085",
@@ -705,15 +860,12 @@ def main():
             times.append(ms)
         assert all(torch.isfinite(x).all() for x in
                    (out if isinstance(out, tuple) else (out,)))
+        plain_depth = EARLIER_PLAIN_DEPTH
+        growth = {}
         if family in lgv_cls:
-            plain_depth = ITERATIONS
-            ref, plain_ms = timed(lambda: plain(100, q, v, p, **kw))
-            growth = {ITERATIONS: (max_diff(out, ref), (out - ref).abs())}
-            depths = (100, 1000)
-        else:
-            plain_depth = EARLIER_PLAIN_DEPTH
-            growth = {}
-            depths = (100, 1000) if family == "mf" else (EARLIER_PLAIN_DEPTH,)
+            ref = deep_plain[kname]
+            growth[ITERATIONS] = (max_diff(out, ref), (out - ref).abs())
+        depths = (EARLIER_PLAIN_DEPTH,) if family == "dl" else (100, 1000)
         # Elementwise at every depth; the growth with depth is printed.
         for depth in depths:
             short = dict(kw, iterations=depth)
@@ -739,17 +891,31 @@ def main():
             hold(kname, kname, depth_err, f"phase 7 main-path shape, {depth} steps,",
                  tol=LANGEVIN_DEEP_TOL if deep else PARITY_TOL, defer=True)
         b_ms, b_by = bound_ms(kname, MAIN_BATCH, N, ITERATIONS, name)
-        kernels.append({
+        share = f"{100 * b_ms / min(times):.1f}% of it"
+        row = {
             "name": kname, "route": "cuda",
             "source": f"ccvm_tpu_torch/csrc/{sources[family]}",
             "replaces": replaces[kname], "launches": launches[kname],
             "max_abs_err": max_err[kname], "ms": min(times),
             "plain_ms": plain_ms, "plain_iterations": plain_depth,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+        }
+        if kname in TENSOR_CORE_KERNELS:
+            row["bound_fp32_ms"] = bound_ms(kname, MAIN_BATCH, N, ITERATIONS, name,
+                                            tensor_cores=False)[0]
+            share += (f"; 3xTF32 tensor cores beside the CUDA cores; fp32 CUDA-core "
+                      f"bound {row['bound_fp32_ms']:.1f} ms, "
+                      f"{100 * row['bound_fp32_ms'] / min(times):.1f}% of it")
+        kernels.append(row)
         log(f"phase 7 {kname}: kernel {min(times):.1f} ms (reps {times}), plain "
             f"{plain_ms:.1f} ms over {plain_depth} steps, bound {b_ms:.1f} ms "
-            f"({b_by}) at batch {MAIN_BATCH}, N={N}, {ITERATIONS} steps")
+            f"({b_by}, {share}) at batch {MAIN_BATCH}, N={N}, {ITERATIONS} steps")
+    ms_of = {k["name"]: k["ms"] for k in kernels}
+    ratio = ms_of["dl_adam_solve"] / ms_of["dl_solve"]
+    log(f"phase 7 dl_adam_solve takes {ratio:.3f} x dl_solve's time (at most "
+        f"{ADAM_OVER_DL})")
+    if ratio > ADAM_OVER_DL:
+        failures.append(f"dl_adam_solve takes {ratio:.3f} x dl_solve's time")
 
     # 8. the DL race harness: each variant against its plain version, its
     # statistics against production's, the race, and its kernels-line row
@@ -822,7 +988,9 @@ def main():
     hq, hv = (torch.from_numpy(x).cuda() for x in kernel_experiments.harness_problem(20))
     hpv = kernel_experiments.harness_params(HARNESS_HOLD_STEPS)
     for label, kind, row_kw in kernel_experiments.ROWS:
-        kname = "dl_solve" if kind == "production" else f"dl_{kind}"
+        # The CUDA-core matvec is a race row, not a main-path kernel.
+        kname = {"production": "dl_solve",
+                 "cuda-core": "dl_solve CUDA-core matvec"}.get(kind, f"dl_{kind}")
         for noise_scale in (0.0, 1.0):
             out, ref = (kernel_experiments.runner(
                 kind, row_kw, hq, hv, hpv, 1000, plain, seed=9,
@@ -850,8 +1018,17 @@ def main():
         assert success_band_ok(perf_v, perf_prod, 4096, (kname, "dl_solve")), \
             f"{kname} success probabilities disagree with production"
 
+    # The race row that production does not launch: the DL kernel with its
+    # CUDA-core matvec, noise off at N=70, against the plain version.
+    for hp, label in ((None, "DL"), (adam_hps[0.999], "DL-Adam beta2 0.999")):
+        hold("dl_solve CUDA-core matvec", f"{label}, CUDA-core matvec",
+             run_pair(0, 1024, 300, hp, 0.0,
+                      kernel=kernel_experiments.cuda_core_dl_solve)[2],
+             "phase 8 noise off, 300 steps, c and s,")
+
     # The race, through the harness's entry point; the launch counts of its
-    # runs are the variants' main-path launches.
+    # runs are the variants' launches (the solvers' main paths launch
+    # neither), and of production's two matvecs.
     race_shapes = {
         "harness shape, batch 1000, n 20, i1 20000, i2 100000, best of 3":
             dict(batch=1000, n=20, i1=20_000, i2=100_000, rounds=1, reps=3),
@@ -861,9 +1038,11 @@ def main():
                  v=inst.v_vector, rounds=MAIN_RACE_ROUNDS, reps=2),
     }
     zero_counts()
+    kernel_experiments.cuda_core_dl_solve.launches = 0
     races = {shape: kernel_experiments.race_rounds("cuda", **kw)
              for shape, kw in race_shapes.items()}
     launched = counts()
+    assert kernel_experiments.cuda_core_dl_solve.launches > 0
     assert launched["dl_v2"] > 0 and launched["dl_v3"] > 0, launched
     assert launched == only(dl_solve=launched["dl_solve"], dl_v2=launched["dl_v2"],
                             dl_v3=launched["dl_v3"]), launched
@@ -877,7 +1056,15 @@ def main():
             log(f"phase 8 knobs at the {shape.split(',')[0]} (median against median):")
             for effect in kernel_experiments.knob_effects(rows):
                 log(f"  {kernel_experiments.format_effect(effect)}")
-    log(f"phase 8 race launches: {launched}")
+    log(f"phase 8 race launches: {launched}, and the CUDA-core matvec's "
+        f"{kernel_experiments.cuda_core_dl_solve.launches}")
+    main_rows = {r["label"]: r for r in races[list(race_shapes)[-1]]}
+    prod, fused = (main_rows[label]["us_per_step"] for label in
+                   ("production dl_solve popcount16 (clip)", "v2 popcount1 fuse1 unroll8"))
+    log(f"phase 8 production dl_solve {prod:.4f} us/step against v2 fuse1's "
+        f"{fused:.4f} at the main shape (medians)")
+    if prod > fused:
+        failures.append(f"production dl_solve {prod} us/step above v2 fuse1's {fused}")
 
     # Kernels line: full-depth time, 1,000-step plain time and hold.
     for kname, v3 in (("dl_v2", False), ("dl_v3", True)):
@@ -916,4 +1103,5 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    with contextlib.ExitStack() as stack:
+        main(stack)

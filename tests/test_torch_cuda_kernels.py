@@ -16,7 +16,7 @@ from ccvm_tpu_torch import (AdamParameters, DLSolver, LangevinSolver, MFSolver,
                             ProblemInstance, PumpedLangevinSolver)
 from ccvm_tpu_torch.ops import (build, dl_kernels, dl_variant_kernels,
                                 langevin_kernels, mf_kernels, philox)
-from ccvm_tpu_torch.tools.kernel_experiments import harness_params
+from ccvm_tpu_torch.tools.kernel_experiments import cuda_core_dl_solve, harness_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INSTANCE = os.path.join(REPO, "tests", "data", "test020.in")
@@ -49,6 +49,105 @@ def test_kernel_matches_plain(cuda_instance, noise_scale, rng, beta2):
     torch.cuda.synchronize()
     assert (ck - cr).abs().max().item() <= TOL
     assert (sk - sr).abs().max().item() <= TOL
+
+
+# The DL kernel's tensor-core design (csrc/dl_solve.cu) at every n-tile
+# count the bundled sizes give, its padding (2 -> 8, 4 -> 8, 20 -> 24) and its
+# ragged last block: batch 100 is not a multiple of 64 (DL) or 128 (DL-Adam).
+_DL_FILES = {2: ("test", "tests/data/test002.in"), 4: ("test", "tests/data/test004.in"),
+             20: ("test", "tests/data/test020.in"),
+             70: ("tuning", "examples/benchmarking_instances/Size70/tuningH070-100-0.in")}
+_BETA2 = [None, 0.999, 1.0]
+
+
+def _hp(beta2):
+    return None if beta2 is None else AdamParameters(beta2=beta2).to_hyperparameters()
+
+
+@pytest.fixture(scope="module")
+def dl_problems():
+    """{n: (Q, V, solver)} scaled on the card, with every DL specialisation
+    below built first in one parallel nvcc run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    specs = []
+    for n in _DL_FILES:
+        for beta2 in _BETA2:
+            for noise in (0.0, 1.0):
+                specs.append(dl_kernels._spec(n, _hp(beta2), noise, "popcount16",
+                                              True))
+                if n == 70:
+                    specs.append(dl_kernels._spec(n, _hp(beta2), noise, "popcount16",
+                                                  False))
+    build.build(specs)
+    problems = {}
+    for n, (kind, path) in _DL_FILES.items():
+        inst = ProblemInstance(device="cuda", file_path=os.path.join(REPO, path),
+                               instance_type=kind)
+        solver = DLSolver(device="cuda")
+        inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+        solver.solution_bounds = inst.solution_bounds
+        problems[n] = (inst.q_matrix, inst.v_vector, solver)
+    return problems
+
+
+def _dl_pair(problem, batch, beta2, noise_scale, pump=8.0, pump_rate_flag=True,
+             kernel=dl_kernels.dl_solve):
+    q, v, solver = problem
+    p = solver._make_params(pump, 1.0, 0.001, 10.0, 100.0, 0.05, 200)
+    kw = dict(iterations=200, batch_size=batch, pump_rate_flag=pump_rate_flag,
+              pump_is_gt_one=pump > 1, noise_scale=noise_scale, rng="popcount16",
+              hp=_hp(beta2))
+    ck, sk = kernel(4, q, v, p, **kw)
+    cr, sr = dl_kernels.dl_solve_reference(4, q, v, p, **kw)
+    torch.cuda.synchronize()
+    assert ck.shape == sk.shape == (batch, q.shape[-1])
+    assert torch.isfinite(ck).all() and torch.isfinite(sk).all()
+    return max((ck - cr).abs().max().item(), (sk - sr).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 100])
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("beta2", _BETA2)
+@pytest.mark.parametrize("n", sorted(_DL_FILES))
+def test_dl_tensor_core_kernel_matches_plain(dl_problems, n, beta2, noise_scale,
+                                             batch):
+    assert _dl_pair(dl_problems[n], batch, beta2, noise_scale) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("beta2", _BETA2)
+@pytest.mark.parametrize("pump,pump_rate_flag", [(0.5, True), (8.0, False)])
+def test_dl_tensor_core_kernel_flags_match_plain(dl_problems, pump, pump_rate_flag,
+                                                 beta2, noise_scale):
+    assert _dl_pair(dl_problems[20], 100, beta2, noise_scale, pump=pump,
+                    pump_rate_flag=pump_rate_flag) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("beta2", _BETA2)
+def test_dl_cuda_core_matvec_matches_plain(dl_problems, beta2, noise_scale):
+    """The specialisation production does not launch (the race's row)."""
+    assert _dl_pair(dl_problems[70], 100, beta2, noise_scale,
+                    kernel=cuda_core_dl_solve) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta2", _BETA2)
+def test_dl_tensor_core_stacked_equals_serial_launches(dl_problems, beta2):
+    q, v, solver = dl_problems[70]
+    q2 = torch.stack([q, q.flip(0, 1)])
+    v2 = torch.stack([v, v.flip(0)])
+    p = solver._make_params(8.0, 1.0, 0.001, 10.0, 100.0, 0.05, 100)
+    kw = dict(iterations=100, batch_size=100, pump_rate_flag=True,
+              pump_is_gt_one=True, rng="popcount16", hp=_hp(beta2))
+    cs, ss = dl_kernels.dl_solve(11, q2, v2, p, **kw)
+    for i in range(2):
+        ci, si = dl_kernels.dl_solve(11 + i, q2[i], v2[i], p, **kw)
+        assert torch.equal(cs[i], ci) and torch.equal(ss[i], si)
 
 
 @pytest.fixture

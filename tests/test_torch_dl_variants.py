@@ -214,6 +214,7 @@ def test_race_on_the_cpu_has_the_harness_rows_and_production(ke):
     jax_labels = ["v2 popcount1 fuse0 unroll8 (prev best)"] + [
         f"v3 {r} unroll{u}" for u in (8, 16) for r in ("popcount1", "popcount2")]
     assert labels == jax_labels + ["v2 popcount1 fuse1 unroll8",
+                                   "dl_solve CUDA-core matvec popcount16 (clip)",
                                    "production dl_solve popcount16 (clip)"]
     for r in rows:
         assert set(r) == {"label", "us_per_step", "traj_iter_per_s", "finite",

@@ -84,7 +84,7 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    spec = build.DLSpec(False, False, False, True, True, True, 1)
+    spec = build.DLSpec(False, False, False, True, 1)
     monkeypatch.setattr(build, "library_path", lambda s: str(tmp_path / "x.so"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build([spec])
@@ -121,7 +121,7 @@ def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path)
     for f in os.listdir(build.CSRC):
         (tmp_path / f).write_bytes(open(os.path.join(build.CSRC, f), "rb").read())
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
-    dl = build.DLSpec(False, False, False, True, True, True, 1)
+    dl = build.DLSpec(False, False, False, True, 1)
     mf = build.MFSpec(False, False, False, True, True, 0)
     lgv = build.LangevinSpec(False, False, False, False, False, True, 0)
     before = {s: build.library_path(s) for s in (dl, mf, lgv)}
@@ -135,7 +135,7 @@ def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path)
 
 def test_loaded_library_is_found_without_touching_the_sources(monkeypatch):
     """A launch after a spec's first load reads no source from disk."""
-    dl = build.DLSpec(False, False, False, True, True, True, 0)
+    dl = build.DLSpec(False, False, False, True, 0)
     mf = build.MFSpec(False, False, False, True, True, 0)
     monkeypatch.setattr(build, "_LIBS", {(build.DLSpec, dl): "dl",
                                          (build.MFSpec, mf): "mf"})
@@ -286,7 +286,8 @@ def test_mf_launch_shape_fits_the_bundled_sizes_and_rejects_huge_n():
 
 def test_launch_shape_fits_the_bundled_sizes_and_rejects_huge_n():
     rows, threads, smem = dl_kernels.launch_shape(70)
-    assert (rows, threads) == (56, 252) and smem <= 232448
+    assert (rows, threads, smem) == (64, 256, 78624) and smem <= 232448
+    assert dl_kernels.launch_shape(70, mma=False)[:2] == (56, 252)
     for n in (2, 4, 20, 30, 40, 50, 60):
         dl_kernels.launch_shape(n)
     with pytest.raises(ValueError, match="does not fit"):
