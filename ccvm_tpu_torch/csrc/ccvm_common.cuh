@@ -2,8 +2,8 @@
 // DL-CCVM, mf_solve.cu for MF-CCVM, langevin_solve.cu for Langevin and
 // pumped Langevin): the thread tile, Philox4x32-10, the four Wiener
 // transforms of ccvm_tpu/ops/pallas_kernels.py:152-319 (pair and single
-// draws), the safety clip and the in-loop Adam update
-// (pallas_kernels.py:465-480).
+// draws), the safety clip, the square root approximation, the division by
+// a known divisor and the in-loop Adam update (pallas_kernels.py:465-480).
 // ops/philox.py reproduces the noise bit for bit.  ops/build.py names each
 // library by a hash of its .cu and of every header here, so an edit to this
 // file rebuilds every kernel.
@@ -110,6 +110,28 @@ __device__ __forceinline__ float normal_one(const unsigned* w) {
 
 __device__ __forceinline__ float clip(float x, float b) {
   return fminf(fmaxf(x, -b), b);
+}
+
+// The hardware's square root approximation (MUFU, a few ulp), without the
+// IEEE sequence's fix-up branch and the subroutine call of its slow path.
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// a / b rounded as the IEEE division rounds it, for a divisor known ahead
+// with inv = 1/b rounded to nearest: the product by inv, then its residual
+// a - q b (one FMA) times inv added back, Markstein's correction
+// (Muller et al., Handbook of Floating-Point Arithmetic, division with an
+// FMA).  tests/test_torch_mf_redesign.py emulates the three roundings
+// exactly against the IEEE quotient over every float32 significand of a,
+// for the MF kernel's divisors.  Three instructions and no branch, where
+// a / b takes a reciprocal, its Newton refinement and a range check.
+__device__ __forceinline__ float div_rn(float a, float b, float inv) {
+  const float q = __fmul_rn(a, inv);
+  const float r = __fmaf_rn(-q, b, a);
+  return __fmaf_rn(r, inv, q);
 }
 
 // Adam filtering of one gradient element; P carries beta1, one_minus_beta1,

@@ -155,15 +155,10 @@ __device__ __forceinline__ StepScalars step_scalars(const float4* __restrict__ s
 }
 
 // The element loop's square roots and Adam's one division use the hardware
-// approximations (MUFU: sqrt.approx.f32 and __fdividef, a few ulp), not the
-// IEEE sequences with their fix-up branches, which would take a large share
-// of DL-Adam's element loop; the holds against the plain version bound the
-// difference.
-__device__ __forceinline__ float sqrt_approx(float x) {
-  float r;
-  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
+// approximations (MUFU: sqrt_approx of ccvm_common.cuh and __fdividef, a few
+// ulp), not the IEEE sequences with their fix-up branches, which would take
+// a large share of DL-Adam's element loop; the holds against the plain
+// version bound the difference.
 
 // Adam filtering of one gradient element with the step's reciprocal bias
 // corrections (the update of ccvm_common.cuh's adam(), without its two

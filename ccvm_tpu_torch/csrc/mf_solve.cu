@@ -19,31 +19,71 @@
 //   LAST step's pre-update value, clamped to +-S; the same draw feeds mt and
 //   the diffusion of mu.
 //
-// What bounds it on this card: arithmetic.  The one matvec is 2*B*N^2*T fp32
-// flops, plus ~40*B*N*T elementwise flops (three IEEE divisions among them)
-// and one Philox call per 4 elements per step; at B=65536, N=70, T=15000
-// that is ~9.6e12 + 2.8e12 flop.  Q and the state never leave the chip, so
-// the bytes (Q and V in, mu, mt and sigma out) are negligible.
+// What bounds it on this card: operations.  The one matvec is 2*B*N^2*T
+// fp32 flops (9.6e12 at B=65536, N=70, T=15000: 144 ms on the fp32 CUDA
+// cores at 66.9 TFLOP/s), the elementwise work about 44*B*N*T more (Adam
+// 62), and one Philox call per 4 elements per step.  Q and the state never
+// leave the chip, so the bytes (Q and V in, mu, mt and sigma out) are
+// negligible.
 //
-// What this simple design does about it, as dl_solve.cu does:
-//   * one thread block owns R trajectories for ALL iterations, in one launch;
-//   * Q (zero-padded to NP x NP) lives in shared memory for the whole solve;
-//     the block's x rows (one array: MF has one quadrature) are rebuilt in
-//     shared memory each step;
-//   * each thread owns a 4-row x 4-column tile of mu and sigma (and of the
-//     two Adam moments) in registers, and keeps its tile's w_inc across the
-//     matvec, so one draw serves mt and the diffusion; IEEE fp32 FMAs on the
-//     CUDA cores (no TF32, no mma);
-//   * mt is not carried through the loop: the last step writes it once;
-//   * the per-step scalars (j_i, sqrt(1/(4 j_i)), sqrt(j_i), the pump) are
-//     computed once a step, outside the element loop;
-//   * __launch_bounds__(256, 2) keeps two blocks on each SM (128 registers;
-//     the Adam variant spills a few bytes);
+// Why the matvec stays on the fp32 CUDA cores.  MF's state sits near
+// |mu| = 270 (S 130, feedback_scale 32000 at N=70), where one fp32 ulp is
+// 3.05e-5: the hold against the plain version, 1e-4, is three ulps, and
+// feedback_scale turns a change of the matvec's rounding into a shift of
+// mu's equilibrium of the same size.  The design asked a tensor-core
+// scheme's CPU model (ccvm_tpu_torch/tools/tc_model.py) to stay within
+// 5e-5 of the plain solve, and none did; the plain matmul's own order, one
+// fp32 FMA chain over k = 0, 1, ... (cuBLAS's too on the H100), lands at
+// 0.  So the kernel keeps that chain, and takes out what else held the
+// CUDA-core design back (per-element divisions, per-step exp and pow,
+// spills, a ragged last wave).  On the card the 4xTF32 per-k-tile model
+// holds 1e-4 in every check (PERF.md), so a tensor-core MF matvec is not
+// ruled out.
+//
+// What this design does about the rest:
+//   * one thread block owns R trajectories for ALL iterations, in one
+//     launch; Q (zero-padded to NP x NP, NP fixed at build time) lives in
+//     shared memory for the whole solve, and each thread owns a 4-row x
+//     4-column tile: mu in registers, sigma (and for Adam its two moments
+//     and mu) in its own float4s of shared memory, so no main-path
+//     specialisation spills at the 96 registers that 18 warps per SM leave;
+//   * the x rows are rebuilt in shared memory each step, double-buffered:
+//     one block barrier a step, after the writes (a thread writes the other
+//     buffer next step, and the barrier between proves every read of this
+//     one done).  One buffer and a second barrier cost MF 1.0% (32.37
+//     against 32.05 us/step at the main shape, five rounds each,
+//     tools/mf_breakdown.py on an H100 80GB HBM3 at 700 W); Adam, short of
+//     shared memory, pays it;
+//   * no division, exp or pow of a per-step constant in the step loop: the
+//     per-step scalars (sqrt(1/(4 j_i)), k1, 1 + j_i, -2 j_i, sqrt(j_i),
+//     Adam's 1 - beta^(i+1) and their reciprocals) come from a table that
+//     the wrapper fills on the device with the plain version's own float32
+//     operations, and the per-solve constants (1/S, sqrt(dt), 1/sqrt(dt),
+//     u-l, u+l, g^2, 2(3g^2), 2g^2, -0.25(u-l)) are kernel parameters taken
+//     on the host;
+//   * each division by S, sqrt(dt) or 1 - beta^(i+1) is a product by the
+//     divisor's reciprocal with one FMA correction (div_rn in
+//     ccvm_common.cuh), which rounds as the IEEE division does, and the
+//     element step spells out every product and sum (no contracted
+//     multiply-add), in the plain version's order.  So MF equals the plain
+//     version bit for bit where the plain matmul sums in the same order;
+//     Adam's per-element alpha mhat / (sqrt(vhat) + eps) takes the
+//     hardware's approximations (the IEEE sequences' slow-path calls made
+//     it spill), an ulp or so from the plain version;
+//   * 64 trajectories (16 row groups) a block at N <= 72, two blocks per SM
+//     (18 warps); at batch 65536, N=70 the grid is 1,024 blocks, 3.88 waves
+//     of the 132 SMs.  The matvec's shared-memory loads (eight float4s per
+//     64 FMAs) hold the load pipe about twice as long as the FMAs hold
+//     theirs (ccvm_tpu_torch/tools/mf_breakdown.py times the kernel without
+//     its matvec);
+//   * the draw of a popcount transform is kept as its popcount, a byte, so
+//     the tile's 16 draws take 4 registers across the matvec;
 //   * noise: the Philox4x32-10 of ccvm_common.cuh, key = seed + instance,
 //     counter = (step, row, column/4, stream); the grid is
 //     (ceil(batch/R), instances).
 // Specialisations are chosen at build time with -D flags by
-// ccvm_tpu_torch/ops/build.py; each build exports ccvm_mf_solve.
+// ccvm_tpu_torch/ops/build.py; each build exports ccvm_mf_solve and
+// ccvm_mf_blocks_per_sm.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,38 +91,139 @@
 
 #include "ccvm_common.cuh"
 
+// Probes of ccvm_tpu_torch/tools/mf_breakdown.py, never set by the solvers'
+// builds: CCVM_MATVEC 0 takes the matvec out (its sums stay 0), and
+// CCVM_X_BUFFERS 1 or 2 overrides the launch rule's number of x buffers.
+#ifndef CCVM_MATVEC
+#define CCVM_MATVEC 1
+#endif
+#ifndef CCVM_X_BUFFERS
+#define CCVM_X_BUFFERS 0
+#endif
+
 namespace {
 
 using namespace ccvm;
 
 constexpr float kSafetyBound = 1.0e5f;  // _MF_SAFETY_BOUND
-// Two blocks per SM: ptxas caps the kernel at 128 registers.  Without the
-// cap it takes 148-176, and one 252-thread block per SM leaves the FMA
-// pipes idle between the matvec's shared-memory loads.
+// 16 row groups of 4 trajectories a block where N allows (18 column groups
+// at N=70: 288 threads), two blocks per SM: 18 warps at <= 96 registers.
+constexpr int kMaxRowGroups = 16;
+constexpr int kThreads = 288;
 constexpr int kMinBlocks = 2;
 
+// The solve's scalars, and its per-solve constants taken once on the host
+// in float32 (ops/mf_kernels.py _scalars).  Kernel parameters live in the
+// constant bank, so they cost the step loop no registers.
 struct MFScalars {
   float pump, S, dt, j, fs, g, lo, hi, T;
   float alpha, beta1, one_minus_beta1, beta2, one_minus_beta2;
   float noise_scale;
+  float inv_S, sqrt_dt, inv_sqrt_dt, span, mid, g_sq, g_sq6, g_sq2, fbspan;
 };
-static_assert(sizeof(MFScalars) == 15 * sizeof(float), "MFScalars layout");
+static_assert(sizeof(MFScalars) == 24 * sizeof(float), "MFScalars layout");
 
-template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool PUMP_RATE_FLAG,
-          bool NOISE, int RNG>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
-                float* __restrict__ mu_out, float* __restrict__ mt_out,
-                float* __restrict__ sigma_out, int batch, int n,
-                int iterations, unsigned long long seed, MFScalars p) {
-  extern __shared__ __align__(16) float smem[];
+// The step's scalars, from the (iterations, 12) table the wrapper fills with
+// the plain version's own float32 operations (ops/mf_kernels.py
+// _step_table): sqrt(1/(4 j_i)), k1, 1 + j_i, -2 j_i, sqrt(j_i), then
+// Adam's 1 - beta1^(i+1), its reciprocal, 1 - beta2^(i+1) and its
+// reciprocal.
+struct StepScalars {
+  float k1, one_j, two_j, sqrt_j, b1i, inv_b1i, b2i, inv_b2i;
+};
+
+template <bool ADAM, bool BETA2_ONE>
+__device__ __forceinline__ StepScalars step_scalars(const float4* __restrict__ steps,
+                                                    int i) {
+  const float4 a = __ldg(steps + 3 * i);
+  const float4 b = __ldg(steps + 3 * i + 1);
+  StepScalars st{a.y, a.z, a.w, b.x, 1.0f, 1.0f, 1.0f, 1.0f};
+  if (ADAM) {
+    st.b1i = b.y;
+    st.inv_b1i = b.z;
+    if (!BETA2_ONE) {
+      st.b2i = b.w;
+      st.inv_b2i = __ldg(steps + 3 * i + 2).x;
+    }
+  }
+  return st;
+}
+
+// A thread's 16 draws of a step, kept across the matvec: the popcount of a
+// popcount transform (one byte each), else the normal itself.
+template <int RNG>
+struct Draws {
+  static constexpr bool kPacked = RNG == kPopcount16 || RNG == kPopcount32;
+  unsigned packed[kPacked ? TR : 1];
+  float normal[kPacked ? 1 : TR][kPacked ? 1 : TC];
+
+  // w[st] is the element's word of stream st.
+  __device__ __forceinline__ void put(int r, int jj, const unsigned* w) {
+    if constexpr (kPacked) {
+      const unsigned c = (unsigned)__popc(w[0]) << (8 * jj);
+      packed[r] = jj ? packed[r] | c : c;
+    } else {
+      normal[r][jj] = normal_one<RNG>(w);
+    }
+  }
+
+  // The element's standard normal, as normal_one<RNG> gives it.
+  __device__ __forceinline__ float get(int r, int jj) const {
+    if constexpr (kPacked)
+      return (float)((int)((packed[r] >> (8 * jj)) & 0xFFu) - 16) * 0.35355339059327373f;
+    else
+      return normal[r][jj];
+  }
+};
+
+// Each thread's own float4s in shared memory: sigma of its four rows; for
+// Adam also the two moments and mu of each.  The registers hold mu (but for
+// Adam), the matvec's sums and its operands: 18 warps per SM leave 96
+// registers a thread (five warps to each quarter's 16,384), and Adam's
+// moments and mu in registers spill.  Adam pays with one x buffer (a second
+// barrier a step) for the room in shared memory.
+__host__ __device__ constexpr int own_slots(bool adam) { return adam ? 4 * TR : TR; }
+__host__ __device__ constexpr int x_buffers(bool adam) {
+  return CCVM_X_BUFFERS ? CCVM_X_BUFFERS : adam ? 1 : 2;
+}
+
+// The launch rule (ops/build.py mf_launch_shape states the same): threads,
+// trajectories a block and shared-memory bytes; non-zero when N does not
+// fit.  Shared memory: Q (NP x NP), the per-column V term, the x buffers of
+// R rows of stride NP + 4, and each thread's own float4s.
+__host__ __device__ inline int mf_launch_shape(int n, bool adam, int* threads,
+                                               int* rows, long long* smem) {
   const int np = (n + TC - 1) / TC * TC;
-  const int ks = np + 4;  // x row stride: spreads two row groups over banks
   const int groups = np / TC;
-  const int rgroups = blockDim.x / groups;
-  const int R = rgroups * TR;
-  float* qs = smem;          // (np, np), zero-padded
-  float* xs = qs + np * np;  // (R, ks)
+  const int rgroups = groups > 0 ? (kThreads / groups < kMaxRowGroups
+                                        ? kThreads / groups : kMaxRowGroups) : 0;
+  *threads = groups * rgroups;
+  *rows = rgroups * TR;
+  *smem = 4LL * ((long long)np * np + np + (long long)x_buffers(adam) * *rows * (np + 4)) +
+          16LL * own_slots(adam) * *threads;
+  return (n >= 1 && rgroups >= 1 && *smem <= 232448) ? 0 : 1;
+}
+
+template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG, int NP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
+                const float4* __restrict__ steps, float* __restrict__ mu_out,
+                float* __restrict__ mt_out, float* __restrict__ sigma_out,
+                int batch, int n, int iterations, unsigned long long seed,
+                MFScalars p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int np = NP;
+  constexpr int ks = np + 4;  // x row stride: spreads two row groups over banks
+  constexpr int groups = np / TC;
+  constexpr int kXBufs = x_buffers(ADAM);
+  const int R = blockDim.x / groups * TR;
+  float* qs = smem;            // (np, np), zero-padded
+  float* vterm = qs + np * np;  // (np): -V (u-l) / (2S)
+  float* xbuf = vterm + np;     // kXBufs (R, ks) buffers
+  // Each thread's own float4s, (slot, thread): sigma of its four rows, then
+  // Adam's first moments, second moments and mu of each row.
+  float4* own = reinterpret_cast<float4*>(xbuf + kXBufs * R * ks);
+  const int bd = blockDim.x;
 
   const int inst = blockIdx.y;
   const int tid = threadIdx.x;
@@ -97,38 +238,38 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     const int k = e / np, j = e % np;
     qs[e] = (k < n && j < n) ? qi[k * n + j] : 0.0f;
   }
-
-  const float sqrt_dt = sqrtf(p.dt);
-  const float span = p.hi - p.lo;
-  const float mid = p.hi + p.lo;
-  const float g_sq = p.g * p.g;
-  const float g_sq3 = 3.0f * g_sq;
-  const float g_sq2 = 2.0f * g_sq;
-  float fb_v[TC];  // -V (u-l) / (2S)
+  // The plain version's -V * span / (2 S), one IEEE division per column.
+  for (int j = tid; j < np; j += blockDim.x)
+    vterm[j] = j < n ? __fdiv_rn(__fmul_rn(-v[(size_t)inst * n + j], p.span),
+                                 __fmul_rn(2.0f, p.S))
+                     : 0.0f;
 #pragma unroll
-  for (int jj = 0; jj < TC; ++jj) {
-    const int j = col0 + jj;
-    fb_v[jj] = j < n ? -v[(size_t)inst * n + j] * span / (2.0f * p.S) : 0.0f;
-  }
+  for (int s = 0; s < own_slots(ADAM); ++s)
+    own[s * bd + tid] = s < TR ? make_float4(0.5f, 0.5f, 0.5f, 0.5f)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const uint2 key = seed_key(seed, inst);
 
-  float mu[TR][TC], sigma[TR][TC], m1[TR][TC], m2[TR][TC];
+  // mu of row r: in registers, or (Adam) in the thread's own float4s.
+  float4 mu[ADAM ? 1 : TR];
 #pragma unroll
-  for (int r = 0; r < TR; ++r)
-#pragma unroll
-    for (int jj = 0; jj < TC; ++jj) {
-      mu[r][jj] = m1[r][jj] = m2[r][jj] = 0.0f;
-      sigma[r][jj] = 0.5f;
-    }
+  for (int r = 0; r < (ADAM ? 1 : TR); ++r) mu[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const auto mu_row = [&](int r) -> float4 {
+    if constexpr (ADAM) return own[(3 * TR + r) * bd + tid];
+    else return mu[r];
+  };
+  const auto set_mu_row = [&](int r, const float4& m) {
+    if constexpr (ADAM) own[(3 * TR + r) * bd + tid] = m;
+    else mu[r] = m;
+  };
+  __syncthreads();  // Q and the V term are in place
 
   for (int i = 0; i < iterations; ++i) {
-    const float fi1 = (float)i + 1.0f;
-    const float j_i = p.j * expf(-fi1 / p.T * 3.0f);
-    const float meas = sqrtf(1.0f / (4.0f * j_i));
+    float* xs = xbuf + (kXBufs == 2 ? (i & 1) : 0) * R * ks;
+    const float meas = __ldg(steps + 3 * i).x;
     const bool last = i == iterations - 1;
 
-    // The step's draw, mt and x rows (padding columns meet zero rows of Q).
-    float w_inc[TR][TC];
+    // The step's draws, mt and x rows (padding columns meet zero rows of Q).
+    Draws<RNG> dr;
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
       if (NOISE) {
@@ -145,31 +286,42 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
           unsigned w[NS];
 #pragma unroll
           for (int st = 0; st < NS; ++st) w[st] = word_of(wv[st], jj);
-          w_inc[r][jj] = normal_one<RNG>(w) * p.noise_scale / sqrt_dt;
+          dr.put(r, jj, w);
         }
       }
+      const float4 mu4 = mu_row(r);
       float x[TC];
 #pragma unroll
       for (int jj = 0; jj < TC; ++jj) {
-        const float mt = NOISE ? mu[r][jj] + meas * w_inc[r][jj] : mu[r][jj];
+        float mt = comp(mu4, jj);
+        if (NOISE) {
+          const float w_inc = div_rn(__fmul_rn(dr.get(r, jj), p.noise_scale),
+                                     p.sqrt_dt, p.inv_sqrt_dt);
+          mt = __fadd_rn(mt, __fmul_rn(meas, w_inc));
+        }
+        const float mt_c = clip(mt, p.S);
         if (last) {
           const int row = grow0 + r, j = col0 + jj;
           if (row < batch && j < n)
-            mt_out[((size_t)inst * batch + row) * n + j] = clip(mt, p.S);
+            mt_out[((size_t)inst * batch + row) * n + j] = mt_c;
         }
-        x[jj] = clip(mt, p.S) * span / p.S + mid;
+        x[jj] = __fadd_rn(div_rn(__fmul_rn(mt_c, p.span), p.S, p.inv_S), p.mid);
       }
       *reinterpret_cast<float4*>(xs + (lrow0 + r) * ks + col0) =
           make_float4(x[0], x[1], x[2], x[3]);
     }
-    __syncthreads();
+    __syncthreads();  // the step's x rows are written (and, with two buffers,
+                      // the last step's read)
 
+    // x @ Q: one fp32 FMA chain per output over k = 0, 1, ..., the plain
+    // matmul's order.
     float qx[TR][TC];
 #pragma unroll
     for (int r = 0; r < TR; ++r)
 #pragma unroll
       for (int jj = 0; jj < TC; ++jj) qx[r][jj] = 0.0f;
-    for (int k = 0; k < np; k += 4) {
+#pragma unroll 3
+    for (int k = 0; k < (CCVM_MATVEC ? np : 0); k += 4) {
       float4 qv[4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -182,49 +334,87 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
           const float ak = comp(a, kk);
 #pragma unroll
           for (int jj = 0; jj < TC; ++jj)
-            qx[r][jj] = fmaf(ak, comp(qv[kk], jj), qx[r][jj]);
+            qx[r][jj] = __fmaf_rn(ak, comp(qv[kk], jj), qx[r][jj]);
         }
       }
     }
-    __syncthreads();  // every read of x is done before the next step writes
+    if (kXBufs == 1) __syncthreads();  // every read of x is done
 
-    const float rate = PUMP_RATE_FLAG ? fi1 / p.T : 1.0f;
-    const float pump_inst = p.pump * rate + 1.0f + j_i;
-    const float k1 = -(1.0f + j_i) + pump_inst;
-    const float one_j = 1.0f + j_i;
-    const float two_j = -2.0f * j_i;
-    const float sqrt_j = sqrtf(j_i);
-    float b1i = 1.0f, b2i = 1.0f;
-    if (ADAM) {
-      b1i = 1.0f - powf(p.beta1, fi1);
-      if (!BETA2_ONE) b2i = 1.0f - powf(p.beta2, fi1);
-    }
-
+    const StepScalars st = step_scalars<ADAM, BETA2_ONE>(steps, i);
+    float vt[TC];
 #pragma unroll
-    for (int r = 0; r < TR; ++r)
+    for (int jj = 0; jj < TC; ++jj) vt[jj] = vterm[col0 + jj];
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      float4 mu4 = mu_row(r), sg4 = own[r * bd + tid];
+      float4 m4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v4 = m4;
+      if (ADAM) {
+        m4 = own[(TR + r) * bd + tid];
+        if (!BETA2_ONE) v4 = own[(2 * TR + r) * bd + tid];
+      }
 #pragma unroll
       for (int jj = 0; jj < TC; ++jj) {
-        const float m = mu[r][jj], sg = sigma[r][jj];
-        const float mu_pow = m * m;
-        const float fb = -0.25f * qx[r][jj] * span / p.S + fb_v[jj];
-        const float sd = sg - 0.5f;
-        const float drift_sigma = 2.0f * (k1 - g_sq3 * mu_pow) * sg +
-                                  two_j * (sd * sd) + (one_j + g_sq2 * mu_pow);
-        float mu_new;
+        float& mur = jj == 0 ? mu4.x : jj == 1 ? mu4.y : jj == 2 ? mu4.z : mu4.w;
+        float& sgr = jj == 0 ? sg4.x : jj == 1 ? sg4.y : jj == 2 ? sg4.z : sg4.w;
+        const float m = mur, sg = sgr;
+        const float mu_pow = __fmul_rn(m, m);
+        // fb = (-0.25 qx) (u-l) / S + vterm; -0.25 qx and -0.25 (u-l) are
+        // exact, so qx (-0.25 (u-l)) rounds as the plain version's product.
+        const float fb = __fadd_rn(
+            div_rn(__fmul_rn(qx[r][jj], p.fbspan), p.S, p.inv_S), vt[jj]);
+        const float sd = __fsub_rn(sg, 0.5f);
+        const float mu_term1 =
+            __fmul_rn(__fsub_rn(st.k1, __fmul_rn(p.g_sq, mu_pow)), m);
+        // 2 (k1 - 3g^2 mu^2) sigma: the doubling is exact, so it is taken
+        // into k1 and 3g^2 (2 k1 - 6g^2 mu^2 rounds as twice the difference).
+        const float drift_sigma = __fadd_rn(
+            __fadd_rn(
+                __fmul_rn(__fsub_rn(__fmul_rn(2.0f, st.k1), __fmul_rn(p.g_sq6, mu_pow)), sg),
+                __fmul_rn(st.two_j, __fmul_rn(sd, sd))),
+            __fadd_rn(st.one_j, __fmul_rn(p.g_sq2, mu_pow)));
+        const float grad = __fmul_rn(p.fs, fb);
+        float drift;
         if (ADAM) {
-          const float eff = adam<BETA2_ONE, ADD_ASSIGN>(
-              p.fs * fb, m1[r][jj], m2[r][jj], b1i, b2i, p);
-          float mu_drift = (k1 - g_sq * mu_pow) * m;
-          if (NOISE) mu_drift = mu_drift + sqrt_j * sd * w_inc[r][jj];
-          mu_new = m + p.dt * (eff + mu_drift);
+          float& mm = jj == 0 ? m4.x : jj == 1 ? m4.y : jj == 2 ? m4.z : m4.w;
+          float& vv = jj == 0 ? v4.x : jj == 1 ? v4.y : jj == 2 ? v4.z : v4.w;
+          mm = __fadd_rn(__fmul_rn(p.beta1, mm), __fmul_rn(p.one_minus_beta1, grad));
+          const float mhat = div_rn(mm, st.b1i, st.inv_b1i);
+          float update;
+          if (BETA2_ONE) {
+            update = __fmul_rn(p.alpha, mhat);
+          } else {
+            vv = __fadd_rn(__fmul_rn(p.beta2, vv),
+                           __fmul_rn(p.one_minus_beta2, __fmul_rn(grad, grad)));
+            const float vhat = div_rn(vv, st.b2i, st.inv_b2i);
+            update = __fdividef(__fmul_rn(p.alpha, mhat),
+                                __fadd_rn(sqrt_approx(vhat), 1e-8f));
+          }
+          const float eff = ADD_ASSIGN ? __fadd_rn(grad, update) : update;
+          float mu_drift = mu_term1;
+          if (NOISE) {
+            const float w_inc = div_rn(__fmul_rn(dr.get(r, jj), p.noise_scale),
+                                       p.sqrt_dt, p.inv_sqrt_dt);
+            mu_drift = __fadd_rn(mu_drift, __fmul_rn(__fmul_rn(st.sqrt_j, sd), w_inc));
+          }
+          drift = __fadd_rn(eff, mu_drift);
         } else {
-          float drift = (k1 - g_sq * mu_pow) * m + p.fs * fb;
-          if (NOISE) drift = drift + sqrt_j * sd * w_inc[r][jj];
-          mu_new = m + p.dt * drift;
+          drift = __fadd_rn(mu_term1, grad);
+          if (NOISE) {
+            const float w_inc = div_rn(__fmul_rn(dr.get(r, jj), p.noise_scale),
+                                       p.sqrt_dt, p.inv_sqrt_dt);
+            drift = __fadd_rn(drift, __fmul_rn(__fmul_rn(st.sqrt_j, sd), w_inc));
+          }
         }
-        mu[r][jj] = clip(mu_new, kSafetyBound);
-        sigma[r][jj] = sg + p.dt * drift_sigma;
+        mur = clip(__fadd_rn(m, __fmul_rn(p.dt, drift)), kSafetyBound);
+        sgr = __fadd_rn(sg, __fmul_rn(p.dt, drift_sigma));
       }
+      set_mu_row(r, mu4);
+      own[r * bd + tid] = sg4;
+      if (ADAM) {
+        own[(TR + r) * bd + tid] = m4;
+        if (!BETA2_ONE) own[(2 * TR + r) * bd + tid] = v4;
+      }
+    }
   }
 
 #pragma unroll
@@ -232,12 +422,13 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     const int row = grow0 + r;
     if (row >= batch) continue;
     const size_t base = ((size_t)inst * batch + row) * n;
+    const float4 mu4 = mu_row(r), sg4 = own[r * bd + tid];
 #pragma unroll
     for (int jj = 0; jj < TC; ++jj) {
       const int j = col0 + jj;
       if (j < n) {
-        mu_out[base + j] = mu[r][jj];
-        sigma_out[base + j] = sigma[r][jj];
+        mu_out[base + j] = comp(mu4, jj);
+        sigma_out[base + j] = comp(sg4, jj);
       }
     }
   }
@@ -254,42 +445,72 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_ADD_ASSIGN
 #define CCVM_ADD_ASSIGN 0
 #endif
-#ifndef CCVM_PUMP_RATE_FLAG
-#define CCVM_PUMP_RATE_FLAG 1
-#endif
 #ifndef CCVM_NOISE
 #define CCVM_NOISE 1
 #endif
 #ifndef CCVM_RNG
 #define CCVM_RNG 0
 #endif
+#ifndef CCVM_NP
+#define CCVM_NP 72
+#endif
+
+namespace {
+
+constexpr bool kAdam = CCVM_ADAM != 0;
+static_assert(CCVM_NP % TC == 0 && CCVM_NP >= TC, "NP: N padded to a multiple of 4");
+auto const kKernel = &mf_solve_kernel<kAdam, CCVM_BETA2_ONE != 0, CCVM_ADD_ASSIGN != 0,
+                                      CCVM_NOISE != 0, CCVM_RNG, CCVM_NP>;
+
+// mf_launch_shape for this build's problem size class.
+int launch_shape(int n, int* threads, int* rows, long long* smem) {
+  if ((n + TC - 1) / TC * TC != CCVM_NP) return 1;
+  return mf_launch_shape(n, kAdam, threads, rows, smem);
+}
+
+}  // namespace
 
 extern "C" {
 
-// q (I, n, n), v (I, n), mu_out / mt_out / sigma_out (I, batch, n): float32,
-// contiguous, on the device; mt_out is left as it is when iterations is 0.
-// scalars: 15 host floats in MFScalars order.  Launches on `stream`, does
-// not synchronise, and returns the cudaError_t of the launch.
-int ccvm_mf_solve(const float* q, const float* v, float* mu_out,
-                  float* mt_out, float* sigma_out, int num_instances,
-                  int batch, int n, int iterations, unsigned long long seed,
-                  const float* scalars, int rows_per_block, void* stream) {
+// q (I, n, n), v (I, n), steps (iterations, 12), mu_out / mt_out / sigma_out
+// (I, batch, n): float32, contiguous, on the device; mt_out is left as it is
+// when iterations is 0.  scalars: 24 host floats in MFScalars order.
+// Launches on `stream`, does not synchronise, and returns the cudaError_t of
+// the launch.
+int ccvm_mf_solve(const float* q, const float* v, const float* steps,
+                  float* mu_out, float* mt_out, float* sigma_out,
+                  int num_instances, int batch, int n, int iterations,
+                  unsigned long long seed, const float* scalars,
+                  int rows_per_block, void* stream) {
   MFScalars p;
   memcpy(&p, scalars, sizeof(MFScalars));
-  int threads;
+  int threads, rows;
   long long smem;
-  if (ccvm::launch_shape(n, rows_per_block, 1, &threads, &smem))
+  if (launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
     return (int)cudaErrorInvalidConfiguration;
-  auto kernel = mf_solve_kernel<CCVM_ADAM != 0, CCVM_BETA2_ONE != 0,
-                                CCVM_ADD_ASSIGN != 0, CCVM_PUMP_RATE_FLAG != 0,
-                                CCVM_NOISE != 0, CCVM_RNG>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((batch + rows_per_block - 1) / rows_per_block, num_instances);
-  kernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, v, mu_out, mt_out, sigma_out, batch, n, iterations, seed, p);
+  const dim3 grid((batch + rows - 1) / rows, num_instances);
+  kKernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      q, v, reinterpret_cast<const float4*>(steps), mu_out, mt_out, sigma_out,
+      batch, n, iterations, seed, p);
   return (int)cudaGetLastError();
+}
+
+// Blocks of this specialisation the card keeps resident per SM at problem
+// size n (cudaOccupancyMaxActiveBlocksPerMultiprocessor); returns a
+// cudaError_t.
+int ccvm_mf_blocks_per_sm(int n, int* blocks) {
+  int threads, rows;
+  long long smem;
+  if (launch_shape(n, &threads, &rows, &smem))
+    return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kKernel, threads,
+                                                            (size_t)smem);
 }
 
 }  // extern "C"

@@ -79,13 +79,13 @@ class MFSpec(NamedTuple):
     adam: bool
     beta2_one: bool
     add_assign: bool
-    pump_rate_flag: bool
     noise: bool
     rng: int  # index into ops.philox.RNG_NAMES
+    np: int = 72  # N padded to a multiple of 4 (the matvec's bound, unrolled)
 
     source = "mf_solve.cu"
     symbol = "ccvm_mf_solve"
-    argtypes = _HEAD + [ctypes.c_void_p] * 3 + _TAIL  # mu, mu_tilde, sigma
+    argtypes = _HEAD + [ctypes.c_void_p] * 4 + _TAIL  # step table, mu, mu_tilde, sigma
     defines = _defines
     tag = _tag
 
@@ -157,7 +157,7 @@ _MAX_NT = 16  # csrc/dl_solve.cu: at most 16 n-tiles, N <= 128
 
 
 class LaunchShape(NamedTuple):
-    """A DL launch: trajectories and threads per block, shared-memory bytes,
+    """A DL or MF launch: trajectories and threads per block, shared-memory bytes,
     N padded (to 8 for the tensor-core matvec, 4 for the CUDA cores), and
     the blocks per SM that the kernel's launch bounds and shared memory
     allow (the card reports the real count: ``dl_kernels.blocks_per_sm``)."""
@@ -200,6 +200,48 @@ def dl_launch_shape(n: int, adam: bool, mma: bool = True) -> LaunchShape:
     smem = fixed + warps * per_warp
     blocks = min(want_blocks, SM_SMEM // (smem + _BLOCK_RESERVED_SMEM))
     return LaunchShape(8 * warps, 32 * warps, smem, np_, blocks)
+
+
+_MF_THREADS = 288  # csrc/mf_solve.cu kThreads
+_MF_MAX_ROW_GROUPS = 16  # csrc/mf_solve.cu kMaxRowGroups
+# Registers a thread at __launch_bounds__(288, 2): an SM's 65,536 registers
+# are four quarters of 16,384, each serving a quarter of its warps, so 18
+# warps leave 96 (five warps to a quarter, at a multiple of 8).
+_MF_REGISTERS = 96
+_QUARTER_REGISTERS = 16384
+_MAX_BLOCKS_PER_SM = 32
+
+
+def mf_launch_shape(n: int, adam: bool) -> LaunchShape:
+    """The launch rule of csrc/mf_solve.cu (``mf_launch_shape`` there).
+
+    A thread owns a 4 x 4 tile of trajectories and columns (N padded to a
+    multiple of 4); a block is at most 16 row groups (64 trajectories) and
+    288 threads (two blocks per SM, 18 warps, at N=70), and holds Q (4 NP^2
+    bytes), the per-column V term (4 NP), two x buffers of its rows at
+    stride NP + 4 (Adam: one), and each thread's own float4s: sigma of its
+    four rows (64 bytes), and for Adam their two moments and mu (192 bytes
+    more).  The blocks per SM are those that shared memory and 96 registers
+    a thread allow (the card reports the real count:
+    ``mf_kernels.blocks_per_sm``).  Raises when N does not fit a block."""
+    np_ = -(-n // _TILE) * _TILE
+    groups = np_ // _TILE
+    row_groups = min(_MF_MAX_ROW_GROUPS, _MF_THREADS // groups)
+    threads = groups * row_groups
+    rows = _TILE * row_groups
+    smem = (4 * (np_ * np_ + np_ + (1 if adam else 2) * rows * (np_ + 4))
+            + (256 if adam else 64) * threads)
+    if row_groups < 1 or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"problem size N={n} does not fit the MF{'-Adam' if adam else ''} kernel: "
+            f"Q plus a tile of trajectories needs {smem} bytes of shared memory "
+            f"(limit {SMEM_LIMIT}) and {groups} column groups (limit {_MF_THREADS})"
+        )
+    warps = -(-threads // 32)
+    blocks = min(SM_SMEM // (smem + _BLOCK_RESERVED_SMEM), _MAX_BLOCKS_PER_SM)
+    while -(-blocks * warps // 4) * 32 * _MF_REGISTERS > _QUARTER_REGISTERS:
+        blocks -= 1
+    return LaunchShape(rows, threads, smem, np_, blocks)
 
 
 def waves(batch: int, shape: LaunchShape, sms: int = SMS) -> float:
@@ -269,6 +311,20 @@ def build(specs) -> dict:
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return reports
+
+
+def kernel_report(log: str) -> str:
+    """ptxas's registers and spills of the solve kernel in a library's
+    build log (the entry function named *_solve_kernel or *_variant_kernel;
+    a library may hold helper kernels too)."""
+    lines = [ln.strip() for ln in log.splitlines()]
+    entry = None
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln:
+            entry = "solve_kernel" in ln or "variant_kernel" in ln
+        elif entry and "spill" in ln and i + 1 < len(lines) and "registers" in lines[i + 1]:
+            return f"{lines[i + 1].split(':', 1)[-1].strip()}; {ln}"
+    return log.strip()[-200:]
 
 
 def load(spec, symbol=None, argtypes=None):

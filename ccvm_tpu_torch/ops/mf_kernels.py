@@ -5,13 +5,18 @@
 the PRNG key.  For CUDA tensors it launches ``csrc/mf_solve.cu`` (the
 counterpart of ``_mf_kernel``, or of ``_mf_adam_kernel`` when ``hp`` is
 given); for CPU tensors it runs :func:`mf_solve_reference`.  There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version.  The wrapper hands the
+kernel its per-step scalars as a table (:func:`_step_table`) and its
+per-solve constants (:func:`_scalars`), both by the plain version's own
+float32 operations.
 
 :func:`mf_solve_reference` computes the same function in eager PyTorch with
 :func:`ccvm_tpu_torch.dynamics.mf.solve`, the kernel's per-step safety clip
 of mu and its noise (the single Philox draw of
-:func:`ccvm_tpu_torch.ops.philox.wiener_one`).  Noise off, the two agree to
-float32 round-off; noise on, they draw the same increments.
+:func:`ccvm_tpu_torch.ops.philox.wiener_one`).  The two draw the same
+increments and round alike: MF agrees bit for bit where the plain matmul
+sums over k in order (cuBLAS does at the main path's shapes), MF-Adam to an
+ulp or so (its per-element division takes the hardware's approximation).
 """
 
 from __future__ import annotations
@@ -21,29 +26,90 @@ import ctypes
 import numpy as np
 import torch
 
+from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import mf as dyn
 from ccvm_tpu_torch.ops import build, philox
 from ccvm_tpu_torch.runtime import fp32_matmul
 
-def launch_shape(n: int):
+def launch_shape(n: int, adam: bool = False):
     """(rows per block, threads, shared-memory bytes) of the kernel at
-    problem size ``n`` (Q and one x array per block); raises when they do
-    not fit a block."""
-    return build.launch_shape(n, 1, "MF")
+    problem size ``n`` (:func:`ccvm_tpu_torch.ops.build.mf_launch_shape`);
+    raises when they do not fit a block."""
+    return tuple(build.mf_launch_shape(n, adam)[:3])
+
+
+def _spec(n, hp, noise_scale, rng):
+    noise = float(noise_scale) != 0.0
+    return build.MFSpec(
+        adam=hp is not None,
+        beta2_one=hp is not None and hp.beta2 == 1.0,
+        add_assign=hp is not None and bool(hp.add_assign),
+        noise=noise,
+        rng=philox.RNG_NAMES.index(rng) if noise else 0,
+        np=build.mf_launch_shape(n, hp is not None).np,
+    )
+
+
+def blocks_per_sm(n, *, noise_scale=1.0, rng="popcount32", hp=None):
+    """Blocks of the specialisation that :func:`mf_solve` launches with these
+    arguments that the card keeps resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
+    fn = build.load(_spec(n, hp, noise_scale, rng), "ccvm_mf_blocks_per_sm",
+                    [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    err = fn(int(n), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ccvm_mf_blocks_per_sm failed: cudaError_t {err}")
+    return blocks.value
 
 
 def _scalars(params, hp, noise_scale):
-    """The kernel's 15 float32 scalars (csrc/mf_solve.cu MFScalars)."""
+    """The kernel's 24 float32 scalars (csrc/mf_solve.cu MFScalars): the
+    solve's, then its per-solve constants in float32 arithmetic as the plain
+    version rounds them (1/S and 1/sqrt(dt) rounded to nearest; 2 (3 g^2)
+    and -0.25 (u - l) are exact multiples of the plain version's)."""
     alpha = beta1 = beta2 = 0.0
     if hp is not None:
         alpha, beta1, beta2 = hp.alpha, hp.beta1, hp.beta2
+    f = np.float32
+    S, dt, g, lo, hi = (f(x) for x in (params.S, params.dt, params.g,
+                                       params.lower_limit, params.upper_limit))
+    sqrt_dt = np.sqrt(dt)
+    g_sq = g * g
     vals = np.array(
-        [params.pump, params.S, params.dt, params.j, params.feedback_scale,
-         params.g, params.lower_limit, params.upper_limit, params.iterations,
-         alpha, beta1, 1.0 - beta1, beta2, 1.0 - beta2, noise_scale],
+        [params.pump, S, dt, params.j, params.feedback_scale, g, lo, hi,
+         params.iterations, alpha, beta1, 1.0 - beta1, beta2, 1.0 - beta2,
+         noise_scale,
+         f(1.0) / S, sqrt_dt, f(1.0) / sqrt_dt, hi - lo, hi + lo, g_sq,
+         f(2.0) * (f(3.0) * g_sq), f(2.0) * g_sq, f(-0.25) * (hi - lo)],
         np.float32,
     )
-    return (ctypes.c_float * 15)(*vals.tolist())
+    return (ctypes.c_float * 24)(*vals.tolist())
+
+
+def _step_table(params, hp, iterations, pump_rate_flag, device):
+    """The kernel's per-step scalars, (iterations, 12) float32 on ``device``,
+    by the plain version's own float32 operations (``dynamics/mf.py``,
+    ``dynamics/common.adam_moment_update``): sqrt(1/(4 j_i)), k1 = -(1 + j_i)
+    + pump_i, 1 + j_i, -2 j_i, sqrt(j_i), then Adam's 1 - beta1^(i+1), its
+    reciprocal, 1 - beta2^(i+1) and its reciprocal (ones without Adam, or
+    for beta2 = 1), then three zeros."""
+    p = common.float32_scalars(params, device)
+    fi1 = torch.arange(1, int(iterations) + 1, dtype=torch.float32, device=device)
+    j_i = p.j * torch.exp(-fi1 / p.iterations * 3.0)
+    rate = fi1 / p.iterations if pump_rate_flag else torch.ones_like(fi1)
+    pump_inst = p.pump * rate + 1.0 + j_i
+    ones, zeros = torch.ones_like(fi1), torch.zeros_like(fi1)
+    b1 = inv_b1 = b2 = inv_b2 = ones
+    if hp is not None:
+        b1 = 1.0 - torch.pow(hp.beta1, fi1)
+        inv_b1 = 1.0 / b1
+        if hp.beta2 != 1.0:
+            b2 = 1.0 - torch.pow(hp.beta2, fi1)
+            inv_b2 = 1.0 / b2
+    cols = [torch.sqrt(1.0 / (4.0 * j_i)), -(1 + j_i) + pump_inst, 1 + j_i, -2 * j_i,
+            torch.sqrt(j_i), b1, inv_b1, b2, inv_b2, zeros, zeros, zeros]
+    return torch.stack(cols, dim=1).contiguous()
 
 
 def _check(q_matrix, v_vector, params, rng):
@@ -89,17 +155,9 @@ def mf_solve(
     q = (q_matrix if stacked else q_matrix[None]).contiguous()
     v = (v_vector if stacked else v_vector[None]).contiguous()
     num_instances, n = q.shape[0], q.shape[-1]
-    rows, _, _ = launch_shape(n)
-    noise = float(noise_scale) != 0.0
-    spec = build.MFSpec(
-        adam=hp is not None,
-        beta2_one=hp is not None and hp.beta2 == 1.0,
-        add_assign=hp is not None and bool(hp.add_assign),
-        pump_rate_flag=bool(pump_rate_flag),
-        noise=noise,
-        rng=philox.RNG_NAMES.index(rng) if noise else 0,
-    )
-    launch = build.load(spec)
+    rows, _, _ = launch_shape(n, hp is not None)
+    launch = build.load(_spec(n, hp, noise_scale, rng))
+    steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
     mu = torch.empty((num_instances, batch_size, n), dtype=torch.float32,
                      device=q.device)
     mt = torch.zeros_like(mu)  # the readout of a solve of 0 iterations
@@ -107,8 +165,8 @@ def mf_solve(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(
-            q.data_ptr(), v.data_ptr(), mu.data_ptr(), mt.data_ptr(),
-            sigma.data_ptr(), num_instances, int(batch_size), n,
+            q.data_ptr(), v.data_ptr(), steps.data_ptr(), mu.data_ptr(),
+            mt.data_ptr(), sigma.data_ptr(), num_instances, int(batch_size), n,
             int(iterations), int(seed) % 2**64,
             _scalars(params, hp, float(noise_scale)), rows, stream,
         )

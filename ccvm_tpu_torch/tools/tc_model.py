@@ -1,0 +1,243 @@
+"""Emulations of a tensor-core matvec's arithmetic, in PyTorch on any device.
+
+The DL kernel (csrc/dl_solve.cu) runs its matvec as 3xTF32 ``mma.sync``;
+the MF kernel (csrc/mf_solve.cu) keeps the fp32 CUDA-core matvec because no
+tensor-core scheme modelled here held the MF solve within 5e-5 of its fp32
+plain version on the CPU (on the card 4xTF32 per k-tile holds chip_smoke's
+1e-4 in every check).  Each emulation below computes ``x @ Q`` as
+one scheme would; patched in as ``dynamics.common.dense_matvec``, it turns a
+plain solve into a model of a kernel with that matvec, whose difference from
+the fp32 plain solve predicts the kernel's hold against its plain version.
+
+Run on the card, where the plain solve's matmul is cuBLAS's, as the holds
+of ``chip_smoke.py`` compare:
+
+    python -m ccvm_tpu_torch.tools.tc_model --device cuda
+
+which prints, for each MF scheme, the difference at the checks of
+``chip_smoke.py`` (phase 3: seed 0, batch 1024, 300 steps, noise off; phase
+7: seed 100, the main-path batch, 1,000 steps, noise on) and over 1,000
+steps noise off, for MF, MF-Adam beta2 0.999 and MF-Adam beta2 1.0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from ccvm_tpu_torch.dynamics import common
+
+
+def tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, on the 13 low mantissa bits (the sign bit is apart, so adding
+    half a unit to the magnitude's bits rounds ties away)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matvec_3xtf32(x, q):
+    """x @ Q as the kernel's 3xTF32 product: hi = tf32(a), lo = tf32(a - hi)
+    for x and Q, then lo*hi + hi*lo before hi*hi, each in fp32."""
+    xh, qh = tf32(x), tf32(q)
+    xl, ql = tf32(x - xh), tf32(q - qh)
+    return (torch.matmul(xl, qh) + torch.matmul(xh, ql)) + torch.matmul(xh, qh)
+
+
+def matvec_1xtf32(x, q):
+    return torch.matmul(tf32(x), tf32(q))
+
+
+def _toward_zero(x64):
+    """float64 to float32, rounded toward zero."""
+    r = x64.to(torch.float32)
+    over = r.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _parts(x, q):
+    """TF32 hi and lo of x, and hi, lo and the residual of Q (hi + lo + res
+    is Q exactly)."""
+    xh, qh = tf32(x), tf32(q)
+    ql = tf32(q - qh)
+    return {"xh": xh, "xl": tf32(x - xh), "qh": qh, "ql": ql, "qr": tf32(q - qh - ql)}
+
+
+def _mma(acc, a, b, k):
+    """One m16n8k8 mma of k-tile k: its 8 products (exact: TF32 times TF32
+    fits float64) added to the fp32 accumulator, the sum rounded toward zero,
+    a model of the tensor cores' truncating accumulation."""
+    prod = torch.matmul(a[..., k:k + 8].double(), b[..., k:k + 8, :].double())
+    return _toward_zero(acc.double() + prod)
+
+
+_TERMS3 = (("xl", "qh"), ("xh", "ql"), ("xh", "qh"))
+_TERMS4 = (("xh", "qr"),) + _TERMS3  # with Q's residual: Q exactly
+
+
+def matvec_3xtf32_truncating(x, q):
+    """x @ Q as a chain of m16n8k8 mma through one accumulator: for each
+    k-tile of 8 rows of Q, lo*hi, hi*lo and hi*hi are one mma each (DL's
+    kernel)."""
+    p = _parts(x, q)
+    acc = torch.zeros(x.shape[:-1] + q.shape[-1:], dtype=torch.float32, device=x.device)
+    for k in range(0, q.shape[-2], 8):
+        for a, b in _TERMS3:
+            acc = _mma(acc, p[a], p[b], k)
+    return acc
+
+
+def matvec_tiles(terms=3):
+    """x @ Q with each k-tile's mma chained into a fresh accumulator (C = 0)
+    and the tile's sum added to the running sum in fp32 (round to nearest);
+    ``terms`` 4 adds hi*residual, so the products carry Q exactly."""
+    order = _TERMS3 if terms == 3 else _TERMS4
+
+    def matvec(x, q):
+        p = _parts(x, q)
+        acc = torch.zeros(x.shape[:-1] + q.shape[-1:], dtype=torch.float32,
+                          device=x.device)
+        for k in range(0, q.shape[-2], 8):
+            tile = torch.zeros_like(acc)
+            for a, b in order:
+                tile = _mma(tile, p[a], p[b], k)
+            acc = acc + tile
+        return acc
+
+    return matvec
+
+
+def matvec_rounded_once(x, q):
+    """x @ Q in float64, rounded once to float32: the nearest any scheme of
+    float32 results can come to the exact sum."""
+    return torch.matmul(x.double(), q.double()).float()
+
+
+def matvec_sequential(x, q):
+    """x @ Q as one fp32 FMA chain per output over k = 0, 1, ... (the
+    CUDA-core kernel's order; float64 holds each product exactly)."""
+    acc = torch.zeros(x.shape[:-1] + q.shape[-1:], dtype=torch.float64, device=x.device)
+    for k in range(q.shape[-2]):
+        acc = (acc + x[..., k:k + 1].double() * q[..., k:k + 1, :].double()).float().double()
+    return acc.float()
+
+
+def centred(matvec, mid):
+    """The DL kernel's centring: the mma takes x - (u+l), and (u+l) times Q's
+    column sums is added in fp32."""
+    return lambda x, q: matvec(x - mid, q) + mid * q.sum(-2, keepdim=True)
+
+
+# The MF schemes the CLI holds: uncentred unless named so (MF's x lies in
+# [0, 2u] with exact zeros where mu_tilde is clipped at -S; centring trades
+# them for a cancellation against Q's column sums).
+MF_SCHEMES = {
+    "fp32 sequential (CUDA-core)": lambda mid: matvec_sequential,
+    "float64 rounded once": lambda mid: matvec_rounded_once,
+    "3xTF32 per-k-tile accumulators": lambda mid: matvec_tiles(3),
+    "4xTF32 (Q's residual) per-k-tile accumulators": lambda mid: matvec_tiles(4),
+    "3xTF32 per-k-tile accumulators, centred": lambda mid: centred(matvec_tiles(3), mid),
+    "3xTF32 one truncating chain, centred (DL's)":
+        lambda mid: centred(matvec_3xtf32_truncating, mid),
+}
+
+
+def model_difference(run, matvec, **kw):
+    """Largest difference over a plain solve's outputs (``run(**kw)``) between
+    the solve with ``matvec`` patched in as ``common.dense_matvec`` and the
+    fp32 plain solve."""
+    plain = run(**kw)
+    saved = common.dense_matvec
+    common.dense_matvec = matvec
+    try:
+        emulated = run(**kw)
+    finally:
+        common.dense_matvec = saved
+    for x in emulated:
+        assert torch.isfinite(x).all()
+    return max((a - b).abs().max().item() for a, b in zip(emulated, plain))
+
+
+def mf_problem(device, n=70, g=0.01):
+    """The scaled Size70 instance of the MF main path on ``device``, and a
+    function of T giving the tuned N=70 MF parameters."""
+    from ccvm_tpu_torch import MFSolver, ProblemInstance
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    path = os.path.join(repo, "examples", "benchmarking_instances", f"Size{n}",
+                        f"tuningH0{n}-100-0.in")
+    inst = ProblemInstance(device=device, instance_type="tuning", file_path=path)
+    solver = MFSolver(device=device)
+    inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+    solver.solution_bounds = inst.solution_bounds
+    with open(os.path.join(repo, "examples", "tuned_parameters.json")) as f:
+        t = json.load(f)["mf"][str(n)]
+
+    def params(iterations):
+        return solver._make_params(t["pump"], t["S"], t["dt"], t["j"],
+                                   t["feedback_scale"], g, iterations)
+
+    return inst.q_matrix, inst.v_vector, params
+
+
+def mf_difference(problem, matvec, beta2, *, seed, batch, iterations, noise_scale):
+    """:func:`model_difference` of the MF plain solve on ``problem``
+    (:func:`mf_problem`), T = ``iterations``; ``beta2`` None is MF, else
+    MF-Adam with the default Adam parameters and that beta2."""
+    from ccvm_tpu_torch import AdamParameters
+    from ccvm_tpu_torch.ops import mf_kernels
+
+    q, v, params = problem
+    hp = None if beta2 is None else AdamParameters(beta2=beta2).to_hyperparameters()
+    return model_difference(
+        lambda **kw: mf_kernels.mf_solve_reference(seed, q, v, params(iterations), **kw),
+        matvec, iterations=iterations, batch_size=batch, pump_rate_flag=True,
+        noise_scale=noise_scale, rng="popcount32", hp=hp)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--batch", type=int, default=65536,
+                    help="phase 7's batch (the main path's)")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("tc_model: no CUDA card")
+    problem = mf_problem(args.device)
+    mid = 1.0  # u + l of the instance's [0, 1] box
+    checks = {"phase 3 (seed 0, batch 1024, 300 steps, noise off)":
+                  dict(seed=0, batch=1024, iterations=300, noise_scale=0.0),
+              "1,000 steps noise off": dict(seed=0, batch=16, iterations=1000,
+                                            noise_scale=0.0),
+              f"phase 7 (seed 100, batch {args.batch}, 1,000 steps, noise on)":
+                  dict(seed=100, batch=args.batch, iterations=1000, noise_scale=1.0)}
+    name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    # Is the plain solve's own matmul (cuBLAS on the card) the sequential
+    # chain?  x as MF's: in [0, 2], zeros and twos where mu_tilde is clipped.
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = (torch.rand((4096, 70), generator=gen) * 2.0).to(args.device)
+    x[:, ::3] = 0.0
+    x[:, 1::3] = 2.0
+    q = problem[0]
+    from ccvm_tpu_torch.runtime import fp32_matmul
+    with fp32_matmul():
+        ref = torch.matmul(x, q)
+    differ = int((ref != matvec_sequential(x, q)).sum())
+    print(f"plain matmul on {args.device} against the sequential fp32 chain: {differ} "
+          f"of {ref.numel()} outputs differ", flush=True)
+    print(f"MF schemes against the fp32 plain solve on {name}: max |model - plain| "
+          f"over (mu, mu_tilde, sigma) for MF / MF-Adam beta2 0.999 / 1.0", flush=True)
+    for label, make in MF_SCHEMES.items():
+        for check, kw in checks.items():
+            t = time.perf_counter()
+            errs = [mf_difference(problem, make(mid), b2, **kw) for b2 in (None, 0.999, 1.0)]
+            print(f"  {label}; {check}: " + " / ".join(f"{e:.3e}" for e in errs)
+                  + f" ({time.perf_counter() - t:.1f} s)", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,12 +12,14 @@ exits non-zero without printing a result:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does;
 2. build: compiles every kernel specialisation the run launches from
    ``ccvm_tpu_torch/csrc`` (one nvcc each, all started together) into
-   build/kernels, and prints what ptxas reports; for each DL specialisation
-   the blocks per SM the card keeps resident
+   build/kernels, and prints what ptxas reports of each solve kernel; for
+   each DL and MF specialisation the blocks per SM the card keeps resident
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and for the DL main
    path's two (3xTF32 tensor-core matvec, noise on) it holds no spill bytes,
    DL-Adam at 16 resident warps per SM and DL's grid at batch 65536 within
-   10% of whole waves;
+   10% of whole waves, for the MF main path's three (MF, MF-Adam beta2
+   0.999 and 1.0, noise on) no spill bytes, at least 16 warps per SM and
+   whole waves within 10%;
 3. noise off: each kernel against its plain PyTorch version on the card, on
    the scaled N=70 instance, batch 1024, 300 iterations (DL pump 12, DL-Adam
    with beta2 0.999 and 1.0; MF, Langevin and pumped Langevin with the tuned
@@ -26,14 +28,15 @@ exits non-zero without printing a result:
    launch against two serial launches, bit for bit;
 4. noise on, same Philox words: kernel against plain, 100 iterations;
 5. noise on, statistics: 15,000 iterations at batch 4096, kernel against
-   plain (DL, DL-Adam, MF, Langevin, pumped Langevin); every success
-   probability within 5 combined binomial sigmas + 0.01 (the band of
-   tools/tpu_validate.py).  The readouts of MF and of the Langevin family go
+   plain (DL, DL-Adam, MF, Langevin, pumped Langevin at N=70; DL-Adam, MF and
+   MF-Adam on tools/tpu_validate.py's N=20 instance with its parameters);
+   every success probability within 5 combined binomial sigmas + 0.01 (the
+   band of tools/tpu_validate.py).  The readouts of MF and of the Langevin family go
    through their change of variables, grad-descent and
    ``compute_energy_readout64``, as the façades' do.  The plain solves at
-   full depth, these and phase 7's, run in worker processes (spawned, one
-   fewer than the host's cores) beside phases 3-5, and all have ended
-   before phase 6;
+   full depth, these and phase 7's, run in child processes of this script
+   (``--plain-worker``, at most one fewer than the host's cores) beside
+   phases 3-5, and all have been waited for before phase 6;
 6. main paths, through the façades, on tuningH070-100-0.in with the tuned
    N=70 parameters, batch 65536, 15,000 iterations, a warm-up then seeds 1-3,
    with the launch counts zeroed just before and read just after, and the
@@ -50,8 +53,11 @@ exits non-zero without printing a result:
    plain time (and the steps it covers) and largest error against its
    plain version.  The bound of DL and DL-Adam is that of their 3xTF32
    tensor-core matvecs beside the CUDA cores' elementwise work, and their
-   fp32 CUDA-core bound is a second column (``bound_fp32_ms``); DL-Adam's
-   time is held to 1.5 x DL's.  The Langevin family is held elementwise
+   fp32 CUDA-core bound is a second column (``bound_fp32_ms``); MF and
+   MF-Adam, whose matvec stays on the fp32 CUDA cores, have the fp32 bound
+   and, beside it, the bounds a 3xTF32 and a 4xTF32 matvec would have
+   (``bound_3xtf32_ms``, ``bound_4xtf32_ms``); DL-Adam's time is held to
+   1.5 x DL's.  The Langevin family is held elementwise
    after 100, 1,000 and 15,000 steps (past 100 steps at LANGEVIN_DEEP_TOL,
    with at most LANGEVIN_DEEP_SHARE of the elements over PARITY_TOL), MF
    after 100 and 1,000, DL after 1,000 (the 15,000-step errors of DL and MF
@@ -85,16 +91,24 @@ import concurrent.futures
 import contextlib
 import functools
 import json
-import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE70 = os.path.join(REPO, "examples", "benchmarking_instances", "Size70")
 INSTANCE = os.path.join(SIZE70, "tuningH070-100-0.in")
 SECOND_INSTANCE = os.path.join(SIZE70, "tuningH070-100-1.in")
+# tools/tpu_validate.py's instance and parameters (:33-49), for phase 5's
+# bands at N=20: DL pump 8, fs 100, dt 0.001, noise ratio 10; MF pump 0, fs
+# 4000, j 5, S 20, dt 0.0025; Adam at its defaults.
+VALIDATE_INSTANCE = os.path.join(REPO, "examples", "benchmarking_instances",
+                                 "single_test_instance", "tuningH020-100-0.in")
+VALIDATE_DL = dict(pump=8.0, S=1.0, dt=0.001, noise_ratio=10.0, feedback_scale=100.0)
+VALIDATE_MF = dict(pump=0.0, S=20.0, dt=0.0025, j=5.0, feedback_scale=4000.0)
 TUNED = os.path.join(REPO, "examples", "tuned_parameters.json")
 
 N = 70
@@ -132,11 +146,18 @@ HARNESS_HOLD_STEPS = 296
 # 2*N of each matvec, counted from csrc/dl_solve.cu, csrc/mf_solve.cu and
 # csrc/langevin_solve.cu (drift, schedules, noise scaling, divisions, clips,
 # Adam; Philox's integer work is not counted).  DL does two matvecs a step,
-# the others one.
+# the others one.  MF (csrc/mf_solve.cu, noise on; what the plain version's
+# step needs): the draw's scaling and its division by sqrt(dt), once (5;
+# the kernel recomputes them after the matvec to save registers, work the
+# function does not need), mu_tilde, its clip and x
+# (9), mu^2, the feedback with its division by S and fs (7), mu's drift,
+# diffusion and update with the clip (12), sigma's drift and update (11):
+# 44; Adam adds its two moments, their bias corrections, the square root,
+# the division and the add (18).
 # The race harness's variants (csrc/dl_variants.cu, popcount1): v2 rebuilds
 # x and scales the feedback twice, v3 does neither and sums c^2 + s^2 once.
 ELEMENTWISE_FLOPS = {"dl_solve": 40, "dl_adam_solve": 64,
-                     "mf_solve": 40, "mf_adam_solve": 55,
+                     "mf_solve": 44, "mf_adam_solve": 62,
                      "langevin_solve": 12, "langevin_adam_solve": 26,
                      "pumped_langevin_solve": 17,
                      "pumped_langevin_adam_solve": 31,
@@ -177,13 +198,14 @@ def card_peaks(name):
     raise RuntimeError(f"no published fp32 peak known for {name!r}")
 
 
-def bound_ms(kernel, batch, n, iterations, name, tensor_cores=None):
+def bound_ms(kernel, batch, n, iterations, name, tensor_cores=None, tf32_passes=3):
     """Least time for the work: operations over the peak of the units that
     run them, or bytes (Q and V read once, each output written once) over
     the memory rate.  With ``tensor_cores`` (by default the kernels of
-    TENSOR_CORE_KERNELS) the matvecs run as 3xTF32 at the dense TF32 peak
-    and the elementwise work at the fp32 peak; the two pipes issue side by
-    side, so the operations take the longer of the two.  Otherwise every
+    TENSOR_CORE_KERNELS) the matvecs run as ``tf32_passes`` TF32 products
+    per fp32 product (3xTF32; 4xTF32 adds Q's residual) at the dense TF32
+    peak and the elementwise work at the fp32 peak; the two pipes run side
+    by side, so the operations take the longer of the two.  Otherwise every
     operation runs at the fp32 peak."""
     flops_peak, bw, tf32_peak = card_peaks(name)
     if tensor_cores is None:
@@ -191,7 +213,7 @@ def bound_ms(kernel, batch, n, iterations, name, tensor_cores=None):
     matvec = 2 * MATVECS[kernel] * batch * n * n * iterations
     elementwise = ELEMENTWISE_FLOPS[kernel] * batch * n * iterations
     if tensor_cores:
-        t_ops = max(3 * matvec / tf32_peak, elementwise / flops_peak)
+        t_ops = max(tf32_passes * matvec / tf32_peak, elementwise / flops_peak)
     else:
         t_ops = (matvec + elementwise) / flops_peak
     t_bytes = 4 * (n * n + n + OUTPUTS[kernel] * batch * n) / bw
@@ -212,6 +234,58 @@ def plain_solve(module, function, seed, q, v, params, kwargs):
              **kwargs)
     out = tuple(x.cpu().numpy() for x in (out if isinstance(out, tuple) else (out,)))
     return out, time.perf_counter() - t
+
+
+def plain_worker():
+    """``chip_smoke.py --plain-worker``: one ``plain_solve``, its arguments
+    pickled on standard input and its result pickled on standard output
+    (anything else the solve prints goes to standard error)."""
+    job = pickle.load(sys.stdin.buffer)
+    with os.fdopen(os.dup(1), "wb") as out:
+        os.dup2(2, 1)
+        pickle.dump(plain_solve(*job), out)
+
+
+class PlainWorkers:
+    """Plain solves in child processes of this script (``--plain-worker``),
+    at most ``size`` at a time, beside the card's phases.  Every child is
+    waited for, and ``close`` kills those still running, so no process
+    outlives the run (a multiprocessing pool would leave its resource
+    tracker behind)."""
+
+    def __init__(self, size):
+        self._lock = threading.Lock()
+        self._procs = []
+        self._closed = False
+        self._threads = concurrent.futures.ThreadPoolExecutor(size)
+
+    def submit(self, module, function, seed, q, v, params, kwargs):
+        """A future of ``plain_solve``'s result on these arguments."""
+        return self._threads.submit(
+            self._run, (module, function, seed, q, v, params, kwargs))
+
+    def _run(self, job):
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("plain workers closed")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--plain-worker"],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+            self._procs.append(proc)
+        out, _ = proc.communicate(pickle.dumps(job))
+        if proc.returncode != 0:
+            raise RuntimeError(f"plain worker exited with {proc.returncode}")
+        return pickle.loads(out)
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+            for proc in self._procs:
+                if proc.poll() is None:
+                    proc.kill()
+        self._threads.shutdown(wait=True, cancel_futures=True)
+        for proc in self._procs:
+            proc.wait()
 
 
 def success_band_ok(perf_a, perf_b, batch, names=("kernel", "plain")):
@@ -304,9 +378,8 @@ def main(cleanup):
     def spec(n, hp, noise, mma):
         return dl_kernels._spec(n, hp, 1.0 if noise else 0.0, "popcount16", mma)
 
-    def mf_spec(hp=None, noise=True):
-        return build.MFSpec(hp is not None, hp is not None and hp.beta2 == 1.0,
-                            hp is not None and hp.add_assign, True, noise, 0)
+    def mf_spec(hp=None, noise=True, n=N):
+        return mf_kernels._spec(n, hp, 1.0 if noise else 0.0, "popcount32")
 
     def lgv_spec(pumped, hp=None, noise=True):
         return build.LangevinSpec(pumped, hp is not None,
@@ -315,9 +388,16 @@ def main(cleanup):
                                   noise, 0)
 
     specs = [spec(*case) for case in dl_cases.values()]
-    specs += [mf_spec(), mf_spec(noise=False), mf_spec(adam_hps[0.999]),
-             mf_spec(adam_hps[0.999], noise=False),
-             mf_spec(adam_hps[1.0], noise=False)]
+    # The MF specialisations: (Adam hyperparameters, noise) by label; the
+    # first three are the main path's.
+    mf_builds = {"MF": (None, True), "MF-Adam": (adam_hps[0.999], True),
+                "MF-Adam beta2 1": (adam_hps[1.0], True),
+                "MF noise off": (None, False),
+                "MF-Adam noise off": (adam_hps[0.999], False),
+                "MF-Adam beta2 1 noise off": (adam_hps[1.0], False)}
+    specs += [mf_spec(*case) for case in mf_builds.values()]
+    # tools/tpu_validate.py's N=20 instance in phase 5.
+    specs += [mf_spec(None, n=20), mf_spec(adam_hps[0.999], n=20)]
     for pumped in (False, True):
         specs += [lgv_spec(pumped), lgv_spec(pumped, noise=False),
                   lgv_spec(pumped, adam_hps[0.999]),
@@ -349,11 +429,7 @@ def main(cleanup):
         f"(dl_solve.cu, mf_solve.cu, langevin_solve.cu, dl_variants.cu, "
         f"ccvm_common.cuh)")
     for s, rep in reports.items():
-        lines = [ln.strip() for ln in rep.splitlines()]
-        regs = [ln for ln in lines if "registers" in ln]
-        spills = [ln for ln in lines if "spill" in ln]
-        log(f"  {type(s).__name__} {s.tag()}: "
-            f"{regs[-1] if regs else rep.strip()[-200:]}; {spills[-1] if spills else ''}")
+        log(f"  {type(s).__name__} {s.tag()}: {build.kernel_report(rep)}")
     # The DL specialisations' residency, as the card reports it, and the
     # main path's spills, resident warps and waves.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -379,10 +455,33 @@ def main(cleanup):
             failures.append(f"DL-Adam keeps {warps} warps per SM resident, not 16")
         if label == "DL" and waves / -(-waves // 1) < 0.9:
             failures.append(f"DL's grid fills {waves:.3f} waves, not whole ones within 10%")
-
+    # The MF specialisations' residency as the card reports it; the main
+    # path's three hold no spills, at least 16 warps per SM and whole waves
+    # within 10%.
+    for label, (hp, noise) in mf_builds.items():
+        blocks = mf_kernels.blocks_per_sm(N, noise_scale=1.0 if noise else 0.0, hp=hp)
+        shape = build.mf_launch_shape(N, hp is not None)
+        warps = blocks * -(-shape.threads // 32)
+        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
+        rep = reports.get(mf_spec(hp, noise))
+        log(f"  {label} ({mf_spec(hp, noise).tag()}): "
+            f"{build.kernel_report(rep) if rep else 'built before this run'}; "
+            f"{blocks} blocks per SM of {shape.threads} threads ({warps} warps), "
+            f"{shape.rows} trajectories and {shape.smem} bytes of shared memory a "
+            f"block; batch {MAIN_BATCH} is {waves:.3f} waves of {sms} SMs")
+        if not noise:
+            continue
+        if rep is not None and "0 bytes spill stores, 0 bytes spill loads" not in \
+                build.kernel_report(rep):
+            failures.append(f"{label} spills: {build.kernel_report(rep)}")
+        if warps < 16:
+            failures.append(f"{label} keeps {warps} warps per SM resident, not 16")
+        if waves / -(-waves // 1) < 0.9:
+            failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
+                            f"within 10%")
     # Scaled instances on the card, through the user-facing entry points.
-    def instance(path, solver_cls=DLSolver):
-        inst = ProblemInstance(device="cuda", instance_type="tuning", file_path=path)
+    def instance(path, solver_cls=DLSolver, instance_type="tuning"):
+        inst = ProblemInstance(device="cuda", instance_type=instance_type, file_path=path)
         inst.scale_coefs(solver_cls(device="cuda").get_scaling_factor(inst.q_matrix))
         return inst
 
@@ -538,12 +637,31 @@ def main(cleanup):
         jobs["phase 5", family] = (
             kernel, plain, 21, lgv_inst[family], lgv_params(family, ITERATIONS),
             dict(extra, **full, batch_size=4096, rng="popcount32", hp=None))
+    # tools/tpu_validate.py's N=20 instance and parameters, where the success
+    # probabilities sit between 0 and 1: DL-Adam, MF and MF-Adam.
+    v20 = {"dl": instance(VALIDATE_INSTANCE, DLSolver, "test"),
+           "mf": instance(VALIDATE_INSTANCE, MFSolver, "test")}
+    v20_solver = {"dl": DLSolver(device="cuda"), "mf": MFSolver(device="cuda")}
+    for f in v20:
+        v20_solver[f].solution_bounds = v20[f].solution_bounds
+    vd, vm = VALIDATE_DL, VALIDATE_MF
+    jobs["phase 5", "DL-Adam N=20"] = (
+        dl_kernels.dl_solve, dl_kernels.dl_solve_reference, 21, v20["dl"],
+        v20_solver["dl"]._make_params(vd["pump"], vd["S"], vd["dt"], vd["noise_ratio"],
+                                      vd["feedback_scale"], G, ITERATIONS),
+        dict(full, batch_size=4096, pump_rate_flag=True, pump_is_gt_one=vd["pump"] > 1,
+             rng="popcount16", hp=adam_hps[0.999]))
+    for label, hp in (("MF N=20", None), ("MF-Adam N=20", adam_hps[0.999])):
+        jobs["phase 5", label] = (
+            mf_kernels.mf_solve, mf_kernels.mf_solve_reference, 21, v20["mf"],
+            v20_solver["mf"]._make_params(vm["pump"], vm["S"], vm["dt"], vm["j"],
+                                          vm["feedback_scale"], MF_G, ITERATIONS),
+            dict(full, batch_size=4096, pump_rate_flag=True, rng="popcount32", hp=hp))
     workers = min(len(jobs), max(1, (os.cpu_count() or 2) - 1))
-    pool = cleanup.enter_context(concurrent.futures.ProcessPoolExecutor(
-        workers, mp_context=multiprocessing.get_context("spawn")))
-    cleanup.callback(pool.shutdown, cancel_futures=True)
+    pool = PlainWorkers(workers)
+    cleanup.callback(pool.close)
     t_pool = time.perf_counter()
-    futures = {key: pool.submit(plain_solve, plain.__module__, plain.__name__, seed,
+    futures = {key: pool.submit(plain.__module__, plain.__name__, seed,
                                 inst_.q_matrix.cpu().numpy(),
                                 inst_.v_vector.cpu().numpy(), p, kw)
                for key, (_, plain, seed, inst_, p, kw) in jobs.items()}
@@ -612,7 +730,8 @@ def main(cleanup):
     # 5. noise on, statistics over a full-length solve
     def performance(instance_, energies, batch):
         return Solution(
-            problem_size=N, batch_size=batch, instance_name=instance_.name,
+            problem_size=instance_.problem_size, batch_size=batch,
+            instance_name=instance_.name,
             iterations=ITERATIONS, objective_values=energies, solve_time=0.0,
             pp_time=0.0, optimal_value=instance_.optimal_sol,
             best_value=instance_.best_sol, num_frac_values=instance_.num_frac_values,
@@ -649,6 +768,27 @@ def main(cleanup):
         f"plain| = {err:.3e}")
     assert success_band_ok(perf[0], perf[1], 4096), "MF success probabilities disagree"
 
+    # tools/tpu_validate.py's N=20 instance: the readout as its façades give
+    # it without post-processing; every gap's probability of both sides is
+    # printed, P(0.1%), P(1%) and P(10%) among them.
+    for label in ("DL-Adam N=20", "MF N=20", "MF-Adam N=20"):
+        out, ref, err, plain_s = stats_pair(label)
+        inst20 = jobs["phase 5", label][3]
+        if label.startswith("DL"):
+            cv20 = ("boxqp", *inst20.solution_bounds, VALIDATE_DL["S"])
+            energies = [inst20.compute_energy_readout64(c, change_vars=cv20)
+                        for c in (out[0], ref[0])]
+        else:
+            lo20, hi20 = inst20.solution_bounds
+            energies = [inst20.compute_energy_readout64(v20_solver["mf"].change_variables(
+                mt, lo20, hi20, VALIDATE_MF["S"])) for mt in (out[1], ref[1])]
+        perf = [performance(inst20, e, 4096) for e in energies]
+        log(f"phase 5 {label} statistics (tools/tpu_validate.py's instance and "
+            f"parameters): batch 4096, {ITERATIONS} steps, plain version {plain_s:.2f} s "
+            f"in a worker, max |kernel - plain| = {err:.3e}")
+        assert success_band_ok(perf[0], perf[1], 4096), \
+            f"{label} success probabilities disagree"
+
     for family in lgv_cls:
         ck, cr, err, plain_s = stats_pair(family)
         li = lgv_inst[family]
@@ -665,7 +805,7 @@ def main(cleanup):
             f"{family} success probabilities disagree"
     # Phase 7's plain solves over 15,000 steps; then the workers stop.
     deep_plain = {key[1]: plain_result(key)[0] for key in jobs if key[0] == "phase 7"}
-    pool.shutdown()
+    pool.close()
     log(f"phase 5 workers: {len(jobs)} plain solves at full depth in {workers} "
         f"processes, all ended {time.perf_counter() - t_pool:.1f} s after the first "
         f"started")
@@ -906,6 +1046,18 @@ def main(cleanup):
             share += (f"; 3xTF32 tensor cores beside the CUDA cores; fp32 CUDA-core "
                       f"bound {row['bound_fp32_ms']:.1f} ms, "
                       f"{100 * row['bound_fp32_ms'] / min(times):.1f}% of it")
+        elif family == "mf":
+            # The bounds a tensor-core matvec would have: 3xTF32, whose
+            # per-k-tile accumulation misses MF's 1e-4 hold at phase 7, and
+            # 4xTF32 (Q's residual too), whose model holds it
+            # (ccvm_tpu_torch/tools/tc_model.py).
+            for passes in (3, 4):
+                row[f"bound_{passes}xtf32_ms"] = bound_ms(
+                    kname, MAIN_BATCH, N, ITERATIONS, name, tensor_cores=True,
+                    tf32_passes=passes)[0]
+            share += (f"; fp32 CUDA cores; a 3xTF32 matvec's bound would be "
+                      f"{row['bound_3xtf32_ms']:.1f} ms, a 4xTF32 one's "
+                      f"{row['bound_4xtf32_ms']:.1f} ms")
         kernels.append(row)
         log(f"phase 7 {kname}: kernel {min(times):.1f} ms (reps {times}), plain "
             f"{plain_ms:.1f} ms over {plain_depth} steps, bound {b_ms:.1f} ms "
@@ -1103,5 +1255,8 @@ def main(cleanup):
 
 
 if __name__ == "__main__":
-    with contextlib.ExitStack() as stack:
-        main(stack)
+    if sys.argv[1:] == ["--plain-worker"]:
+        plain_worker()
+    else:
+        with contextlib.ExitStack() as stack:
+            main(stack)

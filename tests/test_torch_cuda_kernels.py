@@ -178,6 +178,102 @@ def test_mf_kernel_matches_plain(cuda_mf_instance, noise_scale, rng, beta2):
         assert (k - r).abs().max().item() <= TOL
 
 
+@pytest.fixture(scope="module")
+def mf_problems():
+    """{n: (Q, V, solver)} scaled on the card for MF, with every MF
+    specialisation below built first in one parallel nvcc run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    build.build([mf_kernels._spec(n, _hp(beta2), noise, "popcount32")
+                 for n in _DL_FILES for beta2 in _BETA2 for noise in (0.0, 1.0)])
+    problems = {}
+    for n, (kind, path) in _DL_FILES.items():
+        inst = ProblemInstance(device="cuda", file_path=os.path.join(REPO, path),
+                               instance_type=kind)
+        solver = MFSolver(device="cuda")
+        inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+        solver.solution_bounds = inst.solution_bounds
+        problems[n] = (inst.q_matrix, inst.v_vector, solver)
+    return problems
+
+
+def _mf_pair(problem, batch, beta2, noise_scale, pump=0.5, pump_rate_flag=True):
+    q, v, solver = problem
+    p = solver._make_params(pump, 20.0, 0.0025, 5.0, 4000.0, 0.01, 100)
+    kw = dict(iterations=100, batch_size=batch, pump_rate_flag=pump_rate_flag,
+              noise_scale=noise_scale, rng="popcount32", hp=_hp(beta2))
+    out = mf_kernels.mf_solve(4, q, v, p, **kw)
+    ref = mf_kernels.mf_solve_reference(4, q, v, p, **kw)
+    torch.cuda.synchronize()
+    for x in out:
+        assert x.shape == (batch, q.shape[-1]) and torch.isfinite(x).all()
+    return max((k - r).abs().max().item() for k, r in zip(out, ref))
+
+
+# The MF kernel at every padding the bundled sizes give (2 -> 4, 20, 70 ->
+# 72) and its ragged last block (batch 100 is not a multiple of 64).
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 100])
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("beta2", _BETA2)
+@pytest.mark.parametrize("n", sorted(_DL_FILES))
+def test_mf_kernel_matches_plain_at_every_size(mf_problems, n, beta2, noise_scale,
+                                               batch):
+    assert _mf_pair(mf_problems[n], batch, beta2, noise_scale) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("beta2", _BETA2)
+@pytest.mark.parametrize("pump_rate_flag", [True, False])
+def test_mf_kernel_pump_schedules_match_plain(mf_problems, pump_rate_flag, beta2,
+                                              noise_scale):
+    assert _mf_pair(mf_problems[20], 100, beta2, noise_scale, pump=2.0,
+                    pump_rate_flag=pump_rate_flag) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta2", _BETA2)
+def test_mf_stacked_equals_serial_launches(mf_problems, beta2):
+    q, v, solver = mf_problems[70]
+    q2 = torch.stack([q, q.flip(0, 1)])
+    v2 = torch.stack([v, v.flip(0)])
+    p = solver._make_params(0.5, 20.0, 0.0025, 5.0, 4000.0, 0.01, 100)
+    kw = dict(iterations=100, batch_size=100, pump_rate_flag=True,
+              rng="popcount32", hp=_hp(beta2))
+    stacked = mf_kernels.mf_solve(11, q2, v2, p, **kw)
+    for i in range(2):
+        serial = mf_kernels.mf_solve(11 + i, q2[i], v2[i], p, **kw)
+        assert all(torch.equal(a[i], b) for a, b in zip(stacked, serial))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta2", _BETA2)
+def test_mf_residency_is_read_from_the_card(mf_problems, beta2):
+    """The main path's specialisations: the card keeps the blocks that the
+    launch rule plans, 18 warps per SM at N=70."""
+    shape = build.mf_launch_shape(70, beta2 is not None)
+    blocks = mf_kernels.blocks_per_sm(70, hp=_hp(beta2))
+    assert blocks == shape.blocks_per_sm == 2
+    assert blocks * shape.threads // 32 >= 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pump_rate_flag", [True, False])
+@pytest.mark.parametrize("beta2", _BETA2)
+def test_mf_step_table_is_the_plain_versions_on_the_card(pump_rate_flag, beta2):
+    """The table's every value is the plain version's own 0-dim float32
+    scalar on the card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    from test_torch_mf_redesign import _PARAMS, plain_step_scalars
+
+    table = mf_kernels._step_table(_PARAMS, _hp(beta2), 40, pump_rate_flag, "cuda")
+    for i in range(40):
+        want = plain_step_scalars(_PARAMS, _hp(beta2), i, pump_rate_flag, "cuda")
+        assert torch.equal(table[i, :9], want), i
+
+
 def _langevin_case(family):
     """(solver, kernel wrapper, plain version, params, extra kwargs) of a
     Langevin-family kernel on the scaled test instance."""

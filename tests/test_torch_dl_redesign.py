@@ -21,6 +21,8 @@ from ccvm_tpu_torch import AdamParameters, DLSolver, ProblemInstance
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.ops import build, dl_kernels
 from ccvm_tpu_torch.tools import kernel_experiments
+from ccvm_tpu_torch.tools.tc_model import (centred, matvec_1xtf32, matvec_3xtf32,
+                                           matvec_3xtf32_truncating, tf32)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE70 = os.path.join(REPO, "examples", "benchmarking_instances", "Size70",
@@ -104,56 +106,6 @@ def test_race_has_the_tensor_core_knob():
                     "production dl_solve popcount16 (clip)": "production"}
     knobs = {k: (a, b) for k, a, b in kernel_experiments.KNOBS}
     assert knobs["tensor-core matvec (3xTF32 against CUDA cores)"] == tuple(rows)
-
-
-def tf32(x):
-    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
-    from zero, on the 13 low mantissa bits (the sign bit is apart, so adding
-    half a unit to the magnitude's bits rounds ties away)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def matvec_3xtf32(x, q):
-    """x @ Q as the kernel's 3xTF32 product: hi = tf32(a), lo = tf32(a - hi)
-    for x and Q, then lo*hi + hi*lo before hi*hi, each in fp32."""
-    xh, qh = tf32(x), tf32(q)
-    xl, ql = tf32(x - xh), tf32(q - qh)
-    return (torch.matmul(xl, qh) + torch.matmul(xh, ql)) + torch.matmul(xh, qh)
-
-
-def matvec_1xtf32(x, q):
-    return torch.matmul(tf32(x), tf32(q))
-
-
-def _toward_zero(x64):
-    """float64 to float32, rounded toward zero."""
-    r = x64.to(torch.float32)
-    over = r.double().abs() > x64.abs()
-    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
-
-
-def matvec_3xtf32_truncating(x, q):
-    """x @ Q as the kernel's chain of m16n8k8 mma: for each k-tile of 8
-    rows of Q, lo*hi, hi*lo and hi*hi are one mma each, which adds its 8
-    products (exact: TF32 times TF32 fits float64) to the fp32 accumulator
-    and rounds the sum toward zero, a model of the tensor cores'
-    truncating accumulation."""
-    xh, qh = tf32(x), tf32(q)
-    parts = {"h": (xh, qh), "l": (tf32(x - xh), tf32(q - qh))}
-    acc = torch.zeros(x.shape[:-1] + q.shape[-1:], dtype=torch.float32)
-    for k in range(0, q.shape[-2], 8):
-        for a, b in (("l", "h"), ("h", "l"), ("h", "h")):
-            prod = torch.matmul(parts[a][0][..., k:k + 8].double(),
-                                parts[b][1][..., k:k + 8, :].double())
-            acc = _toward_zero(acc.double() + prod)
-    return acc
-
-
-def centred(matvec, mid):
-    """The kernel's centring: the mma takes x - (u+l), and (u+l) times Q's
-    column sums is added in fp32."""
-    return lambda x, q: matvec(x - mid, q) + mid * q.sum(-2, keepdim=True)
 
 
 def test_tf32_rounds_to_nearest_with_ties_away():

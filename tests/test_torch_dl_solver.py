@@ -79,6 +79,14 @@ def test_features_left_out_raise(call):
         _solve(DLSolver, ProblemInstance, **call)
 
 
+@pytest.mark.parametrize("pump_ramp", [2.0, (1.0,), (1.0, 1.0, 1.0), ("a", 1.0)])
+def test_malformed_pump_ramp_raises_a_value_error_naming_it(pump_ramp):
+    """A pump_ramp that is not a pair of numbers is refused by name (the JAX
+    package's unpacking refuses a bare number with a TypeError)."""
+    with pytest.raises(ValueError, match="pump_ramp"):
+        _solve(DLSolver, ProblemInstance, pump_ramp=pump_ramp)
+
+
 def test_per_variable_s_and_mesh_raise():
     solver = DLSolver(device="cpu", batch_size=8, S=np.ones(20))
     solver.parameter_key = PARAMS

@@ -93,10 +93,10 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_mf_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    spec = build.MFSpec(True, False, True, True, True, 0)
+    spec = build.MFSpec(True, False, True, True, 0)
     assert spec.defines() == ["-DCCVM_ADAM=1", "-DCCVM_BETA2_ONE=0",
-                              "-DCCVM_ADD_ASSIGN=1", "-DCCVM_PUMP_RATE_FLAG=1",
-                              "-DCCVM_NOISE=1", "-DCCVM_RNG=0"]
+                              "-DCCVM_ADD_ASSIGN=1", "-DCCVM_NOISE=1", "-DCCVM_RNG=0",
+                              "-DCCVM_NP=72"]
     monkeypatch.setattr(build, "library_path", lambda s: str(tmp_path / "x.so"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build([spec])
@@ -122,7 +122,7 @@ def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path)
         (tmp_path / f).write_bytes(open(os.path.join(build.CSRC, f), "rb").read())
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
     dl = build.DLSpec(False, False, False, True, 1)
-    mf = build.MFSpec(False, False, False, True, True, 0)
+    mf = build.MFSpec(False, False, False, True, 0)
     lgv = build.LangevinSpec(False, False, False, False, False, True, 0)
     before = {s: build.library_path(s) for s in (dl, mf, lgv)}
     assert os.path.basename(before[dl]).startswith("libdl_solve_")
@@ -136,7 +136,7 @@ def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path)
 def test_loaded_library_is_found_without_touching_the_sources(monkeypatch):
     """A launch after a spec's first load reads no source from disk."""
     dl = build.DLSpec(False, False, False, True, 0)
-    mf = build.MFSpec(False, False, False, True, True, 0)
+    mf = build.MFSpec(False, False, False, True, 0)
     monkeypatch.setattr(build, "_LIBS", {(build.DLSpec, dl): "dl",
                                          (build.MFSpec, mf): "mf"})
 
@@ -230,11 +230,12 @@ def test_langevin_solves_on_cpu_tensors_are_the_reference(family):
 
 
 def test_langevin_launch_shape_is_mf_s():
-    """One x array per block, as MF: at N=70, 56 trajectories and 252
+    """One x array per block, the rule MF's kernel had before its redesign
+    (build.launch_shape with one x array): at N=70, 56 trajectories and 252
     threads in 37,760 bytes of shared memory."""
     assert langevin_kernels.launch_shape(70) == (56, 252, 37760)
     for n in range(2, 71):
-        assert langevin_kernels.launch_shape(n) == mf_kernels.launch_shape(n)
+        assert langevin_kernels.launch_shape(n) == build.launch_shape(n, 1, "MF")
     with pytest.raises(ValueError, match="does not fit the Langevin kernel"):
         langevin_kernels.launch_shape(400)
 
@@ -276,10 +277,10 @@ def test_mf_solve_on_cpu_tensors_is_the_reference():
 
 def test_mf_launch_shape_fits_the_bundled_sizes_and_rejects_huge_n():
     rows, threads, smem = mf_kernels.launch_shape(70)
-    assert (rows, threads) == (56, 252) and smem <= build.SMEM_LIMIT
+    assert (rows, threads) == (64, 288) and smem <= build.SMEM_LIMIT
     for n in range(2, 71):
         rows, threads, smem = mf_kernels.launch_shape(n)
-        assert rows % 4 == 0 and threads <= 256 and smem <= build.SMEM_LIMIT
+        assert rows % 4 == 0 and threads <= 288 and smem <= build.SMEM_LIMIT
     with pytest.raises(ValueError, match="does not fit the MF kernel"):
         mf_kernels.launch_shape(400)
 
@@ -352,3 +353,36 @@ def test_race_on_cuda_without_a_card_raises(monkeypatch):
         kernel_experiments.race("cuda", batch=8, n=6, i1=8, i2=16, reps=1)
     with pytest.raises(RuntimeError, match="is_available"):
         kernel_experiments.main(["--n", "6", "--batch", "8"])
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result without a card, and
+    in a directory that holds nothing else of the repo."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes(open(os.path.join(REPO, "chip_smoke.py"), "rb").read())
+    for script, cwd in ((os.path.join(REPO, "chip_smoke.py"), REPO),
+                        (str(alone), str(tmp_path))):
+        res = subprocess.run([sys.executable, script], cwd=cwd, capture_output=True,
+                             text=True, timeout=120,
+                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        assert res.returncode != 0, res.stdout + res.stderr
+        assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_plain_workers_leave_no_process():
+    """A worker whose solve fails raises in the caller, and ``close`` leaves
+    no child process of chip_smoke.py's running."""
+    code = (
+        "import os, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+        "w = chip_smoke.PlainWorkers(2);"
+        "f = [w.submit('ccvm_tpu_torch.ops.mf_kernels', 'no_such_solve', 0, None, None,"
+        " None, {}) for _ in range(3)];"
+        "errors = [str(x.exception()) for x in f]; w.close();"
+        "kids = [p for p in os.listdir('/proc') if p.isdigit() and"
+        " open(f'/proc/{p}/stat').read().rsplit(')', 1)[1].split()[1] == str(os.getpid())];"
+        "print(errors, kids); sys.exit(0 if kids == [] and all("
+        "'plain worker exited with 1' in e for e in errors) else 1)"
+    )
+    res = subprocess.run([sys.executable, "-c", code, REPO], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
