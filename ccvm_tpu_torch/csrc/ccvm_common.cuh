@@ -134,23 +134,30 @@ __device__ __forceinline__ float div_rn(float a, float b, float inv) {
   return __fmaf_rn(r, inv, q);
 }
 
-// Adam filtering of one gradient element; P carries beta1, one_minus_beta1,
-// beta2, one_minus_beta2 and alpha.  b1i, b2i are the bias corrections
-// 1 - beta^(i+1) of the step.
+// Adam filtering of one gradient element (the plain version's
+// adam_moment_update, dynamics/common.py), every product and sum spelled
+// out in its order; P carries beta1, one_minus_beta1, beta2,
+// one_minus_beta2 and alpha.  b1i, b2i are the step's bias corrections
+// 1 - beta^(i+1) and inv_b1i, inv_b2i their reciprocals rounded to nearest
+// (from the kernel's step table), so m / b1i and v / b2i are div_rn's IEEE
+// quotients; alpha mhat / (sqrt(vhat) + eps) takes the hardware's square
+// root and division (a few ulp), whose IEEE sequences' slow-path calls
+// would cost the element loop its registers.
 template <bool BETA2_ONE, bool ADD_ASSIGN, class P>
-__device__ __forceinline__ float adam(float grad, float& m, float& v,
-                                      float b1i, float b2i, const P& p) {
-  m = p.beta1 * m + p.one_minus_beta1 * grad;
-  const float mhat = m / b1i;
+__device__ __forceinline__ float adam(float grad, float& m, float& v, float b1i,
+                                      float inv_b1i, float b2i, float inv_b2i,
+                                      const P& p) {
+  m = __fadd_rn(__fmul_rn(p.beta1, m), __fmul_rn(p.one_minus_beta1, grad));
+  const float mhat = div_rn(m, b1i, inv_b1i);
   float update;
   if (BETA2_ONE) {
-    update = p.alpha * mhat;
+    update = __fmul_rn(p.alpha, mhat);
   } else {
-    v = p.beta2 * v + p.one_minus_beta2 * (grad * grad);
-    const float vhat = v / b2i;
-    update = p.alpha * mhat / (sqrtf(vhat) + 1e-8f);
+    v = __fadd_rn(__fmul_rn(p.beta2, v), __fmul_rn(p.one_minus_beta2, __fmul_rn(grad, grad)));
+    const float vhat = div_rn(v, b2i, inv_b2i);
+    update = __fdividef(__fmul_rn(p.alpha, mhat), __fadd_rn(sqrt_approx(vhat), 1e-8f));
   }
-  return ADD_ASSIGN ? grad + update : update;
+  return ADD_ASSIGN ? __fadd_rn(grad, update) : update;
 }
 
 // Threads and shared-memory bytes of a launch whose block holds Q

@@ -16,33 +16,73 @@
 //               Adam:  c += dt*((-1 + p_i - c^2)c + fs*adam(g)) + (sigma*sqrt(dt))*w
 //   c = clip(c, +-S) every step;  Adam's bias corrections are 1 - beta^(i+1).
 //
-// The order of every operation is the TPU kernels' (pallas_kernels.py:508-514,
-// :680-688), which the plain version (ops/langevin_kernels.py) repeats.
+// What bounds it on this card: operations.  The one matvec is 2*B*N^2*T
+// fp32 flops (9.6e12 at B=65536, N=70, T=15000: 144 ms on the fp32 CUDA
+// cores at 66.9 TFLOP/s), the elementwise work 11-30 flops per element and
+// step, and one Philox call per 4 elements per step.  Q and the state never
+// leave the chip, so the bytes (Q and V in, c out) are negligible.
 //
-// What bounds it on this card: arithmetic.  The one matvec is 2*B*N^2*T fp32
-// flops, plus ~10-30*B*N*T elementwise flops and one Philox call per 4
-// elements per step; at B=65536, N=70, T=15000 that is ~9.6e12 flop of
-// matvec.  Q and the state never leave the chip, so the bytes (Q and V in,
-// c out) are negligible.
+// Why the matvec stays on the fp32 CUDA cores.  The drift is linear in c, so
+// a change of the matvec's rounding grows along the unstable directions of
+// x.Q.x until the clamp at +-S stops it, and chip_smoke.py holds the kernel
+// to its plain version at 2e-3 after 15,000 steps.  The tensor-core models
+// of ccvm_tpu_torch/tools/tc_model.py (--family langevin, on the card, at
+// chip_smoke.py's seed) kept every hold to 1,000 steps but DL's truncating
+// chain, which missed 2e-3 there; over 15,000 steps 3xTF32 per k-tile,
+// 4xTF32 per k-tile and centred 3xTF32 per k-tile each kept Langevin and
+// Langevin-Adam within 2e-3 but read 6.0e-3, 8.4e-3 and 1.1e-2 for
+// pumped-Adam (PERF.md).  So the template, which all four kernels share,
+// keeps the plain matmul's own order, one fp32 FMA chain per
+// output over k = 0, 1, ... (cuBLAS's on the H100 too), and spells out every
+// elementwise product and sum in the plain version's order: it equals the
+// plain version bit for bit where cuBLAS sums in that order (the Adam
+// kernels to an ulp, where alpha mhat / (sqrt(vhat) + eps) takes the
+// hardware's square root and division).
 //
-// What this simple design does about it, as mf_solve.cu does:
-//   * one thread block owns R trajectories for ALL iterations, in one launch;
-//   * Q (zero-padded to NP x NP) lives in shared memory for the whole solve;
-//     the block's x rows (one array) are rebuilt in shared memory each step;
-//   * each thread owns a 4-row x 4-column tile of c (and of the two Adam
-//     moments) in registers; IEEE fp32 FMAs on the CUDA cores (no TF32, no
-//     mma); the draw is made after the matvec, one row of the tile at a time,
-//     so its words are live only in the update;
-//   * the padding columns (N..NP-1) meet zero rows of Q and a zero V; their
-//     own noise is bounded by the per-step clamp, and they are not written;
-//   * the per-step scalars (the pump, the bias corrections) are computed once
-//     a step, outside the element loop;
-//   * __launch_bounds__(256, 2) keeps two blocks on each SM (128 registers);
+// What this design does about the rest:
+//   * one thread block owns R trajectories for ALL iterations, in one
+//     launch; Q (zero-padded to NP x NP, NP = N padded to 8, fixed at build
+//     time) lives in shared memory for the whole solve, and the block's x
+//     rows are rebuilt each step into the other of two buffers: one block
+//     barrier a step;
+//   * the matvec reads its operands from shared memory, whose pipe serves
+//     128 bytes a clock against the fp32 pipe's 128 FMAs: a thread tile of
+//     TR rows x TC columns reads TR + TC floats per TR*TC FMAs, so the 4 x 4
+//     tile of the earlier design (and of mf_solve.cu) waits on its loads
+//     twice as long as on its FMAs.  Here a thread owns TC = NP/8 columns
+//     (9 at N=70) of 8 rows (Adam: 4) with c (and Adam's first moment) in
+//     registers: 17 floats per 72 FMAs (Adam 13 per 36); Adam's second
+//     moment lives in the thread's own slots of shared memory (in registers
+//     too it spilled, and both there cost Adam 6%);
+//   * 8 column groups and 16 row groups make a block of 128 threads, two
+//     blocks per SM: 8 warps, two to each quarter of the SM, so the quarters
+//     carry equal work, and up to 255 registers a thread.  At batch 65536,
+//     N=70 the grid is 512 blocks (Adam 1,024), 1.94 (3.88) waves of the 132
+//     SMs;
+//   * a thread's rows are every 16th row of the block, so the x rows that a
+//     half warp reads lie 76 floats apart, on distinct banks; its columns
+//     are float4s of 4 columns, every 8th (cg, cg + 8, ...), then one column
+//     of each 8-column stripe beyond them (at N=70: columns 4cg..4cg+3,
+//     32+4cg..35+4cg and 64+cg), so a quarter warp's Q reads fall on
+//     distinct banks, each a broadcast to the warp's 4 row groups, and each
+//     float4 of columns takes one Philox call's four words;
+//   * no division, pow or schedule in the step loop: the per-step scalars
+//     (the pump p_i, k1 = -1 + p_i, Adam's 1 - beta^(i+1) and their
+//     reciprocals) come from a table that the wrapper fills on the device
+//     with the plain version's own float32 operations
+//     (ops/langevin_kernels.py _step_table), and the per-solve constants
+//     (scale, (u+l)/2, dt*fs, sigma*sqrt(dt)) are kernel parameters taken on
+//     the host; Adam's divisions by its bias corrections are div_rn
+//     (ccvm_common.cuh), the IEEE quotient by a known divisor;
 //   * noise: the Philox4x32-10 of ccvm_common.cuh, key = seed + instance,
-//     counter = (step, row, column/4, stream); the grid is
-//     (ceil(batch/R), instances).
+//     counter = (step, row, column/4, stream); a thread draws the calls whose
+//     words its columns take (three at N=70, where four threads share the
+//     call of a stripe's column; at N=20, where every column is a stripe
+//     column, one call an element); the grid is (ceil(batch/R), instances).
 // Specialisations are chosen at build time with -D flags by
-// ccvm_tpu_torch/ops/build.py; each build exports ccvm_langevin_solve.
+// ccvm_tpu_torch/ops/build.py (the pump schedule is in the table, so one
+// library serves both); each build exports ccvm_langevin_solve and
+// ccvm_langevin_blocks_per_sm.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,159 +90,278 @@
 
 #include "ccvm_common.cuh"
 
+// Probe of ccvm_tpu_torch/tools/breakdown.py, never set by the solvers'
+// builds: CCVM_MATVEC 0 takes the matvec out (its sums stay 0).
+#ifndef CCVM_MATVEC
+#define CCVM_MATVEC 1
+#endif
+
 namespace {
 
 using namespace ccvm;
 
-constexpr int kMinBlocks = 2;
+constexpr int kGroups = 8;      // column groups a block
+constexpr int kRowGroups = 16;  // row groups a block
+constexpr int kThreads = kGroups * kRowGroups;
+constexpr int kMaxCols = 16;    // TC <= 16: N <= 128
+// Rows a thread owns: 8 (Adam 4) up to 9 columns, half that beyond.
+__host__ __device__ constexpr int rows_per_thread(bool adam, int cols) {
+  return (adam ? 4 : 8) / (cols > 9 ? 2 : 1);
+}
 
-struct LangevinScalars {
-  float pump, S, dt, sigma, fs, lo, hi, T;
-  float alpha, beta1, one_minus_beta1, beta2, one_minus_beta2;
-  float noise_scale;
+// A thread's TC columns: its first A = 4 floor(TC/4) are float4s of
+// columns, groups cg, cg + 8, ... (column 4 (cg + 8 f) + word), and the
+// rest one column of each 8-column stripe beyond them (8A + cg + 8e).
+template <int TC>
+struct Columns {
+  static constexpr int A = TC / 4 * 4;
+  static constexpr int kCalls = A / 4 + (TC - A);  // Philox calls a row
+  __device__ static int col(int cg, int jj) {
+    return jj < A ? 4 * (cg + 8 * (jj / 4)) + jj % 4 : 8 * A + cg + 8 * (jj - A);
+  }
+  // The Philox column group (counter word 2) of call `call`.
+  __device__ static int group(int cg, int call) {
+    return call < A / 4 ? cg + 8 * call : 2 * A + 2 * (call - A / 4) + cg / 4;
+  }
 };
-static_assert(sizeof(LangevinScalars) == 14 * sizeof(float),
+
+// The solve's scalars and its per-solve constants, taken once on the host
+// in float32 as the plain version rounds them (ops/langevin_kernels.py
+// _scalars).  Kernel parameters live in the constant bank, so they cost the
+// step loop no registers.
+struct LangevinScalars {
+  float S, dt, fs, scale, mid, dt_fs, diffusion, noise_scale;
+  float alpha, beta1, one_minus_beta1, beta2, one_minus_beta2;
+};
+static_assert(sizeof(LangevinScalars) == 13 * sizeof(float),
               "LangevinScalars layout");
 
-template <bool PUMPED, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN,
-          bool PUMP_RATE_FLAG, bool NOISE, int RNG>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+// The step's scalars, from the (iterations, 8) table: k1 = -1 + p_i,
+// 1 - beta1^(i+1), its reciprocal, 1 - beta2^(i+1), its reciprocal, and
+// three zeros that pad a row to two float4s.
+struct StepScalars {
+  float k1, b1i, inv_b1i, b2i, inv_b2i;
+};
+
+template <bool ADAM, bool BETA2_ONE>
+__device__ __forceinline__ StepScalars step_scalars(const float4* __restrict__ steps,
+                                                    int i) {
+  const float4 a = __ldg(steps + 2 * i);
+  StepScalars st{a.x, 1.0f, 1.0f, 1.0f, 1.0f};
+  if (ADAM) {
+    st.b1i = a.y;
+    st.inv_b1i = a.z;
+    if (!BETA2_ONE) {
+      st.b2i = a.w;
+      st.inv_b2i = __ldg(reinterpret_cast<const float*>(steps + 2 * i + 1));
+    }
+  }
+  return st;
+}
+
+// One Euler-Maruyama step of one element of c from its matvec sum qx, its
+// column's V term vt (Langevin: V; pumped: V*scale) and its draw w, in the
+// plain version's order of operations.
+template <bool PUMPED, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE>
+__device__ __forceinline__ float element_step(float c, float qx, float vt, float w,
+                                              float& m, float& v, const StepScalars& st,
+                                              const LangevinScalars& p) {
+  float cn;
+  if (PUMPED) {
+    float g = __fsub_rn(__fmul_rn(-qx, p.scale), vt);
+    if (ADAM)
+      g = adam<BETA2_ONE, ADD_ASSIGN>(g, m, v, st.b1i, st.inv_b1i, st.b2i, st.inv_b2i, p);
+    const float pump_drift = __fmul_rn(__fsub_rn(st.k1, __fmul_rn(c, c)), c);
+    cn = __fadd_rn(c, __fmul_rn(p.dt, __fadd_rn(pump_drift, __fmul_rn(p.fs, g))));
+  } else {
+    float g = __fmul_rn(-__fadd_rn(qx, vt), p.scale);
+    if (ADAM)
+      g = adam<BETA2_ONE, ADD_ASSIGN>(g, m, v, st.b1i, st.inv_b1i, st.b2i, st.inv_b2i, p);
+    cn = __fadd_rn(c, __fmul_rn(p.dt_fs, g));
+  }
+  if (NOISE) cn = __fadd_rn(cn, __fmul_rn(p.diffusion, w));
+  return clip(cn, p.S);
+}
+
+// x of an element, c*scale + (u+l)/2 rounded as the plain version rounds it.
+__device__ __forceinline__ float x_of(float c, const LangevinScalars& p) {
+  return __fadd_rn(__fmul_rn(c, p.scale), p.mid);
+}
+
+// The launch rule (ops/build.py langevin_launch_shape states the same):
+// threads, trajectories a block and shared-memory bytes; non-zero when N
+// does not fit.  Shared memory: Q (NP x NP), two x buffers of R rows of
+// stride NP + 4, and for Adam each thread's second moments of its tile.
+__host__ __device__ inline int lgv_launch_shape(int n, bool adam, int* threads,
+                                                int* rows, long long* smem) {
+  const int np = (n + kGroups - 1) / kGroups * kGroups;
+  const int cols = np / kGroups;
+  *threads = kThreads;
+  *rows = kRowGroups * rows_per_thread(adam, cols);
+  *smem = 4LL * np * np + 4LL * 2 * *rows * (np + 4) +
+          (adam ? 4LL * rows_per_thread(adam, cols) * cols * kThreads : 0);
+  return (n >= 1 && cols <= kMaxCols && *smem <= 232448) ? 0 : 1;
+}
+
+template <bool PUMPED, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG,
+          int NP>
+__global__ void __launch_bounds__(kThreads, 2)
 langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
-                      float* __restrict__ c_out, int batch, int n,
-                      int iterations, unsigned long long seed,
+                      const float4* __restrict__ steps, float* __restrict__ c_out,
+                      int batch, int n, int iterations, unsigned long long seed,
                       LangevinScalars p) {
   extern __shared__ __align__(16) float smem[];
-  const int np = (n + TC - 1) / TC * TC;
-  const int ks = np + 4;  // x row stride: spreads two row groups over banks
-  const int groups = np / TC;
-  const int rgroups = blockDim.x / groups;
-  const int R = rgroups * TR;
-  float* qs = smem;          // (np, np), zero-padded
-  float* xs = qs + np * np;  // (R, ks)
+  constexpr int TC = NP / kGroups;
+  constexpr int TR = rows_per_thread(ADAM, TC);
+  constexpr int R = kRowGroups * TR;
+  constexpr int ks = NP + 4;  // x row stride
+  using Cols = Columns<TC>;
+  float* qs = smem;             // (NP, NP), zero-padded
+  float* xbuf = qs + NP * NP;   // two (R, ks) buffers
+  float* own = xbuf + 2 * R * ks;  // Adam: (TR, TC, threads) second moments
 
   const int inst = blockIdx.y;
   const int tid = threadIdx.x;
-  const int cg = tid % groups;
-  const int rg = tid / groups;
-  const int col0 = cg * TC;
-  const int lrow0 = rg * TR;
-  const int grow0 = blockIdx.x * R + lrow0;
+  const int cg = tid % kGroups;
+  const int rg = tid / kGroups;  // rows rg, rg + 16, ... of the block
+  const int grow0 = blockIdx.x * R + rg;
 
   const float* qi = q + (size_t)inst * n * n;
-  for (int e = tid; e < np * np; e += blockDim.x) {
-    const int k = e / np, j = e % np;
+  for (int e = tid; e < NP * NP; e += kThreads) {
+    const int k = e / NP, j = e % NP;
     qs[e] = (k < n && j < n) ? qi[k * n + j] : 0.0f;
   }
-
-  const float scale = (p.hi - p.lo) / (2.0f * p.S);
-  const float mid = (p.hi + p.lo) / 2.0f;
-  const float dt_fs = p.dt * p.fs;
-  const float diffusion = p.sigma * sqrtf(p.dt);
-  // Langevin adds V before scaling; pumped scales it on its own.
-  float v_term[TC];
+  // Langevin adds V to x@Q before scaling; pumped scales it on its own, as
+  // the plain version's V * scale.
+  float vt[TC];
 #pragma unroll
   for (int jj = 0; jj < TC; ++jj) {
-    const int j = col0 + jj;
+    const int j = Cols::col(cg, jj);
     const float vj = j < n ? v[(size_t)inst * n + j] : 0.0f;
-    v_term[jj] = PUMPED ? vj * scale : vj;
+    vt[jj] = PUMPED ? __fmul_rn(vj, p.scale) : vj;
   }
   const uint2 key = seed_key(seed, inst);
 
-  float c[TR][TC], m1[TR][TC], m2[TR][TC];
+  // c (and Adam's first moment) of the thread's rows and columns in
+  // registers, Adam's second moment in its own slots (conflict-free); x of
+  // step 0 (c = 0) into the first buffer.
+  float c[TR][TC], m1[ADAM ? TR : 1][TC];
+  const auto m2 = [&](int r, int jj) -> float& { return own[(r * TC + jj) * kThreads + tid]; };
 #pragma unroll
   for (int r = 0; r < TR; ++r)
 #pragma unroll
-    for (int jj = 0; jj < TC; ++jj) c[r][jj] = m1[r][jj] = m2[r][jj] = 0.0f;
+    for (int jj = 0; jj < TC; ++jj) {
+      c[r][jj] = 0.0f;
+      if (ADAM) m1[r][jj] = m2(r, jj) = 0.0f;
+    }
+  const float x0 = x_of(0.0f, p);
+#pragma unroll
+  for (int r = 0; r < TR; ++r)
+#pragma unroll
+    for (int jj = 0; jj < TC; ++jj) xbuf[(rg + r * kRowGroups) * ks + Cols::col(cg, jj)] = x0;
+  __syncthreads();  // Q and the first x rows are in place
 
   for (int i = 0; i < iterations; ++i) {
-    const float fi1 = (float)i + 1.0f;
+    const float* xs = xbuf + (i & 1) * R * ks;
+    float* xn = xbuf + ((i + 1) & 1) * R * ks;
 
-    // The step's x rows (padding columns meet zero rows of Q).
-#pragma unroll
-    for (int r = 0; r < TR; ++r)
-      *reinterpret_cast<float4*>(xs + (lrow0 + r) * ks + col0) =
-          make_float4(c[r][0] * scale + mid, c[r][1] * scale + mid,
-                      c[r][2] * scale + mid, c[r][3] * scale + mid);
-    __syncthreads();
-
-    float qx[TR][TC];
+    // x @ Q: one fp32 FMA chain per output over k = 0, 1, ..., the plain
+    // matmul's order; a thread reads its columns of 2 rows of Q (float4s and
+    // single columns) and a float2 of x per row for each 2 k.
+    float acc[TR][TC];
 #pragma unroll
     for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int jj = 0; jj < TC; ++jj) qx[r][jj] = 0.0f;
-    for (int k = 0; k < np; k += 4) {
-      float4 qv[4];
+      for (int jj = 0; jj < TC; ++jj) acc[r][jj] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < (CCVM_MATVEC ? NP : 0); k += 2) {
+      float q0[TC], q1[TC];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        qv[kk] = *reinterpret_cast<const float4*>(qs + (k + kk) * np + col0);
+      for (int f = 0; f < Cols::A / 4; ++f) {
+        const float4 a0 = *reinterpret_cast<const float4*>(qs + k * NP + Cols::col(cg, 4 * f));
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(qs + (k + 1) * NP + Cols::col(cg, 4 * f));
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          q0[4 * f + w] = comp(a0, w);
+          q1[4 * f + w] = comp(a1, w);
+        }
+      }
+#pragma unroll
+      for (int jj = Cols::A; jj < TC; ++jj) {
+        q0[jj] = qs[k * NP + Cols::col(cg, jj)];
+        q1[jj] = qs[(k + 1) * NP + Cols::col(cg, jj)];
+      }
 #pragma unroll
       for (int r = 0; r < TR; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(xs + (lrow0 + r) * ks + k);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float ak = comp(a, kk);
-#pragma unroll
-          for (int jj = 0; jj < TC; ++jj)
-            qx[r][jj] = fmaf(ak, comp(qv[kk], jj), qx[r][jj]);
-        }
-      }
-    }
-    __syncthreads();  // every read of x is done before the next step writes
-
-    const float pump_i = PUMP_RATE_FLAG ? p.pump * fi1 / p.T : p.pump;
-    const float k1 = -1.0f + pump_i;
-    float b1i = 1.0f, b2i = 1.0f;
-    if (ADAM) {
-      b1i = 1.0f - powf(p.beta1, fi1);
-      if (!BETA2_ONE) b2i = 1.0f - powf(p.beta2, fi1);
-    }
-
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      float w[TC];
-      if (NOISE) {
-        constexpr int NS = streams_one_of(RNG);
-        uint4 wv[NS];
-#pragma unroll
-        for (int st = 0; st < NS; ++st)
-          wv[st] = philox4x32_10(
-              make_uint4((unsigned)i, (unsigned)(grow0 + r), (unsigned)cg,
-                         (unsigned)st),
-              key);
+        const float2 a =
+            *reinterpret_cast<const float2*>(xs + (rg + r * kRowGroups) * ks + k);
 #pragma unroll
         for (int jj = 0; jj < TC; ++jj) {
-          unsigned words[NS];
-#pragma unroll
-          for (int st = 0; st < NS; ++st) words[st] = word_of(wv[st], jj);
-          w[jj] = normal_one<RNG>(words) * p.noise_scale;
+          acc[r][jj] = __fmaf_rn(a.x, q0[jj], acc[r][jj]);
+          acc[r][jj] = __fmaf_rn(a.y, q1[jj], acc[r][jj]);
         }
       }
+    }
+
+    const StepScalars st = step_scalars<ADAM, BETA2_ONE>(steps, i);
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      constexpr int NS = streams_one_of(RNG);
+      uint4 words4[NOISE ? Cols::kCalls : 1][NS];
+      if (NOISE) {
+        const unsigned row = (unsigned)(grow0 + r * kRowGroups);
+#pragma unroll
+        for (int call = 0; call < Cols::kCalls; ++call)
+#pragma unroll
+          for (int st_ = 0; st_ < NS; ++st_)
+            words4[call][st_] = philox4x32_10(
+                make_uint4((unsigned)i, row, (unsigned)Cols::group(cg, call),
+                           (unsigned)st_),
+                key);
+      }
+      float xr[TC];
 #pragma unroll
       for (int jj = 0; jj < TC; ++jj) {
-        const float cc = c[r][jj];
-        float g = PUMPED ? -qx[r][jj] * scale - v_term[jj]
-                         : -(qx[r][jj] + v_term[jj]) * scale;
-        if (ADAM)
-          g = adam<BETA2_ONE, ADD_ASSIGN>(g, m1[r][jj], m2[r][jj], b1i, b2i, p);
-        float cn;
-        if (PUMPED)
-          cn = cc + p.dt * ((k1 - cc * cc) * cc + p.fs * g);
-        else
-          cn = cc + dt_fs * g;
-        if (NOISE) cn = cn + diffusion * w[jj];
-        c[r][jj] = clip(cn, p.S);
+        float w = 0.0f;
+        if (NOISE) {
+          // A float4 column takes its word of its call; a stripe column
+          // word cg % 4 of its own call.
+          const int call = jj < Cols::A ? jj / 4 : Cols::A / 4 + (jj - Cols::A);
+          unsigned words[NS];
+#pragma unroll
+          for (int st_ = 0; st_ < NS; ++st_)
+            words[st_] = word_of(words4[call][st_], jj < Cols::A ? jj % 4 : cg % 4);
+          w = __fmul_rn(normal_one<RNG>(words), p.noise_scale);
+        }
+        float unused = 0.0f, v2 = 0.0f;
+        if (ADAM && !BETA2_ONE) v2 = m2(r, jj);
+        c[r][jj] = element_step<PUMPED, ADAM, BETA2_ONE, ADD_ASSIGN, NOISE>(
+            c[r][jj], acc[r][jj], vt[jj], w, ADAM ? m1[ADAM ? r : 0][jj] : unused, v2,
+            st, p);
+        if (ADAM && !BETA2_ONE) m2(r, jj) = v2;
+        xr[jj] = x_of(c[r][jj], p);
       }
+      float* xw = xn + (rg + r * kRowGroups) * ks;
+#pragma unroll
+      for (int f = 0; f < Cols::A / 4; ++f)
+        *reinterpret_cast<float4*>(xw + Cols::col(cg, 4 * f)) =
+            make_float4(xr[4 * f], xr[4 * f + 1], xr[4 * f + 2], xr[4 * f + 3]);
+#pragma unroll
+      for (int jj = Cols::A; jj < TC; ++jj) xw[Cols::col(cg, jj)] = xr[jj];
     }
+    __syncthreads();  // the next step's x rows are written, and this step's
+                      // reads of the other buffer are done
   }
 
 #pragma unroll
   for (int r = 0; r < TR; ++r) {
-    const int row = grow0 + r;
+    const int row = grow0 + r * kRowGroups;
     if (row >= batch) continue;
     const size_t base = ((size_t)inst * batch + row) * n;
 #pragma unroll
     for (int jj = 0; jj < TC; ++jj) {
-      const int j = col0 + jj;
+      const int j = Cols::col(cg, jj);
       if (j < n) c_out[base + j] = c[r][jj];
     }
   }
@@ -222,43 +381,72 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_ADD_ASSIGN
 #define CCVM_ADD_ASSIGN 0
 #endif
-#ifndef CCVM_PUMP_RATE_FLAG
-#define CCVM_PUMP_RATE_FLAG 1
-#endif
 #ifndef CCVM_NOISE
 #define CCVM_NOISE 1
 #endif
 #ifndef CCVM_RNG
 #define CCVM_RNG 0
 #endif
+#ifndef CCVM_NP
+#define CCVM_NP 72
+#endif
+
+namespace {
+
+constexpr bool kAdam = CCVM_ADAM != 0;
+static_assert(CCVM_NP % kGroups == 0 && CCVM_NP >= kGroups && CCVM_NP <= kGroups * kMaxCols,
+              "NP: N padded to a multiple of 8, at most 128");
+auto const kKernel =
+    &langevin_solve_kernel<CCVM_PUMPED != 0, kAdam, CCVM_BETA2_ONE != 0,
+                           CCVM_ADD_ASSIGN != 0, CCVM_NOISE != 0, CCVM_RNG, CCVM_NP>;
+
+// lgv_launch_shape for this build's problem size class.
+int launch_shape(int n, int* threads, int* rows, long long* smem) {
+  if ((n + kGroups - 1) / kGroups * kGroups != CCVM_NP) return 1;
+  return lgv_launch_shape(n, kAdam, threads, rows, smem);
+}
+
+}  // namespace
 
 extern "C" {
 
-// q (I, n, n), v (I, n), c_out (I, batch, n): float32, contiguous, on the
-// device; c_out is left as it is when iterations is 0.  scalars: 14 host
-// floats in LangevinScalars order.  Launches on `stream`, does not
-// synchronise, and returns the cudaError_t of the launch.
-int ccvm_langevin_solve(const float* q, const float* v, float* c_out,
-                        int num_instances, int batch, int n, int iterations,
-                        unsigned long long seed, const float* scalars,
-                        int rows_per_block, void* stream) {
+// q (I, n, n), v (I, n), steps (iterations, 8), c_out (I, batch, n):
+// float32, contiguous, on the device.  scalars: 13 host floats in
+// LangevinScalars order.  Launches on `stream`, does not synchronise, and
+// returns the cudaError_t of the launch.
+int ccvm_langevin_solve(const float* q, const float* v, const float* steps,
+                        float* c_out, int num_instances, int batch, int n,
+                        int iterations, unsigned long long seed,
+                        const float* scalars, int rows_per_block, void* stream) {
   LangevinScalars p;
   memcpy(&p, scalars, sizeof(LangevinScalars));
-  int threads;
+  int threads, rows;
   long long smem;
-  if (ccvm::launch_shape(n, rows_per_block, 1, &threads, &smem))
+  if (launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
     return (int)cudaErrorInvalidConfiguration;
-  auto kernel = langevin_solve_kernel<
-      CCVM_PUMPED != 0, CCVM_ADAM != 0, CCVM_BETA2_ONE != 0,
-      CCVM_ADD_ASSIGN != 0, CCVM_PUMP_RATE_FLAG != 0, CCVM_NOISE != 0,
-      CCVM_RNG>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((batch + rows_per_block - 1) / rows_per_block, num_instances);
-  kernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, v, c_out, batch, n, iterations, seed, p);
+  const dim3 grid((batch + rows - 1) / rows, num_instances);
+  kKernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
+      q, v, reinterpret_cast<const float4*>(steps), c_out, batch, n, iterations,
+      seed, p);
   return (int)cudaGetLastError();
+}
+
+// Blocks of this specialisation the card keeps resident per SM at problem
+// size n (cudaOccupancyMaxActiveBlocksPerMultiprocessor); returns a
+// cudaError_t.
+int ccvm_langevin_blocks_per_sm(int n, int* blocks) {
+  int threads, rows;
+  long long smem;
+  if (launch_shape(n, &threads, &rows, &smem))
+    return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kKernel, threads,
+                                                            (size_t)smem);
 }
 
 }  // extern "C"

@@ -377,19 +377,8 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
         if (ADAM) {
           float& mm = jj == 0 ? m4.x : jj == 1 ? m4.y : jj == 2 ? m4.z : m4.w;
           float& vv = jj == 0 ? v4.x : jj == 1 ? v4.y : jj == 2 ? v4.z : v4.w;
-          mm = __fadd_rn(__fmul_rn(p.beta1, mm), __fmul_rn(p.one_minus_beta1, grad));
-          const float mhat = div_rn(mm, st.b1i, st.inv_b1i);
-          float update;
-          if (BETA2_ONE) {
-            update = __fmul_rn(p.alpha, mhat);
-          } else {
-            vv = __fadd_rn(__fmul_rn(p.beta2, vv),
-                           __fmul_rn(p.one_minus_beta2, __fmul_rn(grad, grad)));
-            const float vhat = div_rn(vv, st.b2i, st.inv_b2i);
-            update = __fdividef(__fmul_rn(p.alpha, mhat),
-                                __fadd_rn(sqrt_approx(vhat), 1e-8f));
-          }
-          const float eff = ADD_ASSIGN ? __fadd_rn(grad, update) : update;
+          const float eff = adam<BETA2_ONE, ADD_ASSIGN>(grad, mm, vv, st.b1i, st.inv_b1i,
+                                                        st.b2i, st.inv_b2i, p);
           float mu_drift = mu_term1;
           if (NOISE) {
             const float w_inc = div_rn(__fmul_rn(dr.get(r, jj), p.noise_scale),

@@ -92,19 +92,20 @@ class MFSpec(NamedTuple):
 
 class LangevinSpec(NamedTuple):
     """One specialisation of ``langevin_solve_kernel``
-    (csrc/langevin_solve.cu): Langevin or pumped Langevin, plain or Adam."""
+    (csrc/langevin_solve.cu): Langevin or pumped Langevin, plain or Adam;
+    the pump schedule is in the step table, so one library serves both."""
 
     pumped: bool
     adam: bool
     beta2_one: bool
     add_assign: bool
-    pump_rate_flag: bool
     noise: bool
     rng: int  # index into ops.philox.RNG_NAMES
+    np: int  # N padded to a multiple of 8 (the matvec's bound, unrolled)
 
     source = "langevin_solve.cu"
     symbol = "ccvm_langevin_solve"
-    argtypes = _HEAD + [ctypes.c_void_p] + _TAIL  # c
+    argtypes = _HEAD + [ctypes.c_void_p] * 2 + _TAIL  # step table, c
     defines = _defines
     tag = _tag
 
@@ -241,6 +242,42 @@ def mf_launch_shape(n: int, adam: bool) -> LaunchShape:
     blocks = min(SM_SMEM // (smem + _BLOCK_RESERVED_SMEM), _MAX_BLOCKS_PER_SM)
     while -(-blocks * warps // 4) * 32 * _MF_REGISTERS > _QUARTER_REGISTERS:
         blocks -= 1
+    return LaunchShape(rows, threads, smem, np_, blocks)
+
+
+_LGV_GROUPS = 8  # csrc/langevin_solve.cu kGroups: column groups a block
+_LGV_ROW_GROUPS = 16  # csrc/langevin_solve.cu kRowGroups
+_LGV_MAX_COLS = 16  # csrc/langevin_solve.cu kMaxCols: N <= 128
+# Blocks per SM that __launch_bounds__(128, 2) allows at up to 255 registers a
+# thread: 8 warps, two to each quarter of the SM's 65,536 registers.
+_LGV_MAX_BLOCKS = 2
+
+
+def langevin_launch_shape(n: int, adam: bool) -> LaunchShape:
+    """The launch rule of csrc/langevin_solve.cu (``lgv_launch_shape``
+    there).
+
+    N is padded to a multiple of 8 (NP), and a block is 8 column groups by
+    16 row groups, 128 threads: a thread owns NP/8 columns (9 at N=70) of 8
+    trajectory rows, or 4 for Adam (half that beyond 9 columns), every 16th
+    row of the block (128 trajectories a block, Adam 64).  It holds Q
+    (4 NP^2 bytes), two x buffers of its rows at stride NP + 4, and for Adam
+    each thread's second moments of its tile (4 bytes an element).  The blocks
+    per SM are those that shared memory and the launch bounds allow, at
+    most two (the card reports the real count:
+    ``langevin_kernels.blocks_per_sm``).  Raises when N does not fit."""
+    np_ = -(-n // _LGV_GROUPS) * _LGV_GROUPS
+    cols = np_ // _LGV_GROUPS
+    rows = _LGV_ROW_GROUPS * (4 if adam else 8) // (2 if cols > 9 else 1)
+    threads = _LGV_GROUPS * _LGV_ROW_GROUPS
+    smem = 4 * np_ * np_ + 4 * 2 * rows * (np_ + 4) + (4 * rows * np_ if adam else 0)
+    if cols > _LGV_MAX_COLS or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"problem size N={n} does not fit the Langevin{'-Adam' if adam else ''} "
+            f"kernel: it takes N <= {_LGV_GROUPS * _LGV_MAX_COLS} (Q and two x buffers "
+            f"need {smem} bytes of shared memory, limit {SMEM_LIMIT})"
+        )
+    blocks = min(SM_SMEM // (smem + _BLOCK_RESERVED_SMEM), _LGV_MAX_BLOCKS)
     return LaunchShape(rows, threads, smem, np_, blocks)
 
 

@@ -8,14 +8,18 @@ in place of the PRNG key.  For CUDA tensors they launch
 ``_pumped_langevin_kernel``, or of their Adam variants when ``hp`` is
 given); for CPU tensors they run :func:`langevin_solve_reference` and
 :func:`pumped_langevin_solve_reference`.  There is no fallback from the
-kernel to the plain version.
+kernel to the plain version.  The wrappers hand the kernel its per-step
+scalars as a table (:func:`_step_table`) and its per-solve constants
+(:func:`_scalars`), both by the plain version's own float32 operations.
 
 The plain versions compute the same function in eager PyTorch with
 :mod:`ccvm_tpu_torch.dynamics.langevin` and
 :mod:`ccvm_tpu_torch.dynamics.pumped_langevin`, and the kernel's noise (the
-single Philox draw of :func:`ccvm_tpu_torch.ops.philox.wiener_one`).  Noise
-off, kernel and plain version agree to float32 round-off; noise on, they
-draw the same increments.
+single Philox draw of :func:`ccvm_tpu_torch.ops.philox.wiener_one`).  The two
+draw the same increments and round alike: the plain kernels agree bit for
+bit where the plain matmul sums over k in order (cuBLAS does at the main
+path's shapes), the Adam kernels to an ulp or so a step (their per-element
+square root and division take the hardware's approximations).
 """
 
 from __future__ import annotations
@@ -25,35 +29,94 @@ import ctypes
 import numpy as np
 import torch
 
+from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import langevin as lgv
 from ccvm_tpu_torch.dynamics import pumped_langevin as plgv
 from ccvm_tpu_torch.ops import build, philox
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 
-def launch_shape(n: int):
+def launch_shape(n: int, adam: bool = False):
     """(rows per block, threads, shared-memory bytes) of the kernel at
-    problem size ``n`` (Q and one x array per block); raises when they do
-    not fit a block."""
-    return build.launch_shape(n, 1, "Langevin")
+    problem size ``n`` (:func:`ccvm_tpu_torch.ops.build.langevin_launch_shape`);
+    raises when they do not fit a block."""
+    return tuple(build.langevin_launch_shape(n, adam)[:3])
+
+
+def _spec(n, hp, noise_scale, rng, *, pumped):
+    """The kernel specialisation a launch with these arguments takes."""
+    noise = float(noise_scale) != 0.0
+    return build.LangevinSpec(
+        pumped=pumped,
+        adam=hp is not None,
+        beta2_one=hp is not None and hp.beta2 == 1.0,
+        add_assign=hp is not None and bool(hp.add_assign),
+        noise=noise,
+        rng=philox.RNG_NAMES.index(rng) if noise else 0,
+        np=build.langevin_launch_shape(n, hp is not None).np,
+    )
+
+
+def blocks_per_sm(n, *, pumped=False, noise_scale=1.0, rng="popcount32", hp=None):
+    """Blocks of the specialisation that the wrappers launch with these
+    arguments that the card keeps resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
+    fn = build.load(_spec(n, hp, noise_scale, rng, pumped=pumped),
+                    "ccvm_langevin_blocks_per_sm",
+                    [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    err = fn(int(n), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ccvm_langevin_blocks_per_sm failed: cudaError_t {err}")
+    return blocks.value
 
 
 def _scalars(params, hp, noise_scale):
-    """The kernel's 14 float32 scalars (csrc/langevin_solve.cu
-    LangevinScalars); Langevin has no pump and no pump schedule."""
-    pump, T = 0.0, 1.0
-    if isinstance(params, plgv.PumpedLangevinParams):
-        pump, T = params.pump, params.iterations
+    """The kernel's 13 float32 scalars (csrc/langevin_solve.cu
+    LangevinScalars): S, dt, feedback_scale, then the per-solve constants as
+    the plain version rounds them in float32 (scale = (u - l) / (2 S),
+    (u + l) / 2, dt fs, sigma sqrt(dt)), the noise scale and Adam's."""
     alpha = beta1 = beta2 = 0.0
     if hp is not None:
         alpha, beta1, beta2 = hp.alpha, hp.beta1, hp.beta2
+    f = np.float32
+    S, dt, sigma, fs, lo, hi = (f(x) for x in (
+        params.S, params.dt, params.sigma, params.feedback_scale,
+        params.lower_limit, params.upper_limit))
     vals = np.array(
-        [pump, params.S, params.dt, params.sigma, params.feedback_scale,
-         params.lower_limit, params.upper_limit, T,
-         alpha, beta1, 1.0 - beta1, beta2, 1.0 - beta2, noise_scale],
+        [S, dt, fs, (hi - lo) / (f(2) * S), (hi + lo) / f(2), dt * fs,
+         sigma * np.sqrt(dt), noise_scale, alpha, beta1, 1.0 - beta1, beta2,
+         1.0 - beta2],
         np.float32,
     )
-    return (ctypes.c_float * 14)(*vals.tolist())
+    return (ctypes.c_float * 13)(*vals.tolist())
+
+
+def _step_table(params, hp, iterations, pump_rate_flag, device):
+    """The kernel's per-step scalars, (iterations, 8) float32 on ``device``,
+    by the plain version's own float32 operations
+    (``dynamics/pumped_langevin.pump_field``,
+    ``dynamics/common.adam_moment_update``): k1 = -1 + p_i with the pump
+    p_i = pump (i+1) / T, or pump (0 for Langevin, which has no pump), then
+    Adam's 1 - beta1^(i+1), its reciprocal, 1 - beta2^(i+1) and its
+    reciprocal (ones without Adam, or for beta2 = 1), then three zeros that
+    pad a row to the kernel's two float4 reads."""
+    fi1 = torch.arange(1, int(iterations) + 1, dtype=torch.float32, device=device)
+    ones, zeros = torch.ones_like(fi1), torch.zeros_like(fi1)
+    k1 = zeros
+    if isinstance(params, plgv.PumpedLangevinParams):
+        p = common.float32_scalars(params, device)
+        pump = p.pump * fi1 / p.iterations if pump_rate_flag else p.pump.expand_as(fi1)
+        k1 = -1.0 + pump
+    b1 = inv_b1 = b2 = inv_b2 = ones
+    if hp is not None:
+        b1 = 1.0 - torch.pow(hp.beta1, fi1)
+        inv_b1 = 1.0 / b1
+        if hp.beta2 != 1.0:
+            b2 = 1.0 - torch.pow(hp.beta2, fi1)
+            inv_b2 = 1.0 / b2
+    cols = [k1, b1, inv_b1, b2, inv_b2, zeros, zeros, zeros]
+    return torch.stack(cols, dim=1).contiguous()
 
 
 def _check(q_matrix, v_vector, params, rng):
@@ -76,6 +139,27 @@ def _check(q_matrix, v_vector, params, rng):
         )
 
 
+def _run(launch, seed, q, v, params, *, iterations, batch_size, noise_scale, hp,
+         pump_rate_flag):
+    """One launch of a built library's ``launch`` function on stacked
+    (I, n, n) Q and (I, n) V on the card; returns c (I, batch, n) and the
+    cudaError_t of the launch.  ``tools/breakdown.py`` times probe builds
+    through it."""
+    num_instances, n = q.shape[0], q.shape[-1]
+    rows, _, _ = launch_shape(n, hp is not None)
+    steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
+    c = torch.zeros((num_instances, batch_size, n), dtype=torch.float32,
+                    device=q.device)  # the result of a solve of 0 iterations
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(
+            q.data_ptr(), v.data_ptr(), steps.data_ptr(), c.data_ptr(),
+            num_instances, int(batch_size), n, int(iterations), int(seed) % 2**64,
+            _scalars(params, hp, float(noise_scale)), rows, stream,
+        )
+    return c, err
+
+
 def _launch(seed, q_matrix, v_vector, params, *, pumped, iterations,
             batch_size, pump_rate_flag, noise_scale, rng, hp):
     """One launch of ``csrc/langevin_solve.cu`` on CUDA tensors."""
@@ -85,28 +169,10 @@ def _launch(seed, q_matrix, v_vector, params, *, pumped, iterations,
     stacked = q_matrix.ndim == 3
     q = (q_matrix if stacked else q_matrix[None]).contiguous()
     v = (v_vector if stacked else v_vector[None]).contiguous()
-    num_instances, n = q.shape[0], q.shape[-1]
-    rows, _, _ = launch_shape(n)
-    noise = float(noise_scale) != 0.0
-    spec = build.LangevinSpec(
-        pumped=pumped,
-        adam=hp is not None,
-        beta2_one=hp is not None and hp.beta2 == 1.0,
-        add_assign=hp is not None and bool(hp.add_assign),
-        pump_rate_flag=pumped and bool(pump_rate_flag),
-        noise=noise,
-        rng=philox.RNG_NAMES.index(rng) if noise else 0,
-    )
-    launch = build.load(spec)
-    c = torch.zeros((num_instances, batch_size, n), dtype=torch.float32,
-                    device=q.device)  # the result of a solve of 0 iterations
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(
-            q.data_ptr(), v.data_ptr(), c.data_ptr(), num_instances,
-            int(batch_size), n, int(iterations), int(seed) % 2**64,
-            _scalars(params, hp, float(noise_scale)), rows, stream,
-        )
+    spec = _spec(q.shape[-1], hp, noise_scale, rng, pumped=pumped)
+    c, err = _run(build.load(spec), seed, q, v, params, iterations=iterations,
+                  batch_size=batch_size, noise_scale=noise_scale, hp=hp,
+                  pump_rate_flag=pump_rate_flag)
     if err != 0:
         raise RuntimeError(f"{spec} kernel launch failed: cudaError_t {err}")
     return c if stacked else c[0]

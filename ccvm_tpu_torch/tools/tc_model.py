@@ -4,7 +4,12 @@ The DL kernel (csrc/dl_solve.cu) runs its matvec as 3xTF32 ``mma.sync``;
 the MF kernel (csrc/mf_solve.cu) keeps the fp32 CUDA-core matvec because no
 tensor-core scheme modelled here held the MF solve within 5e-5 of its fp32
 plain version on the CPU (on the card 4xTF32 per k-tile holds chip_smoke's
-1e-4 in every check).  Each emulation below computes ``x @ Q`` as
+1e-4 in every check); the Langevin-family kernel (csrc/langevin_solve.cu)
+keeps it because on the card every scheme held over 15,000 steps (3xTF32
+and 4xTF32 per k-tile, 3xTF32 per k-tile centred) missed chip_smoke's 2e-3
+for pumped-Adam (6.02e-3 to 1.13e-2), while keeping Langevin and
+Langevin-Adam within it.
+Each emulation below computes ``x @ Q`` as
 one scheme would; patched in as ``dynamics.common.dense_matvec``, it turns a
 plain solve into a model of a kernel with that matvec, whose difference from
 the fp32 plain solve predicts the kernel's hold against its plain version.
@@ -13,16 +18,26 @@ Run on the card, where the plain solve's matmul is cuBLAS's, as the holds
 of ``chip_smoke.py`` compare:
 
     python -m ccvm_tpu_torch.tools.tc_model --device cuda
+    python -m ccvm_tpu_torch.tools.tc_model --device cuda --family langevin
 
-which prints, for each MF scheme, the difference at the checks of
+The first prints, for each MF scheme, the difference at the checks of
 ``chip_smoke.py`` (phase 3: seed 0, batch 1024, 300 steps, noise off; phase
 7: seed 100, the main-path batch, 1,000 steps, noise on) and over 1,000
-steps noise off, for MF, MF-Adam beta2 0.999 and MF-Adam beta2 1.0.
+steps noise off, for MF, MF-Adam beta2 0.999 and MF-Adam beta2 1.0.  The
+second does the same for the Langevin family's four kernels
+(:data:`LANGEVIN_SCHEMES`, :func:`langevin_difference`) at the checks of
+``chip_smoke.py`` that hold them: phase 3, phase 4 (seed 5, batch 1024, 100
+steps, noise on) and phase 7 at 100 and 1,000 steps (seed 100, the main-path
+batch, the tuned Adam parameters); ``--deep`` adds phase 7's 15,000 steps
+for the schemes it names, and ``--schemes`` holds only the schemes it
+names.  Each Langevin reading is the largest difference
+and the count of elements over chip_smoke's PARITY_TOL (1e-4).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -146,20 +161,32 @@ MF_SCHEMES = {
 }
 
 
+@contextlib.contextmanager
+def patched_matvec(matvec):
+    """``matvec`` in place of ``common.dense_matvec`` (None: the plain one)."""
+    saved = common.dense_matvec
+    if matvec is not None:
+        common.dense_matvec = matvec
+    try:
+        yield
+    finally:
+        common.dense_matvec = saved
+
+
 def model_difference(run, matvec, **kw):
     """Largest difference over a plain solve's outputs (``run(**kw)``) between
     the solve with ``matvec`` patched in as ``common.dense_matvec`` and the
     fp32 plain solve."""
     plain = run(**kw)
-    saved = common.dense_matvec
-    common.dense_matvec = matvec
-    try:
+    with patched_matvec(matvec):
         emulated = run(**kw)
-    finally:
-        common.dense_matvec = saved
     for x in emulated:
         assert torch.isfinite(x).all()
     return max((a - b).abs().max().item() for a, b in zip(emulated, plain))
+
+
+def _repo():
+    return os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def mf_problem(device, n=70, g=0.01):
@@ -167,7 +194,7 @@ def mf_problem(device, n=70, g=0.01):
     function of T giving the tuned N=70 MF parameters."""
     from ccvm_tpu_torch import MFSolver, ProblemInstance
 
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    repo = _repo()
     path = os.path.join(repo, "examples", "benchmarking_instances", f"Size{n}",
                         f"tuningH0{n}-100-0.in")
     inst = ProblemInstance(device=device, instance_type="tuning", file_path=path)
@@ -199,14 +226,164 @@ def mf_difference(problem, matvec, beta2, *, seed, batch, iterations, noise_scal
         noise_scale=noise_scale, rng="popcount32", hp=hp)
 
 
+# The Langevin family's schemes: its x = c (u-l)/(2S) + (u+l)/2 lies in the
+# box [0, 1], and centred the mma takes x - (u+l)/2 (MID_LANGEVIN).
+LANGEVIN_SCHEMES = {
+    "fp32 chain over k (the plain matmul's order)": lambda mid: matvec_sequential,
+    "fp32 chain over k, centred": lambda mid: centred(matvec_sequential, mid),
+    "3xTF32 per-k-tile accumulators": lambda mid: matvec_tiles(3),
+    "3xTF32 per-k-tile accumulators, centred": lambda mid: centred(matvec_tiles(3), mid),
+    "4xTF32 (Q's residual) per-k-tile accumulators": lambda mid: matvec_tiles(4),
+    "3xTF32 one truncating chain (DL's)": lambda mid: matvec_3xtf32_truncating,
+    "3xTF32 one truncating chain, centred (DL's)":
+        lambda mid: centred(matvec_3xtf32_truncating, mid),
+}
+MID_LANGEVIN = 0.5  # (u + l) / 2 of the instance's [0, 1] box
+# The hold of a kernel against its plain version; chip_smoke.py imports it
+# from here.
+PARITY_TOL = 1e-4
+# The Langevin family's four kernels: (family, Adam or not).
+LANGEVIN_KERNELS = {"langevin_solve": ("langevin", False),
+                    "langevin_adam_solve": ("langevin", True),
+                    "pumped_langevin_solve": ("pumped", False),
+                    "pumped_langevin_adam_solve": ("pumped", True)}
+
+
+def langevin_problem(device, family, n=70):
+    """The scaled Size70 instance of a Langevin-family main path on
+    ``device`` (``family`` "langevin" or "pumped"), a function of T giving
+    the tuned N=70 parameters, and the tuned Adam hyperparameters."""
+    from ccvm_tpu_torch import (AdamParameters, LangevinSolver, ProblemInstance,
+                                PumpedLangevinSolver)
+
+    path = os.path.join(_repo(), "examples", "benchmarking_instances", f"Size{n}",
+                        f"tuningH0{n}-100-0.in")
+    inst = ProblemInstance(device=device, instance_type="tuning", file_path=path)
+    solver = (LangevinSolver if family == "langevin" else PumpedLangevinSolver)(
+        device=device)
+    inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+    solver.solution_bounds = inst.solution_bounds
+    with open(os.path.join(_repo(), "examples", "tuned_parameters.json")) as f:
+        tuned = json.load(f)
+    t = tuned[family][str(n)]
+
+    def params(iterations):
+        if family == "langevin":
+            return solver._make_params(t["S"], t["dt"], t["sigma"], t["feedback_scale"])
+        return solver._make_params(t["pump"], t["S"], t["dt"], t["sigma"],
+                                   t["feedback_scale"], iterations)
+
+    hp = AdamParameters(**tuned["adam"][family][str(n)]).to_hyperparameters()
+    return inst.q_matrix, inst.v_vector, params, hp
+
+
+def langevin_difference(problem, matvec, hp, *, seed, batch, iterations, noise_scale,
+                        plain=None):
+    """(largest difference, elements over PARITY_TOL, elements) between the
+    plain Langevin or pumped solve (``problem`` from :func:`langevin_problem`,
+    the family's own; pumped with its rate-scaled pump, T = ``iterations``)
+    with ``matvec`` patched in and the fp32 plain solve (``plain``, when
+    given, is that solve's result); ``hp`` None is the plain kernel, else its
+    Adam variant with those hyperparameters."""
+    c = langevin_model_solve(problem, hp, matvec=matvec, seed=seed, batch=batch,
+                             iterations=iterations, noise_scale=noise_scale)
+    if plain is None:
+        plain = langevin_model_solve(problem, hp, seed=seed, batch=batch,
+                                     iterations=iterations, noise_scale=noise_scale)
+    assert torch.isfinite(c).all()
+    d = (c - plain).abs()
+    return d.max().item(), int((d > PARITY_TOL).sum()), d.numel()
+
+
+def langevin_model_solve(problem, hp, *, seed, batch, iterations, noise_scale,
+                         matvec=None):
+    """The plain solve of :func:`langevin_difference`, with ``matvec`` (when
+    given) patched in as ``common.dense_matvec``."""
+    from ccvm_tpu_torch.dynamics.pumped_langevin import PumpedLangevinParams
+    from ccvm_tpu_torch.ops import langevin_kernels
+
+    q, v, params, _ = problem
+    p = params(iterations)
+    if isinstance(p, PumpedLangevinParams):
+        solve, extra = langevin_kernels.pumped_langevin_solve_reference, {
+            "pump_rate_flag": True}
+    else:
+        solve, extra = langevin_kernels.langevin_solve_reference, {}
+    with patched_matvec(matvec):
+        return solve(seed, q, v, p, **extra, iterations=iterations, batch_size=batch,
+                     noise_scale=noise_scale, rng="popcount32", hp=hp)
+
+
+def langevin_checks(batch, deep=False):
+    """chip_smoke.py's holds of the Langevin family, as (name, Adam
+    hyperparameters "default" or "tuned", check kwargs); ``deep`` adds phase
+    7's 15,000 steps."""
+    checks = [
+        ("phase 3 (seed 0, batch 1024, 300 steps, noise off)", "default",
+         dict(seed=0, batch=1024, iterations=300, noise_scale=0.0)),
+        ("phase 4 (seed 5, batch 1024, 100 steps, noise on)", "default",
+         dict(seed=5, batch=1024, iterations=100, noise_scale=1.0)),
+        (f"phase 7 (seed 100, batch {batch}, 100 steps)", "tuned",
+         dict(seed=100, batch=batch, iterations=100, noise_scale=1.0)),
+        (f"phase 7 (seed 100, batch {batch}, 1,000 steps)", "tuned",
+         dict(seed=100, batch=batch, iterations=1000, noise_scale=1.0)),
+    ]
+    if deep:
+        checks.append((f"phase 7 (seed 100, batch {batch}, 15,000 steps)", "tuned",
+                       dict(seed=100, batch=batch, iterations=15000, noise_scale=1.0)))
+    return checks
+
+
+def langevin_main(args):
+    """The Langevin-family table: for each check and kernel the fp32 plain
+    solve once, then each scheme's model against it."""
+    from ccvm_tpu_torch import AdamParameters
+
+    unknown = (set(args.schemes) | set(args.deep or ())) - set(LANGEVIN_SCHEMES)
+    if unknown:
+        raise SystemExit(f"tc_model: no Langevin scheme is called {sorted(unknown)}")
+    name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    problems = {f: langevin_problem(args.device, f) for f in ("langevin", "pumped")}
+    default = AdamParameters(beta2=0.999).to_hyperparameters()
+    print(f"Langevin-family schemes against the fp32 plain solve on {name}: max "
+          f"|model - plain| of c (elements over {PARITY_TOL} of all) for "
+          + " / ".join(LANGEVIN_KERNELS), flush=True)
+    for check, adam, kw in langevin_checks(args.batch, deep=bool(args.deep)):
+        deep = kw["iterations"] > 1000
+        schemes = {label: make for label, make in LANGEVIN_SCHEMES.items()
+                   if (not args.schemes or label in args.schemes)
+                   and (not deep or label in args.deep)}
+        rows = {label: [] for label in schemes}
+        t = time.perf_counter()
+        for kname, (family, is_adam) in LANGEVIN_KERNELS.items():
+            hp = None if not is_adam else (
+                default if adam == "default" else problems[family][3])
+            plain = langevin_model_solve(problems[family], hp, **kw)
+            for label, make in schemes.items():
+                err, over, numel = langevin_difference(
+                    problems[family], make(MID_LANGEVIN), hp, plain=plain, **kw)
+                rows[label].append(f"{err:.3e} ({over} of {numel})")
+        print(f" {check} ({time.perf_counter() - t:.1f} s):", flush=True)
+        for label, row in rows.items():
+            print(f"  {label}: " + " / ".join(row), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--batch", type=int, default=65536,
                     help="phase 7's batch (the main path's)")
+    ap.add_argument("--family", choices=("mf", "langevin"), default="mf")
+    ap.add_argument("--deep", nargs="*", default=[],
+                    help="Langevin: the schemes (labels of LANGEVIN_SCHEMES) also "
+                         "held over phase 7's 15,000 steps")
+    ap.add_argument("--schemes", nargs="*", default=[],
+                    help="Langevin: hold only these schemes (default: all)")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("tc_model: no CUDA card")
+    if args.family == "langevin":
+        return langevin_main(args)
     problem = mf_problem(args.device)
     mid = 1.0  # u + l of the instance's [0, 1] box
     checks = {"phase 3 (seed 0, batch 1024, 300 steps, noise off)":

@@ -13,13 +13,15 @@ exits non-zero without printing a result:
 2. build: compiles every kernel specialisation the run launches from
    ``ccvm_tpu_torch/csrc`` (one nvcc each, all started together) into
    build/kernels, and prints what ptxas reports of each solve kernel; for
-   each DL and MF specialisation the blocks per SM the card keeps resident
-   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and for the DL main
-   path's two (3xTF32 tensor-core matvec, noise on) it holds no spill bytes,
-   DL-Adam at 16 resident warps per SM and DL's grid at batch 65536 within
-   10% of whole waves, for the MF main path's three (MF, MF-Adam beta2
-   0.999 and 1.0, noise on) no spill bytes, at least 16 warps per SM and
-   whole waves within 10%;
+   each DL, MF and Langevin-family specialisation the blocks per SM the card
+   keeps resident (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
+   for the DL main path's two (3xTF32 tensor-core matvec, noise on) it holds
+   no spill bytes, DL-Adam at 16 resident warps per SM and DL's grid at
+   batch 65536 within 10% of whole waves, for the MF main path's three (MF,
+   MF-Adam beta2 0.999 and 1.0, noise on) no spill bytes, at least 16 warps
+   per SM and whole waves within 10%, and for every Langevin-family
+   specialisation no spill bytes, with the main path's four (noise on) at
+   the blocks per SM that the launch rule plans and whole waves within 10%;
 3. noise off: each kernel against its plain PyTorch version on the card, on
    the scaled N=70 instance, batch 1024, 300 iterations (DL pump 12, DL-Adam
    with beta2 0.999 and 1.0; MF, Langevin and pumped Langevin with the tuned
@@ -53,11 +55,12 @@ exits non-zero without printing a result:
    plain time (and the steps it covers) and largest error against its
    plain version.  The bound of DL and DL-Adam is that of their 3xTF32
    tensor-core matvecs beside the CUDA cores' elementwise work, and their
-   fp32 CUDA-core bound is a second column (``bound_fp32_ms``); MF and
-   MF-Adam, whose matvec stays on the fp32 CUDA cores, have the fp32 bound
-   and, beside it, the bounds a 3xTF32 and a 4xTF32 matvec would have
-   (``bound_3xtf32_ms``, ``bound_4xtf32_ms``); DL-Adam's time is held to
-   1.5 x DL's.  The Langevin family is held elementwise
+   fp32 CUDA-core bound is a second column (``bound_fp32_ms``); MF, MF-Adam
+   and the Langevin family, whose matvecs stay on the fp32 CUDA cores, have
+   the fp32 bound and, beside it, the bound a 3xTF32 matvec would have
+   (``bound_3xtf32_ms``) and a 4xTF32 one (``bound_4xtf32_ms``); each
+   Adam kernel's time is held to ADAM_OVER_PLAIN x its plain kernel's (DL,
+   Langevin, pumped).  The Langevin family is held elementwise
    after 100, 1,000 and 15,000 steps (past 100 steps at LANGEVIN_DEEP_TOL,
    with at most LANGEVIN_DEEP_SHARE of the elements over PARITY_TOL), MF
    after 100 and 1,000, DL after 1,000 (the 15,000-step errors of DL and MF
@@ -117,17 +120,21 @@ ITERATIONS = 15000
 G = 0.05  # DL
 MF_G = 0.01  # MFSolver's default, as bench.py's MF row runs it
 # Kernel against plain: fp32 sum order differs (cuBLAS against the kernel's
-# FMA chain) and nvcc contracts multiply-adds, so the two agree to round-off,
-# not bit for bit.
-PARITY_TOL = 1e-4
+# FMA chain, or the tensor cores' products) and nvcc contracts multiply-adds
+# where a kernel does not spell them out, so the two agree to round-off, not
+# bit for bit: at most PARITY_TOL (1e-4, ccvm_tpu_torch/tools/tc_model.py,
+# whose models of other matvecs are read against it; imported in main).
 # The Langevin family beyond 100 steps at the main-path shape: the drift is
 # linear in c, so a round-off difference on an element inside the box grows
 # along the unstable directions of x.Q.x until the clamp at +-S stops it.
-# Measured on an NVIDIA H100 80GB HBM3 at 700 W: at most 6e-7 after 100
-# steps, 2.2e-4 after 1,000 and 7.3e-4 after 15,000, on at most 9 of the 4.6
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W with the family's first
+# kernels (fp32, multiply-adds contracted): at most 6e-7 after 100 steps,
+# 2.2e-4 after 1,000 and 7.3e-4 after 15,000, on at most 9 of the 4.6
 # million elements.  So past 100 steps every difference stays under
 # LANGEVIN_DEEP_TOL and at most LANGEVIN_DEEP_SHARE of the elements exceed
-# PARITY_TOL.
+# PARITY_TOL.  (The redesigned plain kernels equal their plain versions bit
+# for bit; the Adam kernels differ by the hardware's square root and
+# division, PERF.md.)
 LANGEVIN_DEEP_TOL = 2e-3
 LANGEVIN_DEEP_SHARE = 1e-4
 # Phase 7 holds every solver kernel against its plain version over this many
@@ -146,7 +153,16 @@ HARNESS_HOLD_STEPS = 296
 # 2*N of each matvec, counted from csrc/dl_solve.cu, csrc/mf_solve.cu and
 # csrc/langevin_solve.cu (drift, schedules, noise scaling, divisions, clips,
 # Adam; Philox's integer work is not counted).  DL does two matvecs a step,
-# the others one.  MF (csrc/mf_solve.cu, noise on; what the plain version's
+# the others one.  The Langevin family, counted as what the plain version's
+# step needs (dynamics/langevin.py, dynamics/pumped_langevin.py, noise on):
+# the draw (popcount - 16) / sqrt(8) (1: the subtraction is integer work),
+# x = c scale + (u+l)/2 (2), the clamp (2); Langevin's feedback -(x@Q + V)
+# scale (2: the negation folds into the multiply) and update c + dt fs g +
+# sigma sqrt(dt) w (4): 11; pumped's feedback -(x@Q) scale - V scale (2, V
+# scale per column), its pump drift (k1 - c^2) c (3) and update c + dt
+# (drift + fs g) + sigma sqrt(dt) w (6): 16; Adam adds its two moments (7),
+# their bias corrections (2), the square root, epsilon, alpha mhat and the
+# division (4) and the add (1): 14.  MF (csrc/mf_solve.cu, noise on; what the plain version's
 # step needs): the draw's scaling and its division by sqrt(dt), once (5;
 # the kernel recomputes them after the matvec to save registers, work the
 # function does not need), mu_tilde, its clip and x
@@ -158,9 +174,9 @@ HARNESS_HOLD_STEPS = 296
 # x and scales the feedback twice, v3 does neither and sums c^2 + s^2 once.
 ELEMENTWISE_FLOPS = {"dl_solve": 40, "dl_adam_solve": 64,
                      "mf_solve": 44, "mf_adam_solve": 62,
-                     "langevin_solve": 12, "langevin_adam_solve": 26,
-                     "pumped_langevin_solve": 17,
-                     "pumped_langevin_adam_solve": 31,
+                     "langevin_solve": 11, "langevin_adam_solve": 25,
+                     "pumped_langevin_solve": 16,
+                     "pumped_langevin_adam_solve": 30,
                      "dl_v2": 42, "dl_v3": 34}
 MATVECS = {"dl_solve": 2, "dl_adam_solve": 2, "mf_solve": 1, "mf_adam_solve": 1,
            "langevin_solve": 1, "langevin_adam_solve": 1,
@@ -180,8 +196,11 @@ PEAKS = (("PCIe", 51.2e12, 2.0e12, 378e12), ("NVL", 60.0e12, 3.9e12, 417.5e12),
 # products per fp32 product) beside their elementwise work on the fp32 CUDA
 # cores.
 TENSOR_CORE_KERNELS = ("dl_solve", "dl_adam_solve")
-# DL-Adam's time against DL's at the main-path shape (phase 7): at most this.
-ADAM_OVER_DL = 1.5
+# Each Adam kernel's time against its plain kernel's at the main-path shape
+# (phase 7): at most this.
+ADAM_OVER_PLAIN = 1.5
+ADAM_PAIRS = (("dl_adam_solve", "dl_solve"), ("langevin_adam_solve", "langevin_solve"),
+              ("pumped_langevin_adam_solve", "pumped_langevin_solve"))
 # bench.py's MF, Langevin and pumped rows on a TPU v5 lite in round 5
 # (BENCH_r05.json): quality references for the port, not speed targets.
 TPU_R5_P01 = {"mf": 1.000, "langevin": 0.958, "pumped": 0.994}
@@ -333,6 +352,7 @@ def main(cleanup):
                                     langevin_kernels, mf_kernels, philox)
     from ccvm_tpu_torch.post_processor import PostProcessorGradDescent
     from ccvm_tpu_torch.tools import kernel_experiments
+    from ccvm_tpu_torch.tools.tc_model import PARITY_TOL
 
     failures = []  # checks that fail, raised after every kernel was measured
 
@@ -382,10 +402,8 @@ def main(cleanup):
         return mf_kernels._spec(n, hp, 1.0 if noise else 0.0, "popcount32")
 
     def lgv_spec(pumped, hp=None, noise=True):
-        return build.LangevinSpec(pumped, hp is not None,
-                                  hp is not None and hp.beta2 == 1.0,
-                                  hp is not None and hp.add_assign, pumped,
-                                  noise, 0)
+        return langevin_kernels._spec(N, hp, 1.0 if noise else 0.0, "popcount32",
+                                      pumped=pumped)
 
     specs = [spec(*case) for case in dl_cases.values()]
     # The MF specialisations: (Adam hyperparameters, noise) by label; the
@@ -398,11 +416,17 @@ def main(cleanup):
     specs += [mf_spec(*case) for case in mf_builds.values()]
     # tools/tpu_validate.py's N=20 instance in phase 5.
     specs += [mf_spec(None, n=20), mf_spec(adam_hps[0.999], n=20)]
-    for pumped in (False, True):
-        specs += [lgv_spec(pumped), lgv_spec(pumped, noise=False),
-                  lgv_spec(pumped, adam_hps[0.999]),
-                  lgv_spec(pumped, adam_hps[0.999], noise=False),
-                  lgv_spec(pumped, adam_hps[1.0], noise=False)]
+    # The Langevin-family specialisations: (pumped, Adam hyperparameters,
+    # noise) by label; those with noise are the main path's (the tuned Adam
+    # parameters differ from the defaults only in alpha, a kernel argument).
+    lgv_builds = {}
+    for pumped, fam in ((False, "Langevin"), (True, "pumped")):
+        lgv_builds.update({
+            fam: (pumped, None, True), f"{fam} noise off": (pumped, None, False),
+            f"{fam}-Adam": (pumped, adam_hps[0.999], True),
+            f"{fam}-Adam noise off": (pumped, adam_hps[0.999], False),
+            f"{fam}-Adam beta2 1 noise off": (pumped, adam_hps[1.0], False)})
+    specs += [lgv_spec(*case) for case in lgv_builds.values()]
     # The race harness's variants: (v3, fuse, unroll, rng name) of phase 8's
     # noise-off holds (rng unused), its noise-on holds and its race rows.
     variant_cases = {
@@ -476,6 +500,33 @@ def main(cleanup):
             failures.append(f"{label} spills: {build.kernel_report(rep)}")
         if warps < 16:
             failures.append(f"{label} keeps {warps} warps per SM resident, not 16")
+        if waves / -(-waves // 1) < 0.9:
+            failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
+                            f"within 10%")
+    # The Langevin family's residency as the card reports it; every
+    # specialisation holds no spills, the main path's four (noise on) the
+    # blocks per SM that the launch rule plans (two of 4 warps at N=70: its
+    # wide thread tile takes up to 255 registers) and whole waves within 10%.
+    for label, (pumped, hp, noise) in lgv_builds.items():
+        blocks = langevin_kernels.blocks_per_sm(
+            N, pumped=pumped, noise_scale=1.0 if noise else 0.0, hp=hp)
+        shape = build.langevin_launch_shape(N, hp is not None)
+        warps = blocks * shape.threads // 32
+        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
+        rep = reports.get(lgv_spec(pumped, hp, noise))
+        log(f"  {label} ({lgv_spec(pumped, hp, noise).tag()}): "
+            f"{build.kernel_report(rep) if rep else 'built before this run'}; "
+            f"{blocks} blocks per SM of {shape.threads} threads ({warps} warps), "
+            f"{shape.rows} trajectories and {shape.smem} bytes of shared memory a "
+            f"block; batch {MAIN_BATCH} is {waves:.3f} waves of {sms} SMs")
+        if rep is not None and "0 bytes spill stores, 0 bytes spill loads" not in \
+                build.kernel_report(rep):
+            failures.append(f"{label} spills: {build.kernel_report(rep)}")
+        if not noise:
+            continue
+        if blocks != shape.blocks_per_sm:
+            failures.append(f"{label} keeps {blocks} blocks per SM resident, not "
+                            f"{shape.blocks_per_sm}")
         if waves / -(-waves // 1) < 0.9:
             failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
                             f"within 10%")
@@ -1046,11 +1097,13 @@ def main(cleanup):
             share += (f"; 3xTF32 tensor cores beside the CUDA cores; fp32 CUDA-core "
                       f"bound {row['bound_fp32_ms']:.1f} ms, "
                       f"{100 * row['bound_fp32_ms'] / min(times):.1f}% of it")
-        elif family == "mf":
-            # The bounds a tensor-core matvec would have: 3xTF32, whose
-            # per-k-tile accumulation misses MF's 1e-4 hold at phase 7, and
-            # 4xTF32 (Q's residual too), whose model holds it
-            # (ccvm_tpu_torch/tools/tc_model.py).
+        else:
+            # The bounds a tensor-core matvec would have: 3xTF32, and
+            # 4xTF32 (Q's residual too), as ccvm_tpu_torch/tools/tc_model.py
+            # models them against the holds (PERF.md: MF's 3xTF32 per
+            # k-tile misses 1e-4 at phase 7 and its 4xTF32 holds it; for
+            # the Langevin family both miss pumped-Adam's 2e-3 over 15,000
+            # steps and keep Langevin's and Langevin-Adam's).
             for passes in (3, 4):
                 row[f"bound_{passes}xtf32_ms"] = bound_ms(
                     kname, MAIN_BATCH, N, ITERATIONS, name, tensor_cores=True,
@@ -1063,11 +1116,12 @@ def main(cleanup):
             f"{plain_ms:.1f} ms over {plain_depth} steps, bound {b_ms:.1f} ms "
             f"({b_by}, {share}) at batch {MAIN_BATCH}, N={N}, {ITERATIONS} steps")
     ms_of = {k["name"]: k["ms"] for k in kernels}
-    ratio = ms_of["dl_adam_solve"] / ms_of["dl_solve"]
-    log(f"phase 7 dl_adam_solve takes {ratio:.3f} x dl_solve's time (at most "
-        f"{ADAM_OVER_DL})")
-    if ratio > ADAM_OVER_DL:
-        failures.append(f"dl_adam_solve takes {ratio:.3f} x dl_solve's time")
+    for adam_kname, plain_kname in ADAM_PAIRS:
+        ratio = ms_of[adam_kname] / ms_of[plain_kname]
+        log(f"phase 7 {adam_kname} takes {ratio:.3f} x {plain_kname}'s time (at most "
+            f"{ADAM_OVER_PLAIN})")
+        if ratio > ADAM_OVER_PLAIN:
+            failures.append(f"{adam_kname} takes {ratio:.3f} x {plain_kname}'s time")
 
     # 8. the DL race harness: each variant against its plain version, its
     # statistics against production's, the race, and its kernels-line row

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -326,6 +327,173 @@ def test_langevin_kernels_stacked_equal_serial_launches(family, pump_rate_flag):
     stacked = kernel(11, q2, v2, p, **kw)
     for i in range(2):
         assert torch.equal(stacked[i], kernel(11 + i, q2[i], v2[i], p, **kw))
+
+
+# The Langevin family's redesign (csrc/langevin_solve.cu) at every padding
+# the bundled sizes give (2 -> 8, 4 -> 8, 20 -> 24, 70 -> 72) and its ragged
+# last block (batch 100 is not a multiple of 128 or 256): each kernel plain
+# and Adam, beta2 0.999 and 1.0 with add_assign on and off, noise off and
+# on, and for pumped both pump schedules.
+_LGV_ADAM = [None, (0.999, True), (0.999, False), (1.0, True), (1.0, False)]
+
+
+def _lgv_hp(adam):
+    if adam is None:
+        return None
+    beta2, add_assign = adam
+    return AdamParameters(beta2=beta2, add_assign=add_assign).to_hyperparameters()
+
+
+@pytest.fixture(scope="module")
+def lgv_problems():
+    """{(family, n): (Q, V, solver)} scaled on the card, with every
+    Langevin-family specialisation below built first in one parallel nvcc
+    run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    build.build([langevin_kernels._spec(n, _lgv_hp(adam), noise, "popcount32",
+                                        pumped=pumped)
+                 for n in (2, 20, 70) for adam in _LGV_ADAM for noise in (0.0, 1.0)
+                 for pumped in (False, True)])
+    problems = {}
+    for family, cls in (("langevin", LangevinSolver), ("pumped", PumpedLangevinSolver)):
+        for n, (kind, path) in _DL_FILES.items():
+            inst = ProblemInstance(device="cuda", file_path=os.path.join(REPO, path),
+                                   instance_type=kind)
+            solver = cls(device="cuda")
+            inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+            solver.solution_bounds = inst.solution_bounds
+            problems[family, n] = (inst.q_matrix, inst.v_vector, solver)
+    return problems
+
+
+def _lgv_params(family, solver, iterations=100):
+    if family == "langevin":
+        return solver._make_params(0.5, 0.002, 0.5, 2.0)
+    return solver._make_params(1.0, 0.5, 0.002, 0.25, 1.0, iterations)
+
+
+def _lgv_pair(problem, family, batch, adam, noise_scale, pump_rate_flag=True):
+    q, v, solver = problem
+    kernel, plain, _ = _LGV_FNS[family]
+    kw = dict(iterations=100, batch_size=batch, noise_scale=noise_scale,
+              rng="popcount32", hp=_lgv_hp(adam))
+    if family == "pumped":
+        kw["pump_rate_flag"] = pump_rate_flag
+    p = _lgv_params(family, solver)
+    ck = kernel(4, q, v, p, **kw)
+    cr = plain(4, q, v, p, **kw)
+    torch.cuda.synchronize()
+    assert ck.shape == (batch, q.shape[-1]) and torch.isfinite(ck).all()
+    return (ck - cr).abs().max().item()
+
+
+_LGV_FNS = {
+    "langevin": (langevin_kernels.langevin_solve, langevin_kernels.langevin_solve_reference,
+                 LangevinSolver),
+    "pumped": (langevin_kernels.pumped_langevin_solve,
+               langevin_kernels.pumped_langevin_solve_reference, PumpedLangevinSolver),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 100])
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("adam", _LGV_ADAM)
+@pytest.mark.parametrize("n", sorted(_DL_FILES))
+@pytest.mark.parametrize("family", ["langevin", "pumped"])
+def test_langevin_kernels_match_plain_at_every_size(lgv_problems, family, n, adam,
+                                                  noise_scale, batch):
+    assert _lgv_pair(lgv_problems[family, n], family, batch, adam, noise_scale) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("adam", _LGV_ADAM)
+@pytest.mark.parametrize("pump_rate_flag", [True, False])
+def test_pumped_kernel_pump_schedules_match_plain(lgv_problems, pump_rate_flag, adam,
+                                                  noise_scale):
+    assert _lgv_pair(lgv_problems["pumped", 20], "pumped", 100, adam, noise_scale,
+                     pump_rate_flag=pump_rate_flag) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adam", [None, (0.999, True), (1.0, True)])
+@pytest.mark.parametrize("family", ["langevin", "pumped"])
+def test_langevin_stacked_equals_serial_launches_at_n70(lgv_problems, family, adam):
+    q, v, solver = lgv_problems[family, 70]
+    kernel = _LGV_FNS[family][0]
+    q2 = torch.stack([q, q.flip(0, 1)])
+    v2 = torch.stack([v, v.flip(0)])
+    kw = dict(iterations=100, batch_size=300, rng="popcount32", hp=_lgv_hp(adam))
+    if family == "pumped":
+        kw["pump_rate_flag"] = True
+    p = _lgv_params(family, solver)
+    stacked = kernel(11, q2, v2, p, **kw)
+    for i in range(2):
+        assert torch.equal(stacked[i], kernel(11 + i, q2[i], v2[i], p, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adam", [None, (0.999, True), (1.0, True)])
+@pytest.mark.parametrize("pumped", [False, True])
+def test_langevin_residency_is_read_from_the_card(lgv_problems, pumped, adam):
+    """The main path's specialisations: the card keeps the blocks that the
+    launch rule plans, two blocks of 4 warps per SM at N=70."""
+    shape = build.langevin_launch_shape(70, adam is not None)
+    blocks = langevin_kernels.blocks_per_sm(70, pumped=pumped, hp=_lgv_hp(adam))
+    assert blocks == shape.blocks_per_sm == 2
+    assert blocks * shape.threads // 32 == 8
+
+
+@pytest.fixture(scope="module")
+def lgv_problems_100():
+    """{family: (Q, V, solver)} of a random symmetric BoxQP instance at N=100
+    (integer entries in [-50, 50], scaled as the façades scale), where a
+    thread owns 13 columns of 4 rows (Adam: 2), the launch rule's branch
+    beyond 9 columns; its specialisations built first in one nvcc run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    build.build([langevin_kernels._spec(100, _lgv_hp(adam), noise, "popcount32",
+                                        pumped=pumped)
+                 for adam in (None, (0.999, True)) for noise in (0.0, 1.0)
+                 for pumped in (False, True)])
+    rng = np.random.default_rng(100)
+    a = rng.integers(-50, 51, (100, 100)).astype(np.float32)
+    q = torch.from_numpy((a + a.T) / 2).cuda()
+    v = torch.from_numpy(rng.integers(-50, 51, 100).astype(np.float32)).cuda()
+    problems = {}
+    for family, cls in (("langevin", LangevinSolver), ("pumped", PumpedLangevinSolver)):
+        solver = cls(device="cuda")
+        sf = solver.get_scaling_factor(q)
+        solver.solution_bounds = (0.0, 1.0)
+        problems[family] = (q / sf, v / sf, solver)
+    return problems
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("adam", [None, (0.999, True)])
+@pytest.mark.parametrize("family", ["langevin", "pumped"])
+def test_langevin_kernels_match_plain_beyond_nine_columns(lgv_problems_100, family, adam,
+                                                          noise_scale):
+    assert _lgv_pair(lgv_problems_100[family], family, 100, adam, noise_scale) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pump_rate_flag", [True, False])
+@pytest.mark.parametrize("beta2", _BETA2)
+def test_langevin_step_table_is_the_plain_versions_on_the_card(pump_rate_flag, beta2):
+    """The table's every value is the plain version's own 0-dim float32
+    scalar on the card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    from test_torch_langevin_redesign import _PUMPED, plain_step_scalars
+
+    table = langevin_kernels._step_table(_PUMPED, _hp(beta2), 40, pump_rate_flag, "cuda")
+    for i in range(40):
+        want = plain_step_scalars(_PUMPED, _hp(beta2), i, pump_rate_flag, "cuda")
+        assert torch.equal(table[i, :5], want), i
 
 
 # (variant, fuse, unroll) of each race-harness specialisation held here:

@@ -105,11 +105,10 @@ def test_mf_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_langevin_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    spec = build.LangevinSpec(True, True, False, True, True, True, 0)
+    spec = build.LangevinSpec(True, True, False, True, True, 0, 72)
     assert spec.defines() == ["-DCCVM_PUMPED=1", "-DCCVM_ADAM=1",
                               "-DCCVM_BETA2_ONE=0", "-DCCVM_ADD_ASSIGN=1",
-                              "-DCCVM_PUMP_RATE_FLAG=1", "-DCCVM_NOISE=1",
-                              "-DCCVM_RNG=0"]
+                              "-DCCVM_NOISE=1", "-DCCVM_RNG=0", "-DCCVM_NP=72"]
     monkeypatch.setattr(build, "library_path", lambda s: str(tmp_path / "x.so"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build([spec])
@@ -123,7 +122,7 @@ def test_library_names_follow_the_source_and_every_header(monkeypatch, tmp_path)
     monkeypatch.setattr(build, "CSRC", str(tmp_path))
     dl = build.DLSpec(False, False, False, True, 1)
     mf = build.MFSpec(False, False, False, True, 0)
-    lgv = build.LangevinSpec(False, False, False, False, False, True, 0)
+    lgv = build.LangevinSpec(False, False, False, False, True, 0, 72)
     before = {s: build.library_path(s) for s in (dl, mf, lgv)}
     assert os.path.basename(before[dl]).startswith("libdl_solve_")
     assert os.path.basename(before[mf]).startswith("libmf_solve_")
@@ -230,12 +229,19 @@ def test_langevin_solves_on_cpu_tensors_are_the_reference(family):
 
 
 def test_langevin_launch_shape_is_mf_s():
-    """One x array per block, the rule MF's kernel had before its redesign
-    (build.launch_shape with one x array): at N=70, 56 trajectories and 252
-    threads in 37,760 bytes of shared memory."""
-    assert langevin_kernels.launch_shape(70) == (56, 252, 37760)
+    """The Langevin family's launch rule, MF's before the redesigns (one x
+    array, a 4 x 4 tile), is now its own (build.langevin_launch_shape): 8
+    column groups by 16 row groups, a thread owning N/8 columns of 8
+    trajectory rows (Adam: 4), two x buffers: at N=70, 128 trajectories and
+    128 threads in 98,560 bytes of shared memory (Adam: 64 in 78,080, with
+    its second moments)."""
+    assert langevin_kernels.launch_shape(70) == (128, 128, 98560)
+    assert langevin_kernels.launch_shape(70, adam=True) == (64, 128, 78080)
     for n in range(2, 71):
-        assert langevin_kernels.launch_shape(n) == build.launch_shape(n, 1, "MF")
+        for adam in (False, True):
+            shape = build.langevin_launch_shape(n, adam)
+            assert langevin_kernels.launch_shape(n, adam) == shape[:3]
+            assert shape.np == -(-n // 8) * 8 and shape.rows == (64 if adam else 128)
     with pytest.raises(ValueError, match="does not fit the Langevin kernel"):
         langevin_kernels.launch_shape(400)
 
