@@ -7,13 +7,17 @@ run on the card ("cuda") unless the caller asks for "cpu", where each kernel's
 plain PyTorch version runs instead.
 
 It carries the four SDE solver families, each plain and Adam: DL-CCVM,
-MF-CCVM, Langevin and pumped Langevin, and the grad-descent post-processor;
-the other post-processors, metadata and plotting arrive in later slices
-(ROADMAP.md).
+MF-CCVM, Langevin and pumped Langevin; the five post-processors
+(grad-descent, Adam, ASGD, BFGS and L-BFGS, plain torch on the tensor's
+device); ``Metadata``; and ``ccvmplotlib`` (TTS, ETS and success-probability
+statistics and plots), which is host-only: it needs pandas and matplotlib,
+and nothing else of the port imports it.  What is still to come is listed
+in ROADMAP.md.
 """
 
 __version__ = "0.1.0"
 
+from ccvm_tpu_torch.metadata import Metadata
 from ccvm_tpu_torch.problem_classes.boxqp import ProblemInstance
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers import (
@@ -26,6 +30,7 @@ from ccvm_tpu_torch.solvers import (
 )
 
 __all__ = [
+    "Metadata",
     "ProblemInstance",
     "Solution",
     "AdamParameters",

@@ -1,13 +1,23 @@
 """Post-processor factory (API-parity port of
-``ccvm_simulators/post_processor/factory.py``)."""
+``ccvm_simulators/post_processor/factory.py`` by way of
+``ccvm_tpu/post_processor/factory.py``)."""
 
 from __future__ import annotations
 
+from ccvm_tpu_torch.post_processor.adam import PostProcessorAdam
+from ccvm_tpu_torch.post_processor.asgd import PostProcessorASGD
+from ccvm_tpu_torch.post_processor.bfgs import PostProcessorBFGS
 from ccvm_tpu_torch.post_processor.grad_descent import PostProcessorGradDescent
+from ccvm_tpu_torch.post_processor.lbfgs import PostProcessorLBFGS
 from ccvm_tpu_torch.post_processor.post_processor import MethodType
 
-# Methods of the reference whose port is still to come.
-_NOT_PORTED = (MethodType.BFGS, MethodType.LBFGS, MethodType.Adam, MethodType.ASGD)
+_CLASSES = {
+    MethodType.BFGS.value: PostProcessorBFGS,
+    MethodType.LBFGS.value: PostProcessorLBFGS,
+    MethodType.Adam.value: PostProcessorAdam,
+    MethodType.ASGD.value: PostProcessorASGD,
+    MethodType.GradDescent.value: PostProcessorGradDescent,
+}
 
 
 class PostProcessorFactory:
@@ -18,15 +28,9 @@ class PostProcessorFactory:
         """Create the relevant post processor from the given method name.
 
         Raises:
-            NotImplementedError: the method is not ported yet.
             AssertionError: Invalid method type is provided.
         """
-        name = method.lower()
-        if name == MethodType.GradDescent.value:
-            return PostProcessorGradDescent()
-        if name in {m.value for m in _NOT_PORTED}:
-            raise NotImplementedError(
-                f"post-processor {method!r} is not ported to ccvm_tpu_torch yet "
-                "(ROADMAP.md, queue 1 item 8)"
-            )
-        raise AssertionError(f"Method type is not valid. Provided: {method}")
+        cls = _CLASSES.get(method.lower())
+        if cls is None:
+            raise AssertionError(f"Method type is not valid. Provided: {method}")
+        return cls()

@@ -14,7 +14,7 @@ import time
 
 import torch
 
-from ccvm_tpu_torch.post_processor.post_processor import PostProcessor, require_array
+from ccvm_tpu_torch.post_processor.post_processor import PostProcessor, as_float32
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 
@@ -43,13 +43,7 @@ class PostProcessorGradDescent(PostProcessor):
         Returns a float32 tensor on ``c``'s device.
         """
         start_time = time.time()
-        c = torch.as_tensor(require_array("c", c), dtype=torch.float32)
-        q_matrix = torch.as_tensor(
-            require_array("q_matrix", q_matrix), dtype=torch.float32, device=c.device
-        )
-        v_vector = torch.as_tensor(
-            require_array("v_vector", v_vector), dtype=torch.float32, device=c.device
-        )
+        c, q_matrix, v_vector = as_float32(c, q_matrix, v_vector)
         if num_iter_pp is None:
             num_iter_pp = int(num_iter_main * 0.01)
 
@@ -61,7 +55,5 @@ class PostProcessorGradDescent(PostProcessor):
             for _ in range(num_iter_pp):
                 grads = torch.matmul(c, q_matrix) + v_vector
                 c = torch.clamp(c - step * grads, lo, hi)
-        if c.is_cuda:
-            torch.cuda.synchronize(c.device)
-        self.pp_time = time.time() - start_time
+        self.pp_time = self.elapsed(start_time, c)
         return c

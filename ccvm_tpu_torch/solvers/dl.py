@@ -311,7 +311,7 @@ class DLSolver(CCVMSolver):
                 f"The parameter '{e.args[0]}' for the given instance size is not defined."
             ) from e
 
-        # An unported post-processor raises before the solve is spent.
+        # An unknown post-processor raises before the solve is spent.
         post_processor_object = (
             PostProcessorFactory.create_postprocessor(post_processor)
             if post_processor else None

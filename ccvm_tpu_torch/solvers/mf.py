@@ -301,7 +301,7 @@ class MFSolver(CCVMSolver):
         if not np.isscalar(S):
             raise not_ported("per-variable S on the MF solver", "queue 1 item 6")
 
-        # An unported post-processor raises before the solve is spent.
+        # An unknown post-processor raises before the solve is spent.
         post_processor_object = (
             PostProcessorFactory.create_postprocessor(post_processor)
             if post_processor else None

@@ -175,7 +175,7 @@ class PumpedLangevinSolver(CCVMSolver):
             raise not_ported("per-variable S on the pumped-Langevin solver",
                              "queue 1 item 7")
 
-        # An unported post-processor raises before the solve is spent.
+        # An unknown post-processor raises before the solve is spent.
         post_processor_object = (
             PostProcessorFactory.create_postprocessor(post_processor)
             if post_processor else None

@@ -85,7 +85,30 @@ exits non-zero without printing a result:
    and production's median at the main shape held at or below v2 fuse1's;
    and the dl_v2 / dl_v3 rows of the kernels line (time at the main shape,
    plain time and hold over 1,000 steps);
-9. the last line: {"ok": true, "device": {...}}.
+9. DL and DL-Adam at the other bundled sizes (N = 30, 40, 50, 60; the
+   first .in of each examples/benchmarking_instances/SizeNN), batch 1000,
+   noise off, 300 steps, each against its plain version at PARITY_TOL (their
+   specialisations are built, and their registers, spills and blocks per SM
+   printed, in phase 2);
+10. the post-processors on the main path: ``DLSolver``, ``MFSolver`` and
+   ``LangevinSolver(device="cuda")`` at N=70, batch 65536, 15,000
+   iterations, each with ``post_processor`` "adam", "asgd", "bfgs" and
+   "lbfgs" (timing "sync", so ``pp_time`` is the post-processor's own).
+   Run once beside phase 5's workers, each refinement is held against the
+   same post-processor on the CPU, on its input copied to the host, at
+   PP_TOL (BFGS: on all but BFGS_ROW_SHARE of the rows, and the batch's
+   mean energy to BFGS_MEAN_TOL), in a thread whose results are all read
+   before phase 6; run again right after phase 6, with the launch counts
+   zeroed before and read after: ``pp_time``, P(0.1%), P(1%) and
+   best/optimal of each, every value finite, and BFGS raising no row's
+   energy by more than BFGS_ENERGY_TOL;
+11. ``bench_torch.py`` in a child process of this script (``chip_smoke.py
+   --bench-child``, which runs its ``main`` with the launch counts zeroed
+   before and printed after), waited for and killed if the run fails: its
+   last stdout line parsed, ``bench.py``'s keys and metric name required
+   and a positive value, its stderr tables printed; the kernels line gains
+   each kernel's launches by phase (6, 10 and 11; 8 for the race's);
+12. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -100,6 +123,7 @@ import subprocess
 import sys
 import threading
 import time
+from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE70 = os.path.join(REPO, "examples", "benchmarking_instances", "Size70")
@@ -115,6 +139,10 @@ VALIDATE_MF = dict(pump=0.0, S=20.0, dt=0.0025, j=5.0, feedback_scale=4000.0)
 TUNED = os.path.join(REPO, "examples", "tuned_parameters.json")
 
 N = 70
+# The other bundled sizes (examples/benchmarking_instances/SizeNN), whose DL
+# specialisations phase 9 holds and bench_torch.py times; N=20 is the race
+# harness's, held in phase 8.
+BUNDLED_SIZES = (30, 40, 50, 60)
 MAIN_BATCH = 65536
 ITERATIONS = 15000
 G = 0.05  # DL
@@ -204,10 +232,44 @@ ADAM_PAIRS = (("dl_adam_solve", "dl_solve"), ("langevin_adam_solve", "langevin_s
 # bench.py's MF, Langevin and pumped rows on a TPU v5 lite in round 5
 # (BENCH_r05.json): quality references for the port, not speed targets.
 TPU_R5_P01 = {"mf": 1.000, "langevin": 0.958, "pumped": 0.994}
+# Phase 10 holds each post-processor's refinement on the card against the
+# same post-processor on the CPU at the tolerance of its CPU tests against
+# the JAX package (tests/test_torch_post_processors.py): float32 products
+# summed in another order, over 1 (Adam, ASGD, L-BFGS) or 50 (BFGS) steps.
+PP_TOL = {"adam": 1e-5, "asgd": 1e-5, "bfgs": 1e-4, "lbfgs": 1e-5}
+# ... except BFGS on this share of the rows: its 50 L-BFGS iterations
+# compare float32 energies in their Armijo tests and step rejections, and
+# where a test falls within round-off the card and the CPU take different
+# steps, so a row can end at another point of a non-convex objective (the
+# first runs on an NVIDIA H100 at 700 W: 562 and 1,100 of 65,536 rows of
+# MF's and Langevin's refinements over 1e-4, up to 1.99 apart, the card's
+# energy the lower on 54-56% of them).  The batch's mean energy is held
+# instead, to BFGS_MEAN_TOL of its size.
+BFGS_ROW_SHARE = 0.05
+BFGS_MEAN_TOL = 1e-5
+# BFGS may not raise any row's energy by more than this (float64 energies of
+# its input and output in [0, 1]).
+BFGS_ENERGY_TOL = 1e-4
+# Phase 11 waits this long for bench_torch.py.
+BENCH_TIMEOUT_S = 400
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device_amortised_rate")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def first_instance(n):
+    """The first .in of examples/benchmarking_instances/SizeNN."""
+    folder = os.path.join(REPO, "examples", "benchmarking_instances", f"Size{n}")
+    return os.path.join(folder, sorted(f for f in os.listdir(folder)
+                                       if f.endswith(".in"))[0])
+
+
+def energies64(x, q, v):
+    """0.5 x.Q.x + V.x per row, in float64."""
+    x, q, v = x.double(), q.double(), v.double()
+    return 0.5 * ((x @ q) * x).sum(-1) + x @ v
 
 
 def card_peaks(name):
@@ -255,6 +317,13 @@ def plain_solve(module, function, seed, q, v, params, kwargs):
     return out, time.perf_counter() - t
 
 
+def stop(proc):
+    """Kill ``proc`` if it still runs, and wait for it."""
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
 def plain_worker():
     """``chip_smoke.py --plain-worker``: one ``plain_solve``, its arguments
     pickled on standard input and its result pickled on standard output
@@ -263,6 +332,47 @@ def plain_worker():
     with os.fdopen(os.dup(1), "wb") as out:
         os.dup2(2, 1)
         pickle.dump(plain_solve(*job), out)
+
+
+def launch_counters():
+    """Each kernel's launch count: (wrapper, attribute) by kernel name."""
+    from ccvm_tpu_torch.ops import (dl_kernels, dl_variant_kernels,
+                                    langevin_kernels, mf_kernels)
+
+    return {
+        "dl_solve": (dl_kernels.dl_solve, "dl_launches"),
+        "dl_adam_solve": (dl_kernels.dl_solve, "dl_adam_launches"),
+        "mf_solve": (mf_kernels.mf_solve, "mf_launches"),
+        "mf_adam_solve": (mf_kernels.mf_solve, "mf_adam_launches"),
+        "langevin_solve": (langevin_kernels.langevin_solve, "langevin_launches"),
+        "langevin_adam_solve": (langevin_kernels.langevin_solve,
+                                "langevin_adam_launches"),
+        "pumped_langevin_solve": (langevin_kernels.pumped_langevin_solve,
+                                  "pumped_launches"),
+        "pumped_langevin_adam_solve": (langevin_kernels.pumped_langevin_solve,
+                                       "pumped_adam_launches"),
+        "dl_v2": (dl_variant_kernels.dl_v2, "launches"),
+        "dl_v3": (dl_variant_kernels.dl_v3, "launches"),
+    }
+
+
+def bench_child():
+    """``chip_smoke.py --bench-child``: ``bench_torch.py``'s ``main`` with
+    every launch count zeroed just before, and the counts read just after
+    printed on standard error as the last line (``# launches {...}``)."""
+    import importlib.util
+
+    sys.path.insert(0, REPO)
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch", os.path.join(REPO, "bench_torch.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    counters = launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    bench.main()
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    print(f"# launches {json.dumps(launched)}", file=sys.stderr, flush=True)
 
 
 class PlainWorkers:
@@ -394,6 +504,12 @@ def main(cleanup):
         "DL CUDA-core noise off": (N, None, False, False),
         "DL-Adam CUDA-core noise off": (N, adam_hps[0.999], False, False),
     }
+    # The other bundled sizes: phase 9's holds (noise off) and
+    # bench_torch.py's per-size table (noise on).
+    for n in BUNDLED_SIZES:
+        dl_cases.update({f"DL n {n}": (n, None, True, True),
+                         f"DL n {n} noise off": (n, None, False, True),
+                         f"DL-Adam n {n} noise off": (n, adam_hps[0.999], False, True)})
 
     def spec(n, hp, noise, mma):
         return dl_kernels._spec(n, hp, 1.0 if noise else 0.0, "popcount16", mma)
@@ -723,6 +839,7 @@ def main(cleanup):
         out = tuple(torch.from_numpy(a).cuda() for a in arrays)
         return (out if len(out) > 1 else out[0]), seconds
 
+    log(f"phase 3 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 3. noise off
     for kname, hp, label in cases:
         hold(kname, label, run_pair(0, 1024, 300, hp, 0.0)[2],
@@ -767,6 +884,7 @@ def main(cleanup):
     log("phase 3 stacked: a two-instance launch equals serial launches with "
         "seeds 11 and 12 bit for bit (DL, MF, Langevin and pumped Langevin)")
 
+    log(f"phase 4 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 4. noise on, the same Philox words
     for kname, hp, label in cases[:2]:
         hold(kname, label, run_pair(5, 1024, 100, hp, 1.0)[2],
@@ -778,6 +896,74 @@ def main(cleanup):
         hold(kname, label, lgv_run_pair(family, 5, 1024, 100, hp, 1.0)[2],
              "phase 4 noise on, popcount32, 100 steps,")
 
+    log(f"phase 10 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 10, the holds. The post-processors on the main path: DLSolver, MFSolver
+    # and LangevinSolver at the main shape with each post-processor (here
+    # beside phase 5's workers; their timed run is after phase 6), each
+    # refinement held against the same post-processor on the CPU, on its
+    # input copied to the host, in a thread whose every result is read
+    # before phase 6 times anything.
+    from ccvm_tpu_torch.post_processor import PostProcessorFactory
+
+    create = PostProcessorFactory.create_postprocessor
+    captured = []
+
+    def capturing(method):
+        """The factory's post-processor, its input and itself recorded."""
+        pp = create(method)
+        refine = pp.postprocess
+
+        def postprocess(c, q_matrix, v_vector, *args, **kwargs):
+            captured.append((pp, c.clone()))
+            return refine(c, q_matrix, v_vector, *args, **kwargs)
+
+        pp.postprocess = postprocess
+        return pp
+
+    def on_cpu(method, c, q, v):
+        return create(method).postprocess(c, q, v)
+
+    pp_cases = (("DL", DLSolver, pk, inst, {}),
+                ("MF", MFSolver, mf_pk, mf_inst, {"g": MF_G}),
+                ("Langevin", LangevinSolver, lgv_pk["langevin"], lgv_inst["langevin"], {}))
+
+    def pp_runs(then=None):
+        """(Solution, post-processor, its input, instance) by (solver, method):
+        the façades at the main shape (timing "sync", so pp_time is the
+        post-processor's own), seed 1; ``then(key, run)`` after each run."""
+        runs = {}
+        with mock.patch.object(PostProcessorFactory, "create_postprocessor",
+                               staticmethod(capturing)):
+            for label, cls, pkey, inst_, call in pp_cases:
+                pp_solver = cls(device="cuda", batch_size=MAIN_BATCH)
+                pp_solver.parameter_key = pkey
+                for method in PP_TOL:
+                    sol = pp_solver(inst_, seed=1, post_processor=method, **call)
+                    (pp, c_in), = captured
+                    captured.clear()
+                    runs[label, method] = (sol, pp, c_in, inst_)
+                    if then is not None:
+                        then((label, method), runs[label, method])
+        return runs
+
+    t10 = time.perf_counter()
+    # The CPU holds take cores that phase 5's workers share: three threads,
+    # each hold started as soon as its run has ended.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(3, threads))
+    cpu_holds = concurrent.futures.ThreadPoolExecutor(1)
+    cleanup.callback(cpu_holds.shutdown, wait=True, cancel_futures=True)
+    cpu_refinements = {}
+
+    def hold_on_cpu(key, run):
+        _, _, c_in, inst_ = run
+        cpu_refinements[key] = cpu_holds.submit(
+            on_cpu, key[1], c_in.cpu(), inst_.q_matrix.cpu(), inst_.v_vector.cpu())
+
+    held = pp_runs(then=hold_on_cpu)
+    log(f"phase 10 post-processors to hold: {len(held)} façade runs on the card in "
+        f"{time.perf_counter() - t10:.1f} s; their CPU holds run beside phase 5")
+    log(f"phase 5 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 5. noise on, statistics over a full-length solve
     def performance(instance_, energies, batch):
         return Solution(
@@ -861,6 +1047,40 @@ def main(cleanup):
         f"processes, all ended {time.perf_counter() - t_pool:.1f} s after the first "
         f"started")
 
+    t10 = time.perf_counter()
+    for (label, method), future in cpu_refinements.items():
+        sol, _, _, inst_ = held[label, method]
+        out, ref = sol.variables["problem_variables"].cpu(), future.result()
+        diff = (out - ref).abs()
+        tol = PP_TOL[method]
+        rows = int((diff > tol).any(1).sum())
+        allowed = int(BFGS_ROW_SHARE * MAIN_BATCH) if method == "bfgs" else 0
+        log(f"phase 10 {label} with {method}: max |card - CPU| = "
+            f"{diff.max().item():.3e} (tol {tol}), {int((diff > tol).sum())} of "
+            f"{diff.numel()} elements in {rows} rows over it (at most {allowed} rows "
+            f"may be)")
+        if method == "bfgs":
+            # What BFGS minimises, at both ends: on the rows that parted, and
+            # its mean over the batch.
+            q_, v_ = inst_.q_matrix.cpu(), inst_.v_vector.cpu()
+            e_card, e_cpu = (energies64(0.5 * (x + 1), q_, v_) for x in (out, ref))
+            apart = (diff > tol).any(1)
+            shift = abs(e_card.mean().item() - e_cpu.mean().item()) / abs(e_cpu.mean().item())
+            log(f"  on those rows the card's energy is lower on "
+                f"{int((e_card[apart] < e_cpu[apart]).sum())} and higher on "
+                f"{int((e_card[apart] > e_cpu[apart]).sum())}; the batch's mean energy "
+                f"{e_card.mean().item():.6f} on the card, {e_cpu.mean().item():.6f} on "
+                f"the CPU ({shift:.2e} apart, at most {BFGS_MEAN_TOL})")
+            if shift > BFGS_MEAN_TOL:
+                failures.append(f"{label} with bfgs: mean energy {shift} apart")
+        if rows > allowed:
+            failures.append(f"{label} with {method}: {rows} rows of card against CPU "
+                            f"over {tol} (max {diff.max().item()})")
+    cpu_holds.shutdown()
+    torch.set_num_threads(threads)
+    log(f"phase 10 CPU holds: all read {time.perf_counter() - t10:.1f} s after the "
+        f"workers ended")
+    log(f"phase 6 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 6. main paths, through the façades
     def event_timed(cls):
         class EventTimed(cls):
@@ -880,21 +1100,7 @@ def main(cleanup):
 
         return EventTimed
 
-    counters = {
-        "dl_solve": (dl_kernels.dl_solve, "dl_launches"),
-        "dl_adam_solve": (dl_kernels.dl_solve, "dl_adam_launches"),
-        "mf_solve": (mf_kernels.mf_solve, "mf_launches"),
-        "mf_adam_solve": (mf_kernels.mf_solve, "mf_adam_launches"),
-        "langevin_solve": (langevin_kernels.langevin_solve, "langevin_launches"),
-        "langevin_adam_solve": (langevin_kernels.langevin_solve,
-                                "langevin_adam_launches"),
-        "pumped_langevin_solve": (langevin_kernels.pumped_langevin_solve,
-                                  "pumped_launches"),
-        "pumped_langevin_adam_solve": (langevin_kernels.pumped_langevin_solve,
-                                       "pumped_adam_launches"),
-        "dl_v2": (dl_variant_kernels.dl_v2, "launches"),
-        "dl_v3": (dl_variant_kernels.dl_v3, "launches"),
-    }
+    counters = launch_counters()
     assert tuple(counters) == KERNELS
 
     def zero_counts():
@@ -1001,6 +1207,36 @@ def main(cleanup):
         assert launched == only(**{adam_kname: 1}), launched
         launches[adam_kname] = launched[adam_kname]
 
+    # 10, the timed run: the same façade runs with the card to themselves,
+    # the launch counts zeroed before and read after.
+    t10 = time.perf_counter()
+    zero_counts()
+    timed_runs = pp_runs()
+    launched_pp = counts()
+    assert launched_pp == only(dl_solve=4, mf_solve=4, langevin_solve=4), launched_pp
+    for (label, method), (sol, pp, c_in, inst_) in timed_runs.items():
+        out = sol.variables["problem_variables"]
+        assert out.shape == (MAIN_BATCH, N) and out.is_cuda
+        if not (torch.isfinite(out).all() and np.all(np.isfinite(sol.objective_values))):
+            failures.append(f"{label} with {method}: not finite")
+        perf = sol.solution_performance
+        again = (out - held[label, method][0].variables["problem_variables"]).abs().max()
+        log(f"phase 10 {label} with {method}: pp_time {1e3 * pp.pp_time:.1f} ms at batch "
+            f"{MAIN_BATCH}, N={N}, P(0.1%)={perf['optimal']:.4f} "
+            f"P(1%)={perf['one_percent']:.4f} best={sol.best_objective_value:.3f}/"
+            f"{sol.optimal_value:.3f}; max |this run - the held run| {again.item():.3e}")
+        if method == "bfgs":
+            rise = (energies64(0.5 * (out + 1), inst_.q_matrix, inst_.v_vector)
+                    - energies64(0.5 * (c_in + 1), inst_.q_matrix,
+                                 inst_.v_vector)).max().item()
+            log(f"  {label} bfgs: largest rise of a row's energy {rise:.3e} "
+                f"(at most {BFGS_ENERGY_TOL})")
+            if rise > BFGS_ENERGY_TOL:
+                failures.append(f"{label} bfgs raised an energy by {rise}")
+    del held, timed_runs
+    log(f"phase 10 post-processors timed: {time.perf_counter() - t10:.1f} s; launches "
+        f"{launched_pp}")
+    log(f"phase 7 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 7. kernels: time, bound and plain time at the main-path shape
     def timed(fn):
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1123,6 +1359,7 @@ def main(cleanup):
         if ratio > ADAM_OVER_PLAIN:
             failures.append(f"{adam_kname} takes {ratio:.3f} x {plain_kname}'s time")
 
+    log(f"phase 8 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 8. the DL race harness: each variant against its plain version, its
     # statistics against production's, the race, and its kernels-line row
     t8 = time.perf_counter()
@@ -1301,6 +1538,66 @@ def main(cleanup):
             f"{EARLIER_PLAIN_DEPTH} steps, bound {b_ms:.1f} ms ({b_by}) at batch "
             f"{MAIN_BATCH}, N={N}, {ITERATIONS} steps")
     log(f"phase 8 DL race harness: {time.perf_counter() - t8:.1f} s")
+
+    log(f"phase 9 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 9. DL and DL-Adam at the other bundled sizes, noise off, against their
+    # plain versions, with each size's tuned parameters
+    t9 = time.perf_counter()
+    for n in BUNDLED_SIZES:
+        path = first_instance(n)
+        inst_n = instance(path)
+        t = tuned_all["dl"][str(n)]
+        solver_n = DLSolver(device="cuda")
+        solver_n.solution_bounds = inst_n.solution_bounds
+        p = solver_n._make_params(t["pump"], 1.0, t["dt"], t["noise_ratio"],
+                                  t["feedback_scale"], G, 300)
+        for kname, hp, label in cases[:2]:
+            kw = dict(iterations=300, batch_size=1000, pump_rate_flag=True,
+                      pump_is_gt_one=t["pump"] > 1, noise_scale=0.0,
+                      rng="popcount16", hp=hp)
+            out = dl_kernels.dl_solve(0, inst_n.q_matrix, inst_n.v_vector, p, **kw)
+            ref = dl_kernels.dl_solve_reference(0, inst_n.q_matrix, inst_n.v_vector,
+                                                p, **kw)
+            for x in out:
+                assert x.shape == (1000, n) and torch.isfinite(x).all(), \
+                    f"{label} N={n}: output not finite or of the wrong shape"
+            hold(kname, f"{label.split()[0]} N={n} ({os.path.basename(path)})",
+                 max_diff(out, ref), "phase 9 noise off, batch 1000, 300 steps, c and s,")
+    log(f"phase 9 DL at the bundled sizes: {time.perf_counter() - t9:.1f} s")
+
+    log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 11. bench_torch.py, in a child process that is waited for and killed
+    # if the run fails
+    t11 = time.perf_counter()
+    bench = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--bench-child"],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cleanup.callback(stop, bench)
+    out, err = bench.communicate(timeout=BENCH_TIMEOUT_S)
+    if bench.returncode != 0:
+        raise RuntimeError(f"bench_torch.py exited with {bench.returncode}:\n"
+                           f"{err[-4000:]}")
+    line = out.strip().splitlines()[-1]
+    result = json.loads(line)
+    missing = [k for k in BENCH_KEYS if k not in result]
+    assert not missing, f"bench_torch.py's line lacks {missing}: {line}"
+    assert result["metric"] == f"dl_ccvm_sde_throughput_n{N}_b{MAIN_BATCH}_i{ITERATIONS}"
+    assert result["value"] > 0 and result["device_amortised_rate"] > 0, result
+    log(f"phase 11 bench_torch.py: {line}")
+    for ln in err.strip().splitlines():
+        log(f"  {ln}")
+    launched_bench = json.loads(err.strip().splitlines()[-1].split("# launches ", 1)[1])
+    assert launched_bench == only(**{
+        k: launched_bench[k] for k in ("dl_solve", "mf_solve", "langevin_solve",
+                                       "pumped_langevin_solve")}), launched_bench
+    assert all(launched_bench[k] > 0 for k in ("dl_solve", "mf_solve", "langevin_solve",
+                                               "pumped_langevin_solve")), launched_bench
+    log(f"phase 11 benchmark: {time.perf_counter() - t11:.1f} s")
+    for row in kernels:
+        name_ = row["name"]
+        row["launches_by_phase"] = (
+            {"8": row["launches"]} if name_ in ("dl_v2", "dl_v3") else
+            {"6": row["launches"], "10": launched_pp[name_],
+             "11": launched_bench[name_]})
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -1311,6 +1608,8 @@ def main(cleanup):
 if __name__ == "__main__":
     if sys.argv[1:] == ["--plain-worker"]:
         plain_worker()
+    elif sys.argv[1:] == ["--bench-child"]:
+        bench_child()
     else:
         with contextlib.ExitStack() as stack:
             main(stack)

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, no ccvm_tpu, no pandas or matplotlib; its
-kernels build only with nvcc and never fall back (CPU)."""
+"""The port stands alone: no JAX and no ccvm_tpu anywhere, pandas and
+matplotlib only in its host-only plotting package; its kernels build only
+with nvcc and never fall back (CPU)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import ccvm_tpu_torch.dynamics.langevin, ccvm_tpu_torch.dynamics.pumped_langevin;"
         "import ccvm_tpu_torch.post_processor;"
         "import ccvm_tpu_torch.ops.dl_variant_kernels, ccvm_tpu_torch.tools.kernel_experiments;"
+        "import ccvm_tpu_torch.post_processor.adam, ccvm_tpu_torch.post_processor.asgd;"
+        "import ccvm_tpu_torch.post_processor.bfgs, ccvm_tpu_torch.post_processor.lbfgs;"
+        "import ccvm_tpu_torch.ops.lbfgs, ccvm_tpu_torch.metadata, ccvm_tpu_torch.tools.lbfgs_race;"
+        "import ccvm_tpu_torch.ccvmplotlib.utils.sampleTTSmetric;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -45,40 +50,88 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+PLOTTING = os.path.join(PKG, "ccvmplotlib")
+BENCH = os.path.join(REPO, "bench_torch.py")
+
+
 def _port_python_sources():
     for root, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield BENCH
 
 
-def _foreign(name):
+def _foreign(name, path):
+    """jax and ccvm_tpu are foreign everywhere; pandas and matplotlib
+    everywhere but in the plotting package."""
     head = name.split(".")[0]
-    return head in ("jax", "jaxlib", "ccvm_tpu", "pandas", "matplotlib")
+    if head in ("pandas", "matplotlib"):
+        return not path.startswith(PLOTTING + os.sep)
+    return head in ("jax", "jaxlib", "ccvm_tpu")
+
+
+def _imports(tree):
+    """(module name, line, inside a function) of every import statement and
+    every module-like string constant (a name handed to importlib)."""
+    found = []
+
+    def visit(node, in_function):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if re.fullmatch(r"[A-Za-z_][\w.]*", node.value):
+                names = [node.value]
+        found.extend((n, node.lineno, in_function) for n in names)
+        inner = in_function or isinstance(
+            node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, inner)
+
+    visit(tree, False)
+    return found
 
 
 def test_sources_import_neither_jax_nor_ccvm_tpu():
     """No import statement, and no module name handed to importlib or
-    __import__, names jax or ccvm_tpu (other than as ccvm_tpu_torch).
-    Citations of the JAX package's files in comments are allowed: they say
-    which TPU code each part replaces."""
+    __import__, names jax or ccvm_tpu (other than as ccvm_tpu_torch) in the
+    port, chip_smoke.py or bench_torch.py, nor pandas or matplotlib outside
+    the plotting package ccvm_tpu_torch/ccvmplotlib/.  Citations of the JAX
+    package's files in comments are allowed: they say which TPU code each
+    part replaces."""
     offenders = []
     for path in _port_python_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
-                names = [node.module]
-            elif isinstance(node, ast.Constant) and isinstance(node.value, str):
-                if re.fullmatch(r"[A-Za-z_][\w.]*", node.value):
-                    names = [node.value]
-            rel = os.path.relpath(path, REPO)
-            offenders += [f"{rel}:{node.lineno}:{n}" for n in names if _foreign(n)]
+        rel = os.path.relpath(path, REPO)
+        offenders += [f"{rel}:{line}:{name}" for name, line, _ in _imports(tree)
+                      if _foreign(name, path)]
     assert not offenders, offenders
+
+
+def test_only_bench_torch_reaches_the_plotting_package_and_inside_a_function():
+    """The plotting package (pandas, matplotlib) is imported by nothing else
+    of the port, nor by chip_smoke.py; bench_torch.py imports it only inside
+    a function (its TTS column), so it starts on a host without pandas."""
+    offenders, bench_imports = [], []
+    for path in _port_python_sources():
+        if path.startswith(PLOTTING + os.sep):
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for name, line, in_function in _imports(tree):
+            if not name.startswith("ccvm_tpu_torch.ccvmplotlib"):
+                continue
+            if path == BENCH and in_function:
+                bench_imports.append(name)
+            else:
+                offenders.append(f"{os.path.relpath(path, REPO)}:{line}:{name}")
+    assert not offenders, offenders
+    assert bench_imports, "bench_torch.py's TTS column reads the plotting package"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

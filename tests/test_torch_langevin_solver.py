@@ -37,6 +37,22 @@ FAMILIES = {
 }
 
 
+# Where a post-processor's result is decided by the float32 round-off of
+# its input, the two sides part by more than round-off, so the façades are
+# held to what was measured here: (rtol of the objective values and the
+# best value, atol of the problem variables); the statistics stay exact.
+#   adam: its first step is lr g / (|g| + eps), +-0.01 on a coordinate
+#     whose gradient the converged solve left at round-off, with the sign
+#     of that round-off (best values 1.0e-5 apart on Langevin-Adam);
+#   bfgs: 50 L-BFGS iterations reach the box minimum of the relaxed
+#     objective, where the float32 energy is flat to an ulp, and each side
+#     stops where its own round-off fails the next step's test, up to
+#     sqrt(ulp(f) / lambda_min) ~ 6e-4 apart in x, read at 2 (x - 0.5),
+#     where the gradient is not zero (objectives 7.6e-4 apart).
+# tests/test_torch_post_processors.py holds both alone at 1e-5 and 1e-4.
+ROUND_OFF_DECIDED = {"adam": (1e-4, 2e-2), "bfgs": (2e-3, 2e-3)}
+
+
 def _solve(solver_cls, instance_cls, params, batch=64, **call):
     solver = solver_cls(device="cpu", batch_size=batch)
     solver.parameter_key = params
@@ -45,7 +61,8 @@ def _solve(solver_cls, instance_cls, params, batch=64, **call):
     return solver(inst, seed=3, **call)
 
 
-@pytest.mark.parametrize("post_processor", [None, "grad-descent"])
+@pytest.mark.parametrize("post_processor",
+                         [None, "grad-descent", "adam", "asgd", "bfgs", "lbfgs"])
 @pytest.mark.parametrize("adam", [False, True])
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_facades_agree_without_diffusion(family, adam, post_processor):
@@ -57,16 +74,20 @@ def test_facades_agree_without_diffusion(family, adam, post_processor):
         tcall["algorithm_parameters"] = AdamParameters(alpha=alpha)
     sol_j = _solve(jcls, JProblemInstance, params, **jcall)
     sol_t = _solve(tcls, ProblemInstance, params, **tcall)
+    rtol, atol = ROUND_OFF_DECIDED.get(post_processor, (None, None))
     np.testing.assert_allclose(np.asarray(sol_t.objective_values),
-                               np.asarray(sol_j.objective_values), rtol=1e-4)
+                               np.asarray(sol_j.objective_values), rtol=rtol or 1e-4)
     assert sol_t.solution_performance == sol_j.solution_performance
     assert sol_t.best_objective_value == pytest.approx(
-        sol_j.best_objective_value, rel=1e-6)
-    # (c + S) / (2S) maps into [0, 1] before the post-processor.
+        sol_j.best_objective_value, rel=rtol or 1e-6)
+    # (c + S) / (2S) maps into [0, 1] before the post-processor (BFGS hands
+    # back 2 (x - 0.5), in [-1, 1]).
     pv = sol_t.variables["problem_variables"]
-    assert pv.shape == (64, 20) and 0.0 <= pv.min() and pv.max() <= 1.0
+    low = -1.0 if post_processor == "bfgs" else 0.0
+    assert pv.shape == (64, 20) and low <= pv.min() and pv.max() <= 1.0
     np.testing.assert_allclose(
-        pv.numpy(), np.asarray(sol_j.variables["problem_variables"]), atol=1e-4)
+        pv.numpy(), np.asarray(sol_j.variables["problem_variables"]),
+        atol=atol or 1e-4)
     assert (sol_t.pp_time > 0) == (post_processor is not None)
 
 
@@ -121,10 +142,13 @@ def test_pumped_has_only_the_cpu_and_gpu_machine_models():
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize(
     "call",
-    [{"evolution_step_size": 10}, {"post_processor": "bfgs"}],
+    [{"evolution_step_size": 10},
+     {"post_processor": "bfgs", "evolution_step_size": 10}],
     ids=["evolution", "post_processor"],
 )
 def test_features_left_out_raise(family, call):
+    """Every post-processor is ported; a post-processed evolution run still
+    raises, before the solve is spent."""
     _, tcls, params, _ = FAMILIES[family]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _solve(tcls, ProblemInstance, params, batch=8, **call)

@@ -35,6 +35,23 @@ PARAMS = {20: {"pump": 0.5, "feedback_scale": 4000.0, "j": 5.0, "S": 20.0,
                "dt": 0.0025, "iterations": 300}}
 DL_PARAMS = {20: {"pump": 8.0, "feedback_scale": 100.0, "noise_ratio": 10.0,
                   "dt": 0.001, "iterations": 200}}
+# No post-processor, and each of the five (tests/test_torch_post_processors.py
+# holds each alone against the JAX package).
+POST_PROCESSORS = [None, "grad-descent", "adam", "asgd", "bfgs", "lbfgs"]
+# Where a post-processor's result is decided by the float32 round-off of
+# its input, the two sides part by more than round-off, so the façades are
+# held to what was measured here: (rtol of the objective values and the
+# best value, atol of the problem variables); the statistics stay exact.
+#   adam: its first step is lr g / (|g| + eps), +-0.01 on a coordinate
+#     whose gradient the converged solve left at round-off, with the sign
+#     of that round-off (best values 1.0e-5 apart on Langevin-Adam);
+#   bfgs: 50 L-BFGS iterations reach the box minimum of the relaxed
+#     objective, where the float32 energy is flat to an ulp, and each side
+#     stops where its own round-off fails the next step's test, up to
+#     sqrt(ulp(f) / lambda_min) ~ 6e-4 apart in x, read at 2 (x - 0.5),
+#     where the gradient is not zero (objectives 7.6e-4 apart).
+# tests/test_torch_post_processors.py holds both alone at 1e-5 and 1e-4.
+ROUND_OFF_DECIDED = {"adam": (1e-4, 2e-2), "bfgs": (2e-3, 2e-3)}
 
 
 @pytest.fixture
@@ -59,15 +76,16 @@ def _solve(solver_cls, instance_cls, params=PARAMS, batch=64, **call):
     return solver(inst, seed=3, **call)
 
 
-def _agree(sol_t, sol_j):
+def _agree(sol_t, sol_j, post_processor=None):
+    rtol, _ = ROUND_OFF_DECIDED.get(post_processor, (None, None))
     np.testing.assert_allclose(np.asarray(sol_t.objective_values),
-                               np.asarray(sol_j.objective_values), rtol=1e-4)
+                               np.asarray(sol_j.objective_values), rtol=rtol or 1e-4)
     assert sol_t.solution_performance == sol_j.solution_performance
     assert sol_t.best_objective_value == pytest.approx(
-        sol_j.best_objective_value, rel=1e-6)
+        sol_j.best_objective_value, rel=rtol or 1e-6)
 
 
-@pytest.mark.parametrize("post_processor", [None, "grad-descent"])
+@pytest.mark.parametrize("post_processor", POST_PROCESSORS)
 @pytest.mark.parametrize("adam", [False, True])
 def test_mf_facades_agree_without_noise(noise_off, post_processor, adam):
     jcall = {"post_processor": post_processor}
@@ -77,9 +95,14 @@ def test_mf_facades_agree_without_noise(noise_off, post_processor, adam):
         tcall["algorithm_parameters"] = AdamParameters(alpha=0.05)
     sol_j = _solve(JMFSolver, JProblemInstance, **jcall)
     sol_t = _solve(MFSolver, ProblemInstance, **tcall)
-    _agree(sol_t, sol_j)
+    _agree(sol_t, sol_j, post_processor)
     pv = sol_t.variables["problem_variables"]
-    assert pv.shape == (64, 20) and 0.0 <= pv.min() and pv.max() <= 1.0
+    # BFGS hands back 2 (x - 0.5), in [-1, 1].
+    low = -1.0 if post_processor == "bfgs" else 0.0
+    assert pv.shape == (64, 20) and low <= pv.min() and pv.max() <= 1.0
+    np.testing.assert_allclose(
+        pv.numpy(), np.asarray(sol_j.variables["problem_variables"]),
+        atol=ROUND_OFF_DECIDED.get(post_processor, (None, 1e-4))[1])
     np.testing.assert_allclose(sol_t.variables["mu"].numpy(),
                                np.asarray(sol_j.variables["mu"]), atol=1e-3)
     assert (sol_t.pp_time > 0) == (post_processor is not None)
@@ -128,10 +151,13 @@ def test_machine_time_and_energy_match_jax():
 
 @pytest.mark.parametrize(
     "call",
-    [{"evolution_step_size": 10}, {"post_processor": "bfgs"}],
+    [{"evolution_step_size": 10},
+     {"post_processor": "bfgs", "evolution_step_size": 10}],
     ids=["evolution", "post_processor"],
 )
 def test_features_left_out_raise(call):
+    """Every post-processor is ported; a post-processed evolution run still
+    raises, before the solve is spent."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _solve(MFSolver, ProblemInstance, batch=8, **call)
 
