@@ -21,6 +21,25 @@ constexpr int kMaxThreads = 256;
 
 enum Rng { kPopcount32 = 0, kPopcount16 = 1, kPopcount = 2, kBoxMuller = 3 };
 
+// A segment launch (the CCVM_SEG builds of each template; the wrappers'
+// *_solve_segment): `iterations` steps from absolute step `start` of a solve
+// of `total` steps, from a given state, with the whole state written back,
+// the Adam moments included.  The Philox counter is keyed by the absolute
+// step and the entry point hands the kernel the step table from row `start`
+// on, so a solve cut into segments equals the whole launch bit for bit; the
+// step loop itself counts from 0, as a whole solve's does (an absolute loop
+// index cost pumped Langevin a spill).  The host passes the same layout
+// (ops/build.py Segment); the kernel takes it by value, in the constant
+// bank.
+struct Segment {
+  const float* in[6];  // the state at step `start`, in the kernel's order;
+                       // in[0] nullptr: the solve's initial state
+  float* out[6];       // the moments at the end, in the kernel's order
+  float* clamped;      // DL: c clamped to +-S at the end (nullptr: none)
+  int start;           // absolute step of the launch's first step
+  int total;           // the whole solve's steps (rows of the step table)
+};
+
 // Philox streams (counter word 3) a pair transform consumes per element.
 __host__ __device__ constexpr int streams_of(int rng) {
   return rng == kPopcount16 ? 1 : rng == kPopcount ? 6 : 2;

@@ -91,6 +91,22 @@
 // loads Q once per warp), and a persistent schedule if the last wave's 12%
 // idle share comes to matter.
 //
+// Two build flags of the tensor-core design serve the façades' evolution
+// sampling and per-variable S (the solvers never set them for a whole solve
+// with a scalar S, whose code they leave as it is):
+//   * CCVM_SEG 1, a segment launch (ccvm_common.cuh Segment): the state c, s
+//     and the four moments are read at the start, the Philox counter is the
+//     absolute step, c is written raw (samples are the pre-clamp states) with
+//     its clamp to +-S in its own output on the last segment, and the
+//     moments are written back;
+//   * CCVM_COLS, a per-column S (an (n,) vector, cols (3, n): S_j,
+//     span/S_j, 0.25*span/S_j): 1 takes S_j into the final clamp only (pump
+//     > 1, where the drift's S_d = sqrt(pump-1) is a scalar), 2 also into
+//     the drift (pump <= 1, S_d = S_j): x of k-tile kt is z*span/S_k, the
+//     feedback of column j is scaled by 0.25*span/S_j and g3_j =
+//     V_j*span/(2 S_j), each per-column factor read from shared memory.
+// The CUDA-core design (MMA = 0, the race row) takes neither.
+//
 // Philox, the Wiener transforms, the clip and the CUDA-core launch shape are
 // shared with the other kernels through ccvm_common.cuh.  Specialisations
 // (the template parameters) are chosen at build time with -D flags by
@@ -245,10 +261,12 @@ __host__ __device__ constexpr int own_float4s(int nt, bool adam) {
 }
 
 // Shared-memory floats of the tensor-core block: Q's fragments (hi, hi, lo,
-// lo per lane), the per-column offsets, and each lane's own float4s.
+// lo per lane), the per-column offsets (and with a per-column S_d the
+// per-column x and feedback scales), and each lane's own float4s.
 __host__ __device__ constexpr long long mma_smem_floats(int nt, int warps,
-                                                        bool adam) {
-  return 4LL * nt * nt * 32 + 8LL * nt + 4LL * own_float4s(nt, adam) * 32 * warps;
+                                                        bool adam, int cols) {
+  return 4LL * nt * nt * 32 + 8LL * nt * (cols == 2 ? 3 : 1) +
+         4LL * own_float4s(nt, adam) * 32 * warps;
 }
 
 // The lane's trajectory row and its lane id, from the ids read anew: values
@@ -265,16 +283,20 @@ __device__ __forceinline__ unsigned lane_row(unsigned& ln) {
 // A fragments are built from the lane's state z_of(kt) (its own
 // accumulator-layout tile), split into TF32 hi and lo; each Q fragment is one
 // 16-byte load (hi, hi, lo, lo).
-template <int NT, class ZOf>
+// With COLS == 2 the x scale is the column's, xsc[8kt+2t+h].
+template <int NT, int COLS, class ZOf>
 __device__ __forceinline__ void matvec(float (&acc)[NT][4],
                                        const float4* __restrict__ qf, int lane,
-                                       const DLScalars& p, const ZOf& z_of) {
+                                       const DLScalars& p, const float* xsc,
+                                       const ZOf& z_of) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 #pragma unroll
   for (int kt = 0; kt < NT; ++kt) {
     const float4 z = z_of(kt);
-    const float x[4] = {z.x * p.xscale, z.z * p.xscale, z.y * p.xscale, z.w * p.xscale};
+    float2 xs = make_float2(p.xscale, p.xscale);
+    if (COLS == 2) xs = *reinterpret_cast<const float2*>(xsc + 8 * kt + 2 * (lane & 3));
+    const float x[4] = {z.x * xs.x, z.z * xs.x, z.y * xs.y, z.w * xs.y};
     uint32_t ah[4], al[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -293,16 +315,19 @@ __device__ __forceinline__ void matvec(float (&acc)[NT][4],
 }
 
 template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG,
-          int NT>
+          int NT, int COLS, bool SEG>
 __device__ __forceinline__ void dl_mma_body(
     const float* __restrict__ q, const float* __restrict__ v,
     const float4* __restrict__ steps, float* __restrict__ c_out,
     float* __restrict__ s_out, int batch, int n, int iterations,
-    unsigned long long seed, const DLScalars& p, float* smem) {
+    unsigned long long seed, const DLScalars& p, const float* __restrict__ cols,
+    const Segment& sg, float* smem) {
   constexpr int NP = 8 * NT;
   float4* qf = reinterpret_cast<float4*>(smem);  // (k-tile, n-tile, lane)
   float* offs = smem + 4 * NT * NT * 32;         // (NP)
-  float4* own = reinterpret_cast<float4*>(offs + NP);  // (warp, own_float4s, lane)
+  float* xsc = offs + NP;                        // COLS == 2: (NP) span/S_j
+  float* fbs = xsc + NP;                         // COLS == 2: (NP) 0.25 span/S_j
+  float4* own = reinterpret_cast<float4*>(offs + (COLS == 2 ? 3 : 1) * NP);
 
   const int inst = blockIdx.y;
   const int tid = threadIdx.x;
@@ -325,13 +350,20 @@ __device__ __forceinline__ void dl_mma_body(
   // cores, and (u+l) * (column sums of Q), once per block in fp32: the mma
   // accumulates the centred part only, whose smaller sums lose less to its
   // fp32 accumulation (which truncates).  offs[j] = 0.25*span/S_d times that
-  // column term, plus g3 = V*span/(2 S_d).
+  // column term, plus g3 = V*span/(2 S_d) (with COLS == 2 the column's
+  // scales and S_j).
   for (int j = tid; j < NP; j += blockDim.x) {
     float colsum = 0.0f;
     for (int k = 0; k < n && j < n; ++k) colsum += qi[k * n + j];
-    offs[j] = j < n ? p.fbscale * (p.mid * colsum) +
-                          v[(size_t)inst * n + j] * (p.hi - p.lo) / (2.0f * p.S_d)
+    const float s_d = COLS == 2 && j < n ? cols[j] : p.S_d;
+    const float fbscale = COLS == 2 && j < n ? cols[2 * n + j] : p.fbscale;
+    offs[j] = j < n ? fbscale * (p.mid * colsum) +
+                          v[(size_t)inst * n + j] * (p.hi - p.lo) / (2.0f * s_d)
                     : 0.0f;
+    if (COLS == 2) {
+      xsc[j] = j < n ? cols[n + j] : 0.0f;
+      fbs[j] = fbscale;
+    }
   }
   __syncthreads();  // the block's only barrier
   if (row0 >= batch) return;  // whole warps only: no later barrier
@@ -355,11 +387,33 @@ __device__ __forceinline__ void dl_mma_body(
   const auto set_z = [&](int j, const float4& z) {
     if (j < kReg) zr[j] = z; else my[(j - kReg) * 32] = z;
   };
+  if (SEG && sg.in[0] != nullptr) {
+    // The state at step `start`: c, s, m_c, v_c, m_s, v_s of the lane's row
+    // at columns 8j+2t+h, in the accumulator layout (c h=0, c h=1, s h=0,
+    // s h=1); zero beyond n and the batch.
+    const int row = row0 + (lane >> 2);
+    const auto pair = [&](int a, int j, int h) -> float {
+      const int col = 8 * j + 2 * (lane & 3) + h;
+      return row < batch && col < n ? sg.in[a][((size_t)inst * batch + row) * n + col]
+                                    : 0.0f;
+    };
+    const auto quad = [&](int a, int b, int j) {
+      return make_float4(pair(a, j, 0), pair(a, j, 1), pair(b, j, 0), pair(b, j, 1));
+    };
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      set_z(j, quad(0, 1, j));
+      if (ADAM) {
+        my[(kMom + j) * 32] = quad(2, 4, j);
+        if (!BETA2_ONE) my[(kMom + NT + j) * 32] = quad(3, 5, j);
+      }
+    }
+  }
   const uint2 key = seed_key(seed, inst);
 
   for (int i = 0; i < iterations; ++i) {
     float acc[NT][4];
-    matvec<NT>(acc, qf, lane, p, z_of);
+    matvec<NT, COLS>(acc, qf, lane, p, xsc, z_of);
     const StepScalars st = step_scalars<ADAM>(steps, i);
 
     constexpr int NS = streams_of(RNG);
@@ -381,7 +435,8 @@ __device__ __forceinline__ void dl_mma_body(
 #pragma unroll
         for (int sidx = 0; sidx < NS; ++sidx) {
           const uint4 w = philox4x32_10(
-              make_uint4((unsigned)i, row_i, cg, (unsigned)sidx), key);
+              make_uint4((unsigned)(SEG ? i + sg.start : i), row_i, cg, (unsigned)sidx),
+              key);
           const unsigned own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;
           const unsigned r0 = __shfl_xor_sync(0xFFFFFFFFu, odd ? w.x : w.z, 1);
           const unsigned r1 = __shfl_xor_sync(0xFFFFFFFFu, odd ? w.y : w.w, 1);
@@ -403,6 +458,8 @@ __device__ __forceinline__ void dl_mma_body(
           if (!BETA2_ONE) v4 = my[(kMom + NT + j) * 32];
         }
         const float2 off = *reinterpret_cast<const float2*>(offs + 8 * j + 2 * (ln & 3));
+        float2 fb = make_float2(p.fbscale, p.fbscale);
+        if (COLS == 2) fb = *reinterpret_cast<const float2*>(fbs + 8 * j + 2 * (ln & 3));
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float z1 = 0.0f, z2 = 0.0f;
@@ -414,8 +471,8 @@ __device__ __forceinline__ void dl_mma_body(
           }
           element_step<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE>(
               h ? z.y : z.x, h ? z.w : z.z,
-              fmaf(acc[j][h], p.fbscale, h ? off.y : off.x),
-              fmaf(acc[j][2 + h], p.fbscale, h ? off.y : off.x), z1, z2,
+              fmaf(acc[j][h], h ? fb.y : fb.x, h ? off.y : off.x),
+              fmaf(acc[j][2 + h], h ? fb.y : fb.x, h ? off.y : off.x), z1, z2,
               h ? m4.y : m4.x, h ? v4.y : v4.x, h ? m4.w : m4.z, h ? v4.w : v4.z,
               st, p);
         }
@@ -435,11 +492,29 @@ __device__ __forceinline__ void dl_mma_body(
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const float4 z = z_of(j);
+    float4 m4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v4 = m4;
+    if (SEG && ADAM) {
+      m4 = my[(kMom + j) * 32];
+      if (!BETA2_ONE) v4 = my[(kMom + NT + j) * 32];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int col = 8 * j + 2 * (ln & 3) + h;
       if (col < n) {
-        c_out[base + col] = clip(h ? z.y : z.x, p.S);
+        const float c = h ? z.y : z.x;
+        const float S = COLS ? cols[col] : p.S;
+        if (SEG) {
+          c_out[base + col] = c;
+          if (sg.clamped != nullptr) sg.clamped[base + col] = clip(c, S);
+          if (ADAM) {
+            sg.out[0][base + col] = h ? m4.y : m4.x;
+            sg.out[1][base + col] = h ? v4.y : v4.x;
+            sg.out[2][base + col] = h ? m4.w : m4.z;
+            sg.out[3][base + col] = h ? v4.w : v4.z;
+          }
+        } else {
+          c_out[base + col] = clip(c, S);
+        }
         s_out[base + col] = h ? z.w : z.z;
       }
     }
@@ -588,17 +663,19 @@ __device__ __forceinline__ void dl_core_body(
 }
 
 template <bool MMA, int NT, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN,
-          bool NOISE, int RNG>
+          bool NOISE, int RNG, int COLS, bool SEG>
 __global__ void __launch_bounds__(Bounds<MMA, ADAM>::kThreads,
                                   Bounds<MMA, ADAM>::kBlocks)
 dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                 const float4* __restrict__ steps, float* __restrict__ c_out,
                 float* __restrict__ s_out, int batch, int n, int iterations,
-                unsigned long long seed, DLScalars p) {
+                unsigned long long seed, DLScalars p, const float* __restrict__ cols,
+                Segment sg) {
   extern __shared__ __align__(16) float smem[];
+  static_assert(MMA || (COLS == 0 && !SEG), "the CUDA-core design takes neither flag");
   if constexpr (MMA)
-    dl_mma_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG, NT>(
-        q, v, steps, c_out, s_out, batch, n, iterations, seed, p, smem);
+    dl_mma_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG, NT, COLS, SEG>(
+        q, v, steps, c_out, s_out, batch, n, iterations, seed, p, cols, sg, smem);
   else
     dl_core_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG>(
         q, v, steps, c_out, s_out, batch, n, iterations, seed, p, smem);
@@ -627,17 +704,25 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_NT
 #define CCVM_NT 9
 #endif
+#ifndef CCVM_COLS
+#define CCVM_COLS 0
+#endif
+#ifndef CCVM_SEG
+#define CCVM_SEG 0
+#endif
 
 namespace {
 
 constexpr bool kMma = CCVM_MMA != 0;
 constexpr bool kAdam = CCVM_ADAM != 0;
+constexpr bool kSeg = CCVM_SEG != 0;
 static_assert(!kMma || (CCVM_NT >= 1 && CCVM_NT <= 16), "NT: 1 to 16 n-tiles");
+static_assert(CCVM_COLS >= 0 && CCVM_COLS <= 2, "COLS: 0, 1 or 2");
 
 auto const kKernel =
     &dl_solve_kernel<kMma, (kMma ? CCVM_NT : 1), kAdam, CCVM_BETA2_ONE != 0,
                      CCVM_ADD_ASSIGN != 0,
-                     CCVM_NOISE != 0, CCVM_RNG>;
+                     CCVM_NOISE != 0, CCVM_RNG, CCVM_COLS, kSeg>;
 
 // Threads and shared-memory bytes of a launch (ops/build.py
 // dl_launch_shape states the same rule); non-zero when this build does not
@@ -647,7 +732,7 @@ int dl_launch_shape(int n, int rows_per_block, int* threads, long long* smem) {
   if ((n + 7) / 8 != CCVM_NT || n < 1 || rows_per_block % 8 != 0) return 1;
   const int warps = rows_per_block / 8;
   *threads = 32 * warps;
-  *smem = 4LL * mma_smem_floats(CCVM_NT, warps, kAdam);
+  *smem = 4LL * mma_smem_floats(CCVM_NT, warps, kAdam, CCVM_COLS);
   return (warps >= 1 && *threads <= Bounds<true, kAdam>::kThreads) ? 0 : 1;
 }
 
@@ -655,28 +740,36 @@ int dl_launch_shape(int n, int rows_per_block, int* threads, long long* smem) {
 
 extern "C" {
 
-// q (I, n, n), v (I, n), steps (iterations, 8), c_out / s_out (I, batch, n):
+// q (I, n, n), v (I, n), steps (total, 8), c_out / s_out (I, batch, n):
 // float32, contiguous, on the device.  scalars: 20 host floats in DLScalars
-// order.  Launches on `stream`, does not synchronise, and returns the
+// order.  cols: the (3, n) per-column S_j, span/S_j, 0.25 span/S_j of a
+// CCVM_COLS build (else unused).  seg: a host Segment of a CCVM_SEG build
+// (state in c, s, m_c, v_c, m_s, v_s; moments out m_c, v_c, m_s, v_s), else
+// nullptr.  Launches on `stream`, does not synchronise, and returns the
 // cudaError_t of the launch.
 int ccvm_dl_solve(const float* q, const float* v, const float* steps,
                   float* c_out, float* s_out, int num_instances, int batch,
                   int n, int iterations,
                   unsigned long long seed, const float* scalars,
-                  int rows_per_block, void* stream) {
+                  int rows_per_block, void* stream, const float* cols,
+                  const void* seg) {
   DLScalars p;
   memcpy(&p, scalars, sizeof(DLScalars));
+  Segment sg = {};
+  sg.total = iterations;
+  if (seg != nullptr) memcpy(&sg, seg, sizeof(Segment));
   int threads;
   long long smem;
-  if (dl_launch_shape(n, rows_per_block, &threads, &smem))
+  if ((seg != nullptr) != kSeg || (CCVM_COLS != 0 && cols == nullptr) ||
+      dl_launch_shape(n, rows_per_block, &threads, &smem))
     return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((batch + rows_per_block - 1) / rows_per_block, num_instances);
   kKernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, v, reinterpret_cast<const float4*>(steps), c_out, s_out, batch, n,
-      iterations, seed, p);
+      q, v, reinterpret_cast<const float4*>(steps + 8 * (size_t)sg.start), c_out, s_out,
+      batch, n, iterations, seed, p, cols, sg);
   return (int)cudaGetLastError();
 }
 

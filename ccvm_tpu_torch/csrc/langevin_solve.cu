@@ -79,6 +79,17 @@
 //     words its columns take (three at N=70, where four threads share the
 //     call of a stripe's column; at N=20, where every column is a stripe
 //     column, one call an element); the grid is (ceil(batch/R), instances).
+// Two build flags serve the façades' evolution sampling and per-variable S
+// (a whole solve with a scalar S sets neither, and its code is as above):
+//   * CCVM_SEG 1, a segment launch (ccvm_common.cuh Segment): c and Adam's
+//     two moments are read at the start (the second into its shared-memory
+//     slots) and the moments written back; the Philox counter is the
+//     absolute step;
+//   * CCVM_COLS 1, a per-column S (an (n,) vector): scale_j = (u-l)/(2 S_j)
+//     in x and in the drift (and pumped's V scale) and the clamp to +-S_j,
+//     S_j and scale_j read from shared memory (two more floats a column
+//     there, where 18 more registers a thread would not fit beside the
+//     tile).
 // Specialisations are chosen at build time with -D flags by
 // ccvm_tpu_torch/ops/build.py (the pump schedule is in the table, so one
 // library serves both); each build exports ccvm_langevin_solve and
@@ -160,56 +171,59 @@ __device__ __forceinline__ StepScalars step_scalars(const float4* __restrict__ s
 }
 
 // One Euler-Maruyama step of one element of c from its matvec sum qx, its
-// column's V term vt (Langevin: V; pumped: V*scale) and its draw w, in the
-// plain version's order of operations.
+// column's V term vt (Langevin: V; pumped: V*scale), scale and S, and its
+// draw w, in the plain version's order of operations.
 template <bool PUMPED, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE>
-__device__ __forceinline__ float element_step(float c, float qx, float vt, float w,
-                                              float& m, float& v, const StepScalars& st,
+__device__ __forceinline__ float element_step(float c, float qx, float vt, float scale,
+                                              float S, float w, float& m, float& v,
+                                              const StepScalars& st,
                                               const LangevinScalars& p) {
   float cn;
   if (PUMPED) {
-    float g = __fsub_rn(__fmul_rn(-qx, p.scale), vt);
+    float g = __fsub_rn(__fmul_rn(-qx, scale), vt);
     if (ADAM)
       g = adam<BETA2_ONE, ADD_ASSIGN>(g, m, v, st.b1i, st.inv_b1i, st.b2i, st.inv_b2i, p);
     const float pump_drift = __fmul_rn(__fsub_rn(st.k1, __fmul_rn(c, c)), c);
     cn = __fadd_rn(c, __fmul_rn(p.dt, __fadd_rn(pump_drift, __fmul_rn(p.fs, g))));
   } else {
-    float g = __fmul_rn(-__fadd_rn(qx, vt), p.scale);
+    float g = __fmul_rn(-__fadd_rn(qx, vt), scale);
     if (ADAM)
       g = adam<BETA2_ONE, ADD_ASSIGN>(g, m, v, st.b1i, st.inv_b1i, st.b2i, st.inv_b2i, p);
     cn = __fadd_rn(c, __fmul_rn(p.dt_fs, g));
   }
   if (NOISE) cn = __fadd_rn(cn, __fmul_rn(p.diffusion, w));
-  return clip(cn, p.S);
+  return clip(cn, S);
 }
 
 // x of an element, c*scale + (u+l)/2 rounded as the plain version rounds it.
-__device__ __forceinline__ float x_of(float c, const LangevinScalars& p) {
-  return __fadd_rn(__fmul_rn(c, p.scale), p.mid);
+__device__ __forceinline__ float x_of(float c, float scale, const LangevinScalars& p) {
+  return __fadd_rn(__fmul_rn(c, scale), p.mid);
 }
 
 // The launch rule (ops/build.py langevin_launch_shape states the same):
 // threads, trajectories a block and shared-memory bytes; non-zero when N
-// does not fit.  Shared memory: Q (NP x NP), two x buffers of R rows of
-// stride NP + 4, and for Adam each thread's second moments of its tile.
-__host__ __device__ inline int lgv_launch_shape(int n, bool adam, int* threads,
-                                                int* rows, long long* smem) {
+// does not fit.  Shared memory: Q (NP x NP), with a per-column S its S_j and
+// scale_j (2 NP), two x buffers of R rows of stride NP + 4, and for Adam
+// each thread's second moments of its tile.
+__host__ __device__ inline int lgv_launch_shape(int n, bool adam, bool per_col,
+                                                int* threads, int* rows,
+                                                long long* smem) {
   const int np = (n + kGroups - 1) / kGroups * kGroups;
   const int cols = np / kGroups;
   *threads = kThreads;
   *rows = kRowGroups * rows_per_thread(adam, cols);
-  *smem = 4LL * np * np + 4LL * 2 * *rows * (np + 4) +
+  *smem = 4LL * np * np + (per_col ? 8LL * np : 0) + 4LL * 2 * *rows * (np + 4) +
           (adam ? 4LL * rows_per_thread(adam, cols) * cols * kThreads : 0);
   return (n >= 1 && cols <= kMaxCols && *smem <= 232448) ? 0 : 1;
 }
 
 template <bool PUMPED, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG,
-          int NP>
+          int NP, bool COLS, bool SEG>
 __global__ void __launch_bounds__(kThreads, 2)
 langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                       const float4* __restrict__ steps, float* __restrict__ c_out,
                       int batch, int n, int iterations, unsigned long long seed,
-                      LangevinScalars p) {
+                      LangevinScalars p, const float* __restrict__ cols, Segment sg) {
   extern __shared__ __align__(16) float smem[];
   constexpr int TC = NP / kGroups;
   constexpr int TR = rows_per_thread(ADAM, TC);
@@ -217,7 +231,8 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   constexpr int ks = NP + 4;  // x row stride
   using Cols = Columns<TC>;
   float* qs = smem;             // (NP, NP), zero-padded
-  float* xbuf = qs + NP * NP;   // two (R, ks) buffers
+  float* s_col = qs + NP * NP;  // COLS: (NP) S_j, then (NP) scale_j
+  float* xbuf = s_col + (COLS ? 2 * NP : 0);  // two (R, ks) buffers
   float* own = xbuf + 2 * R * ks;  // Adam: (TR, TC, threads) second moments
 
   const int inst = blockIdx.y;
@@ -231,6 +246,16 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     const int k = e / NP, j = e % NP;
     qs[e] = (k < n && j < n) ? qi[k * n + j] : 0.0f;
   }
+  if (COLS)
+    for (int j = tid; j < NP; j += kThreads) {
+      s_col[j] = j < n ? cols[j] : 1.0f;
+      s_col[NP + j] = j < n ? cols[n + j] : 0.0f;
+    }
+  // The column's S and scale: the solve's, or (COLS) its own.
+  const auto S_of = [&](int jj) { return COLS ? s_col[Cols::col(cg, jj)] : p.S; };
+  const auto scale_of = [&](int jj) {
+    return COLS ? s_col[NP + Cols::col(cg, jj)] : p.scale;
+  };
   // Langevin adds V to x@Q before scaling; pumped scales it on its own, as
   // the plain version's V * scale.
   float vt[TC];
@@ -238,13 +263,13 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   for (int jj = 0; jj < TC; ++jj) {
     const int j = Cols::col(cg, jj);
     const float vj = j < n ? v[(size_t)inst * n + j] : 0.0f;
-    vt[jj] = PUMPED ? __fmul_rn(vj, p.scale) : vj;
+    vt[jj] = PUMPED ? __fmul_rn(vj, COLS ? (j < n ? cols[n + j] : 0.0f) : p.scale) : vj;
   }
   const uint2 key = seed_key(seed, inst);
 
   // c (and Adam's first moment) of the thread's rows and columns in
   // registers, Adam's second moment in its own slots (conflict-free); x of
-  // step 0 (c = 0) into the first buffer.
+  // the first step (c = 0, or a segment's c) into its buffer.
   float c[TR][TC], m1[ADAM ? TR : 1][TC];
   const auto m2 = [&](int r, int jj) -> float& { return own[(r * TC + jj) * kThreads + tid]; };
 #pragma unroll
@@ -254,11 +279,30 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
       c[r][jj] = 0.0f;
       if (ADAM) m1[r][jj] = m2(r, jj) = 0.0f;
     }
-  const float x0 = x_of(0.0f, p);
+  if (SEG && sg.in[0] != nullptr) {
+    // The state at step `start`: c, m, v of the tile, zero beyond n and the
+    // batch.
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      const int row = grow0 + r * kRowGroups;
+#pragma unroll
+      for (int jj = 0; jj < TC; ++jj) {
+        const int j = Cols::col(cg, jj);
+        const size_t e = ((size_t)inst * batch + row) * n + j;
+        const bool in = row < batch && j < n;
+        c[r][jj] = in ? sg.in[0][e] : 0.0f;
+        if (ADAM) {
+          m1[r][jj] = in ? sg.in[1][e] : 0.0f;
+          if (!BETA2_ONE) m2(r, jj) = in ? sg.in[2][e] : 0.0f;
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int r = 0; r < TR; ++r)
 #pragma unroll
-    for (int jj = 0; jj < TC; ++jj) xbuf[(rg + r * kRowGroups) * ks + Cols::col(cg, jj)] = x0;
+    for (int jj = 0; jj < TC; ++jj)
+      xbuf[(rg + r * kRowGroups) * ks + Cols::col(cg, jj)] = x_of(c[r][jj], scale_of(jj), p);
   __syncthreads();  // Q and the first x rows are in place
 
   for (int i = 0; i < iterations; ++i) {
@@ -316,8 +360,8 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #pragma unroll
           for (int st_ = 0; st_ < NS; ++st_)
             words4[call][st_] = philox4x32_10(
-                make_uint4((unsigned)i, row, (unsigned)Cols::group(cg, call),
-                           (unsigned)st_),
+                make_uint4((unsigned)(SEG ? i + sg.start : i), row,
+                           (unsigned)Cols::group(cg, call), (unsigned)st_),
                 key);
       }
       float xr[TC];
@@ -337,10 +381,10 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
         float unused = 0.0f, v2 = 0.0f;
         if (ADAM && !BETA2_ONE) v2 = m2(r, jj);
         c[r][jj] = element_step<PUMPED, ADAM, BETA2_ONE, ADD_ASSIGN, NOISE>(
-            c[r][jj], acc[r][jj], vt[jj], w, ADAM ? m1[ADAM ? r : 0][jj] : unused, v2,
-            st, p);
+            c[r][jj], acc[r][jj], vt[jj], scale_of(jj), S_of(jj), w,
+            ADAM ? m1[ADAM ? r : 0][jj] : unused, v2, st, p);
         if (ADAM && !BETA2_ONE) m2(r, jj) = v2;
-        xr[jj] = x_of(c[r][jj], p);
+        xr[jj] = x_of(c[r][jj], scale_of(jj), p);
       }
       float* xw = xn + (rg + r * kRowGroups) * ks;
 #pragma unroll
@@ -362,7 +406,13 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #pragma unroll
     for (int jj = 0; jj < TC; ++jj) {
       const int j = Cols::col(cg, jj);
-      if (j < n) c_out[base + j] = c[r][jj];
+      if (j < n) {
+        c_out[base + j] = c[r][jj];
+        if (SEG && ADAM) {
+          sg.out[0][base + j] = m1[ADAM ? r : 0][jj];
+          sg.out[1][base + j] = BETA2_ONE ? 0.0f : m2(r, jj);
+        }
+      }
     }
   }
 }
@@ -390,47 +440,63 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_NP
 #define CCVM_NP 72
 #endif
+#ifndef CCVM_COLS
+#define CCVM_COLS 0
+#endif
+#ifndef CCVM_SEG
+#define CCVM_SEG 0
+#endif
 
 namespace {
 
 constexpr bool kAdam = CCVM_ADAM != 0;
+constexpr bool kCols = CCVM_COLS != 0;
+constexpr bool kSeg = CCVM_SEG != 0;
 static_assert(CCVM_NP % kGroups == 0 && CCVM_NP >= kGroups && CCVM_NP <= kGroups * kMaxCols,
               "NP: N padded to a multiple of 8, at most 128");
 auto const kKernel =
     &langevin_solve_kernel<CCVM_PUMPED != 0, kAdam, CCVM_BETA2_ONE != 0,
-                           CCVM_ADD_ASSIGN != 0, CCVM_NOISE != 0, CCVM_RNG, CCVM_NP>;
+                           CCVM_ADD_ASSIGN != 0, CCVM_NOISE != 0, CCVM_RNG, CCVM_NP,
+                           kCols, kSeg>;
 
 // lgv_launch_shape for this build's problem size class.
 int launch_shape(int n, int* threads, int* rows, long long* smem) {
   if ((n + kGroups - 1) / kGroups * kGroups != CCVM_NP) return 1;
-  return lgv_launch_shape(n, kAdam, threads, rows, smem);
+  return lgv_launch_shape(n, kAdam, kCols, threads, rows, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (I, n, n), v (I, n), steps (iterations, 8), c_out (I, batch, n):
-// float32, contiguous, on the device.  scalars: 13 host floats in
-// LangevinScalars order.  Launches on `stream`, does not synchronise, and
-// returns the cudaError_t of the launch.
+// q (I, n, n), v (I, n), steps (total, 8), c_out (I, batch, n): float32,
+// contiguous, on the device.  scalars: 13 host floats in LangevinScalars
+// order.  cols: the (2, n) per-column S_j and scale_j of a CCVM_COLS build
+// (else unused).  seg: a host Segment of a CCVM_SEG build (state in c, m, v;
+// moments out m, v), else nullptr.  Launches on `stream`, does not
+// synchronise, and returns the cudaError_t of the launch.
 int ccvm_langevin_solve(const float* q, const float* v, const float* steps,
                         float* c_out, int num_instances, int batch, int n,
                         int iterations, unsigned long long seed,
-                        const float* scalars, int rows_per_block, void* stream) {
+                        const float* scalars, int rows_per_block, void* stream,
+                        const float* cols, const void* seg) {
   LangevinScalars p;
   memcpy(&p, scalars, sizeof(LangevinScalars));
+  Segment sg = {};
+  sg.total = iterations;
+  if (seg != nullptr) memcpy(&sg, seg, sizeof(Segment));
   int threads, rows;
   long long smem;
-  if (launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
+  if ((seg != nullptr) != kSeg || (kCols && cols == nullptr) ||
+      launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
     return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((batch + rows - 1) / rows, num_instances);
   kKernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, v, reinterpret_cast<const float4*>(steps), c_out, batch, n, iterations,
-      seed, p);
+      q, v, reinterpret_cast<const float4*>(steps + 8 * (size_t)sg.start), c_out, batch, n,
+      iterations, seed, p, cols, sg);
   return (int)cudaGetLastError();
 }
 

@@ -81,6 +81,18 @@
 //   * noise: the Philox4x32-10 of ccvm_common.cuh, key = seed + instance,
 //     counter = (step, row, column/4, stream); the grid is
 //     (ceil(batch/R), instances).
+// Two build flags serve the façades' evolution sampling and per-variable S
+// (a whole solve with a scalar S sets neither, and its code is as above):
+//   * CCVM_SEG 1, a segment launch (ccvm_common.cuh Segment): mu, sigma and
+//     Adam's two moments are read at the start and the moments written
+//     back; the Philox counter is the absolute step, and mt_out is written
+//     by the solve's last step only (so by its last segment);
+//   * CCVM_COLS 1, a per-column S (an (n,) vector in shared memory): the
+//     clamp of mt, x = mt_c span / S_j + (u+l), the feedback's division by
+//     S_j and V span / (2 S_j) take the column's S.  Its divisions are the
+//     IEEE ones (__fdiv_rn), as the plain version's: div_rn is exact for a
+//     divisor known ahead with its reciprocal rounded to nearest, which the
+//     tests prove only for the scalar S's they emulate.
 // Specialisations are chosen at build time with -D flags by
 // ccvm_tpu_torch/ops/build.py; each build exports ccvm_mf_solve and
 // ccvm_mf_blocks_per_sm.
@@ -189,9 +201,9 @@ __host__ __device__ constexpr int x_buffers(bool adam) {
 
 // The launch rule (ops/build.py mf_launch_shape states the same): threads,
 // trajectories a block and shared-memory bytes; non-zero when N does not
-// fit.  Shared memory: Q (NP x NP), the per-column V term, the x buffers of
-// R rows of stride NP + 4, and each thread's own float4s.
-__host__ __device__ inline int mf_launch_shape(int n, bool adam, int* threads,
+// fit.  Shared memory: Q (NP x NP), the per-column V term (and S_j), the x
+// buffers of R rows of stride NP + 4, and each thread's own float4s.
+__host__ __device__ inline int mf_launch_shape(int n, bool adam, bool cols, int* threads,
                                                int* rows, long long* smem) {
   const int np = (n + TC - 1) / TC * TC;
   const int groups = np / TC;
@@ -199,18 +211,20 @@ __host__ __device__ inline int mf_launch_shape(int n, bool adam, int* threads,
                                         ? kThreads / groups : kMaxRowGroups) : 0;
   *threads = groups * rgroups;
   *rows = rgroups * TR;
-  *smem = 4LL * ((long long)np * np + np + (long long)x_buffers(adam) * *rows * (np + 4)) +
+  *smem = 4LL * ((long long)np * np + (cols ? 2 : 1) * np +
+                 (long long)x_buffers(adam) * *rows * (np + 4)) +
           16LL * own_slots(adam) * *threads;
   return (n >= 1 && rgroups >= 1 && *smem <= 232448) ? 0 : 1;
 }
 
-template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG, int NP>
+template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG, int NP,
+          bool COLS, bool SEG>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                 const float4* __restrict__ steps, float* __restrict__ mu_out,
                 float* __restrict__ mt_out, float* __restrict__ sigma_out,
                 int batch, int n, int iterations, unsigned long long seed,
-                MFScalars p) {
+                MFScalars p, const float* __restrict__ cols, Segment sg) {
   extern __shared__ __align__(16) float smem[];
   constexpr int np = NP;
   constexpr int ks = np + 4;  // x row stride: spreads two row groups over banks
@@ -219,7 +233,8 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   const int R = blockDim.x / groups * TR;
   float* qs = smem;            // (np, np), zero-padded
   float* vterm = qs + np * np;  // (np): -V (u-l) / (2S)
-  float* xbuf = vterm + np;     // kXBufs (R, ks) buffers
+  float* scol = vterm + np;     // COLS: (np) S_j, 1 beyond n
+  float* xbuf = scol + (COLS ? np : 0);  // kXBufs (R, ks) buffers
   // Each thread's own float4s, (slot, thread): sigma of its four rows, then
   // Adam's first moments, second moments and mu of each row.
   float4* own = reinterpret_cast<float4*>(xbuf + kXBufs * R * ks);
@@ -239,10 +254,13 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     qs[e] = (k < n && j < n) ? qi[k * n + j] : 0.0f;
   }
   // The plain version's -V * span / (2 S), one IEEE division per column.
-  for (int j = tid; j < np; j += blockDim.x)
+  for (int j = tid; j < np; j += blockDim.x) {
+    const float S = COLS ? (j < n ? cols[j] : 1.0f) : p.S;
     vterm[j] = j < n ? __fdiv_rn(__fmul_rn(-v[(size_t)inst * n + j], p.span),
-                                 __fmul_rn(2.0f, p.S))
+                                 __fmul_rn(2.0f, S))
                      : 0.0f;
+    if (COLS) scol[j] = S;
+  }
 #pragma unroll
   for (int s = 0; s < own_slots(ADAM); ++s)
     own[s * bd + tid] = s < TR ? make_float4(0.5f, 0.5f, 0.5f, 0.5f)
@@ -261,15 +279,40 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     if constexpr (ADAM) own[(3 * TR + r) * bd + tid] = m;
     else mu[r] = m;
   };
+  if (SEG && sg.in[0] != nullptr) {
+    // The state at step `start`: mu, sigma, m, v of the tile, zero beyond n
+    // and the batch.
+    const auto row4 = [&](int a, int r) {
+      const int row = grow0 + r;
+      float e[TC];
+#pragma unroll
+      for (int jj = 0; jj < TC; ++jj)
+        e[jj] = row < batch && col0 + jj < n
+                    ? sg.in[a][((size_t)inst * batch + row) * n + col0 + jj]
+                    : 0.0f;
+      return make_float4(e[0], e[1], e[2], e[3]);
+    };
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      set_mu_row(r, row4(0, r));
+      own[r * bd + tid] = row4(1, r);
+      if (ADAM) {
+        own[(TR + r) * bd + tid] = row4(2, r);
+        if (!BETA2_ONE) own[(2 * TR + r) * bd + tid] = row4(3, r);
+      }
+    }
+  }
   __syncthreads();  // Q and the V term are in place
 
   for (int i = 0; i < iterations; ++i) {
     float* xs = xbuf + (kXBufs == 2 ? (i & 1) : 0) * R * ks;
     const float meas = __ldg(steps + 3 * i).x;
-    const bool last = i == iterations - 1;
+    const bool last = i == (SEG ? sg.total - sg.start : iterations) - 1;
 
     // The step's draws, mt and x rows (padding columns meet zero rows of Q).
     Draws<RNG> dr;
+    float4 s4 = make_float4(p.S, p.S, p.S, p.S);
+    if (COLS) s4 = *reinterpret_cast<const float4*>(scol + col0);
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
       if (NOISE) {
@@ -278,8 +321,8 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #pragma unroll
         for (int st = 0; st < NS; ++st)
           wv[st] = philox4x32_10(
-              make_uint4((unsigned)i, (unsigned)(grow0 + r), (unsigned)cg,
-                         (unsigned)st),
+              make_uint4((unsigned)(SEG ? i + sg.start : i), (unsigned)(grow0 + r),
+                         (unsigned)cg, (unsigned)st),
               key);
 #pragma unroll
         for (int jj = 0; jj < TC; ++jj) {
@@ -299,13 +342,15 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                                      p.sqrt_dt, p.inv_sqrt_dt);
           mt = __fadd_rn(mt, __fmul_rn(meas, w_inc));
         }
-        const float mt_c = clip(mt, p.S);
+        const float mt_c = clip(mt, COLS ? comp(s4, jj) : p.S);
         if (last) {
           const int row = grow0 + r, j = col0 + jj;
           if (row < batch && j < n)
             mt_out[((size_t)inst * batch + row) * n + j] = mt_c;
         }
-        x[jj] = __fadd_rn(div_rn(__fmul_rn(mt_c, p.span), p.S, p.inv_S), p.mid);
+        x[jj] = __fadd_rn(COLS ? __fdiv_rn(__fmul_rn(mt_c, p.span), comp(s4, jj))
+                               : div_rn(__fmul_rn(mt_c, p.span), p.S, p.inv_S),
+                          p.mid);
       }
       *reinterpret_cast<float4*>(xs + (lrow0 + r) * ks + col0) =
           make_float4(x[0], x[1], x[2], x[3]);
@@ -344,6 +389,7 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     float vt[TC];
 #pragma unroll
     for (int jj = 0; jj < TC; ++jj) vt[jj] = vterm[col0 + jj];
+    if (COLS) s4 = *reinterpret_cast<const float4*>(scol + col0);
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
       float4 mu4 = mu_row(r), sg4 = own[r * bd + tid];
@@ -361,7 +407,9 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
         // fb = (-0.25 qx) (u-l) / S + vterm; -0.25 qx and -0.25 (u-l) are
         // exact, so qx (-0.25 (u-l)) rounds as the plain version's product.
         const float fb = __fadd_rn(
-            div_rn(__fmul_rn(qx[r][jj], p.fbspan), p.S, p.inv_S), vt[jj]);
+            COLS ? __fdiv_rn(__fmul_rn(qx[r][jj], p.fbspan), comp(s4, jj))
+                 : div_rn(__fmul_rn(qx[r][jj], p.fbspan), p.S, p.inv_S),
+            vt[jj]);
         const float sd = __fsub_rn(sg, 0.5f);
         const float mu_term1 =
             __fmul_rn(__fsub_rn(st.k1, __fmul_rn(p.g_sq, mu_pow)), m);
@@ -412,12 +460,21 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     if (row >= batch) continue;
     const size_t base = ((size_t)inst * batch + row) * n;
     const float4 mu4 = mu_row(r), sg4 = own[r * bd + tid];
+    float4 m4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v4 = m4;
+    if (SEG && ADAM) {
+      m4 = own[(TR + r) * bd + tid];
+      if (!BETA2_ONE) v4 = own[(2 * TR + r) * bd + tid];
+    }
 #pragma unroll
     for (int jj = 0; jj < TC; ++jj) {
       const int j = col0 + jj;
       if (j < n) {
         mu_out[base + j] = comp(mu4, jj);
         sigma_out[base + j] = comp(sg4, jj);
+        if (SEG && ADAM) {
+          sg.out[0][base + j] = comp(m4, jj);
+          sg.out[1][base + j] = comp(v4, jj);
+        }
       }
     }
   }
@@ -443,47 +500,63 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_NP
 #define CCVM_NP 72
 #endif
+#ifndef CCVM_COLS
+#define CCVM_COLS 0
+#endif
+#ifndef CCVM_SEG
+#define CCVM_SEG 0
+#endif
 
 namespace {
 
 constexpr bool kAdam = CCVM_ADAM != 0;
+constexpr bool kCols = CCVM_COLS != 0;
+constexpr bool kSeg = CCVM_SEG != 0;
 static_assert(CCVM_NP % TC == 0 && CCVM_NP >= TC, "NP: N padded to a multiple of 4");
 auto const kKernel = &mf_solve_kernel<kAdam, CCVM_BETA2_ONE != 0, CCVM_ADD_ASSIGN != 0,
-                                      CCVM_NOISE != 0, CCVM_RNG, CCVM_NP>;
+                                      CCVM_NOISE != 0, CCVM_RNG, CCVM_NP, kCols, kSeg>;
 
 // mf_launch_shape for this build's problem size class.
 int launch_shape(int n, int* threads, int* rows, long long* smem) {
   if ((n + TC - 1) / TC * TC != CCVM_NP) return 1;
-  return mf_launch_shape(n, kAdam, threads, rows, smem);
+  return mf_launch_shape(n, kAdam, kCols, threads, rows, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (I, n, n), v (I, n), steps (iterations, 12), mu_out / mt_out / sigma_out
-// (I, batch, n): float32, contiguous, on the device; mt_out is left as it is
-// when iterations is 0.  scalars: 24 host floats in MFScalars order.
-// Launches on `stream`, does not synchronise, and returns the cudaError_t of
-// the launch.
+// q (I, n, n), v (I, n), steps (total, 12), mu_out / mt_out / sigma_out
+// (I, batch, n): float32, contiguous, on the device; mt_out is written by
+// the solve's last step only (left as it is when iterations is 0, or by a
+// segment that ends earlier).  scalars: 24 host floats in MFScalars order.
+// cols: the (n,) S of a CCVM_COLS build (else unused).  seg: a host Segment
+// of a CCVM_SEG build (state in mu, sigma, m, v; moments out m, v), else
+// nullptr.  Launches on `stream`, does not synchronise, and returns the
+// cudaError_t of the launch.
 int ccvm_mf_solve(const float* q, const float* v, const float* steps,
                   float* mu_out, float* mt_out, float* sigma_out,
                   int num_instances, int batch, int n, int iterations,
                   unsigned long long seed, const float* scalars,
-                  int rows_per_block, void* stream) {
+                  int rows_per_block, void* stream, const float* cols,
+                  const void* seg) {
   MFScalars p;
   memcpy(&p, scalars, sizeof(MFScalars));
+  Segment sg = {};
+  sg.total = iterations;
+  if (seg != nullptr) memcpy(&sg, seg, sizeof(Segment));
   int threads, rows;
   long long smem;
-  if (launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
+  if ((seg != nullptr) != kSeg || (kCols && cols == nullptr) ||
+      launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
     return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((batch + rows - 1) / rows, num_instances);
   kKernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      q, v, reinterpret_cast<const float4*>(steps), mu_out, mt_out, sigma_out,
-      batch, n, iterations, seed, p);
+      q, v, reinterpret_cast<const float4*>(steps + 12 * (size_t)sg.start), mu_out, mt_out,
+      sigma_out, batch, n, iterations, seed, p, cols, sg);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -58,12 +59,29 @@ def adam_moment_update(grads, m, v, i, hp: AdamHyperparameters):
 
 
 def float32_scalars(p, device):
-    """A parameter tuple with each field as a float32 0-dim tensor on
-    ``device``, so the plain solves round their scalar arithmetic as the CUDA
-    kernels do."""
-    return type(p)(
-        *(torch.tensor(float(x), dtype=torch.float32, device=device) for x in p)
-    )
+    """A parameter tuple with each field as a float32 tensor on ``device``:
+    0-dim, or (n,) for a per-column ``S`` (a tuple of floats, or an
+    array); an unset
+    (None) field stays None.  So the plain solves round their scalar
+    arithmetic as the CUDA kernels do."""
+    def f32(x):
+        if x is None:
+            return None
+        if np.ndim(x) == 1:
+            return torch.tensor(np.asarray(x, np.float32), device=device)
+        return torch.tensor(float(x), dtype=torch.float32, device=device)
+
+    return type(p)(*(f32(x) for x in p))
+
+
+def saturation(S):
+    """A parameter tuple's ``S`` field from a scalar or a per-variable S: a
+    float holding a float32 value, or a tuple of them (one per column).
+    The JAX façades broadcast a 1-D S to (batch, n) with equal rows, so a
+    per-variable S is one value a column."""
+    if isinstance(S, tuple) or np.ndim(S) == 1:
+        return tuple(float(x) for x in np.asarray(S, np.float32))
+    return float(np.float32(S))
 
 
 def dense_matvec(x, q_matrix):

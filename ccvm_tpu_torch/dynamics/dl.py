@@ -16,6 +16,10 @@ Two-quadrature pump-saturated SDE (reference ``dl_solver.py:117-172``,
     s          += dt*s_drift + diff * sqrt(dt)/nr_i * w_s
 Final c is clamped to the *original* +-S only after the loop (``:567``).
 
+``S`` is a scalar or one value a column (the JAX façades' 1-D S, broadcast
+over the batch); the pump ramp generalises to rate(i) = min((i+1)/T /
+fraction, 1)^power (the JAX ``pump_ramp``, ``ccvm_tpu/dynamics/dl.py``).
+
 All scalar arithmetic runs on float32 0-dim tensors on the state's device,
 so the plain solve rounds as the CUDA kernel does.  The step functions take
 the two standard-normal draws ``w_c, w_s`` as arguments.  The Adam variant
@@ -34,8 +38,9 @@ from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 
 class DLParams(NamedTuple):
     """Per-solve parameters (``dl_solver.py:96-115`` + call args), each a
-    Python float holding a float32 value.  Only a scalar ``S`` and the linear
-    pump ramp are ported in this slice."""
+    Python float holding a float32 value; ``S`` may be a tuple of them, one
+    a column.  ``ramp_power`` / ``ramp_fraction`` (both None: the
+    reference's linear ramp) are the JAX ``DLParams``' generalised ramp."""
 
     pump: float
     S: float  # user-facing saturation (clamp / change of variables)
@@ -46,26 +51,13 @@ class DLParams(NamedTuple):
     lower_limit: float
     upper_limit: float
     iterations: float
+    ramp_power: float | None = None
+    ramp_fraction: float | None = None
 
 
-class _Scalars(NamedTuple):
-    """DLParams as float32 0-dim tensors on one device."""
-
-    pump: torch.Tensor
-    S: torch.Tensor
-    dt: torch.Tensor
-    noise_ratio: torch.Tensor
-    feedback_scale: torch.Tensor
-    g: torch.Tensor
-    lower_limit: torch.Tensor
-    upper_limit: torch.Tensor
-    iterations: torch.Tensor
-
-
-def _scalars(p: DLParams, device) -> _Scalars:
-    return _Scalars(
-        *(torch.tensor(float(x), dtype=torch.float32, device=device) for x in p)
-    )
+def _scalars(p: DLParams, device) -> DLParams:
+    """DLParams as float32 tensors on one device (unset ramp fields None)."""
+    return common.float32_scalars(p, device)
 
 
 def drift_saturation(p, pump_is_gt_one: bool):
@@ -127,13 +119,31 @@ def noise_ratio_schedule(p, i):
     return (p.noise_ratio - 1.0) * torch.exp(-_fi1(p, i) / p.iterations * 3.0) + 1.0
 
 
-def pump_rate_schedule(p, i, pump_rate_flag: bool):
-    """Linear pump ramp rate(i) = (i+1)/T (reference ``dl_solver.py:524``),
-    or 1 without the flag.  The generalised ``pump_ramp`` of the JAX package
-    is left for a later slice."""
+def pump_rate(p, fi1, pump_rate_flag: bool):
+    """The pump ramp at (i + 1) = ``fi1`` (a float32 tensor of any shape):
+    (i+1)/T (reference ``dl_solver.py:524``), through the generalised
+    ramp's min(rate / fraction, 1)^power where those fields are set, with
+    the JAX ``pump_rate_schedule``'s float32 operations
+    (``ccvm_tpu/dynamics/dl.py:115-130``) but the power, which is taken in
+    float64 and rounded to float32: PyTorch's float32 power on the CPU
+    rounds differently in its vector loop and its scalar tail, and the
+    kernel's step table takes the ramp over every step at once where a
+    plain step takes one; rounded from float64 both are the same (and
+    within an ulp of the JAX package's float32 power).  1 without the
+    flag."""
     if not pump_rate_flag:
-        return torch.ones((), dtype=torch.float32, device=p.iterations.device)
-    return _fi1(p, i) / p.iterations
+        return torch.ones_like(fi1)
+    rate = fi1 / p.iterations
+    if p.ramp_fraction is not None:
+        rate = torch.minimum(rate / p.ramp_fraction, torch.ones_like(rate))
+    if p.ramp_power is not None:
+        rate = torch.pow(rate.double(), p.ramp_power.double()).float()
+    return rate
+
+
+def pump_rate_schedule(p, i, pump_rate_flag: bool):
+    """rate(i) of step ``i`` (:func:`pump_rate`)."""
+    return pump_rate(p, _fi1(p, i), pump_rate_flag)
 
 
 def make_step(

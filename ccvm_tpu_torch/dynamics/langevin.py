@@ -16,7 +16,8 @@ The operation order is the fused kernel's (``pallas_kernels.py:508-514``),
 the two differ by float32 round-off only.  All scalar arithmetic runs on
 float32 0-dim tensors on the state's device, so the plain solve rounds as
 the CUDA kernel does.  The step functions take the standard-normal draw
-``w`` as an argument.  Only a scalar ``S`` is ported.
+``w`` as an argument.  ``S`` is a scalar or one value a column (the JAX
+façades' 1-D S, broadcast over the batch).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 class LangevinParams(NamedTuple):
     """Per-solve parameters (reference parameter_key keys
     ``langevin_solver.py:96-115`` plus the box bounds), each a Python float
-    holding a float32 value."""
+    holding a float32 value; ``S`` may be a tuple of them, one a column."""
 
     S: float
     dt: float
@@ -86,22 +87,31 @@ def make_adam_step(q_matrix, v_vector, p: LangevinParams, hp: AdamHyperparameter
     return step
 
 
-def solve(q_matrix, v_vector, params: LangevinParams, *, iterations, batch_size,
-          hp=None, draw=None):
-    """Plain Langevin solve (JAX ``dynamics/langevin.py`` ``solve``) from
-    c = 0; returns the final c.
+def advance(q_matrix, v_vector, params, state, start, num, *, hp=None,
+            draw=None):
+    """Steps ``start`` to ``start + num - 1`` from ``state`` (c, or with
+    Adam (c, m, v)); the JAX ``dynamics/langevin.py`` ``solve_segment``.
 
     ``q_matrix`` is (n, n) or a stack (I, n, n) with ``v_vector`` (I, 1, n).
     ``draw(i)`` gives step ``i``'s standard-normal draw shaped like the
     state; ``None`` integrates without noise."""
+    if hp is None:
+        step = make_step(q_matrix, v_vector, params)
+    else:
+        step = make_adam_step(q_matrix, v_vector, params, hp)
+    zeros = torch.zeros_like(state if hp is None else state[0])
+    for i in range(int(start), int(start) + int(num)):
+        state = step(state, i, zeros if draw is None else draw(i))
+    return state
+
+
+def solve(q_matrix, v_vector, params, *, iterations, batch_size,
+          hp=None, draw=None):
+    """Plain solve (JAX ``dynamics/langevin.py`` ``solve``) from c = 0; returns
+    the final c; the arguments as :func:`advance`'s."""
     n = q_matrix.shape[-1]
     shape = tuple(q_matrix.shape[:-2]) + (int(batch_size), n)
     c0 = torch.zeros(shape, dtype=torch.float32, device=q_matrix.device)
-    if hp is None:
-        step, state = make_step(q_matrix, v_vector, params), c0
-    else:
-        step = make_adam_step(q_matrix, v_vector, params, hp)
-        state = (c0, c0, c0)
-    for i in range(int(iterations)):
-        state = step(state, i, c0 if draw is None else draw(i))
+    state = advance(q_matrix, v_vector, params, c0 if hp is None else (c0, c0, c0),
+                    0, iterations, hp=hp, draw=draw)
     return state if hp is None else state[0]

@@ -21,14 +21,15 @@ one iteration, and the readout is the mu_tilde of the **last** iteration
 
 All scalar arithmetic runs on float32 0-dim tensors on the state's device,
 so the plain solve rounds as the CUDA kernel does.  The step functions take
-the standard-normal draw ``w`` as an argument.  Only a scalar ``S`` is
-ported in this slice.
+the standard-normal draw ``w`` as an argument.  ``S`` is a scalar or one
+value a column (the JAX façades' 1-D S, broadcast over the batch).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ccvm_tpu_torch.dynamics import common
@@ -42,7 +43,8 @@ MF_SAFETY_BOUND = 1.0e5
 
 class MFParams(NamedTuple):
     """Per-solve parameters (``mf_solver.py:120-139`` + call args), each a
-    Python float holding a float32 value."""
+    Python float holding a float32 value; ``S`` may be a tuple of them, one
+    a column."""
 
     pump: float
     S: float
@@ -173,28 +175,49 @@ def make_adam_step(
     return step
 
 
-def solve(q_matrix, v_vector, params: MFParams, *, iterations, batch_size,
-          pump_rate_flag=True, hp=None, draw=None):
-    """Plain MF-CCVM solve (JAX ``dynamics/mf.py`` ``solve``); returns
-    ``(mu, mu_tilde clamped to +-S, sigma)``.
+def initial_state(shape, device, hp=None):
+    """The solve's first state (``mf.py:171-174`` of the JAX package):
+    ``(mu, sigma, mu_tilde)`` = (0, 0.5, 0), and with Adam its two
+    moments (0)."""
+    mu0 = torch.zeros(shape, dtype=torch.float32, device=device)
+    return (mu0, torch.full_like(mu0, 0.5), mu0) + ((mu0, mu0) if hp is not None else ())
+
+
+def advance(q_matrix, v_vector, params: MFParams, state, start, num, *,
+            pump_rate_flag=True, hp=None, draw=None):
+    """Steps ``start`` to ``start + num - 1`` from ``state`` (JAX
+    ``dynamics/mf.py`` ``solve_segment``); returns the whole state,
+    ``mu_tilde`` the last step's, unclamped.
 
     ``q_matrix`` is (n, n) or a stack (I, n, n) with ``v_vector`` (I, 1, n).
     ``draw(i)`` gives step ``i``'s standard-normal draw shaped like the
     state; ``None`` integrates without noise.  mu is clipped at
     ``MF_SAFETY_BOUND`` every step, as the kernel does."""
-    n = q_matrix.shape[-1]
-    shape = tuple(q_matrix.shape[:-2]) + (int(batch_size), n)
-    mu0 = torch.zeros(shape, dtype=torch.float32, device=q_matrix.device)
-    sigma0 = torch.full_like(mu0, 0.5)
     if hp is None:
         step = make_step(q_matrix, v_vector, params, pump_rate_flag)
-        state = (mu0, sigma0, mu0)
     else:
         step = make_adam_step(q_matrix, v_vector, params, pump_rate_flag, hp)
-        state = (mu0, sigma0, mu0, mu0, mu0)
-    for i in range(int(iterations)):
-        w = mu0 if draw is None else draw(i)
-        state = step(state, i, w)
+    zeros = torch.zeros_like(state[0])
+    for i in range(int(start), int(start) + int(num)):
+        state = step(state, i, zeros if draw is None else draw(i))
         state = (state[0].clamp(-MF_SAFETY_BOUND, MF_SAFETY_BOUND),) + state[1:]
-    S = float(params.S)
-    return state[0], state[2].clamp(-S, S), state[1]
+    return state
+
+
+def clamp_readout(mu_tilde, params: MFParams):
+    """The readout mu_tilde clamped to +-S (one S a column, or the one)."""
+    S = torch.as_tensor(np.asarray(params.S, np.float32), device=mu_tilde.device)
+    return torch.clamp(mu_tilde, -S, S)
+
+
+def solve(q_matrix, v_vector, params: MFParams, *, iterations, batch_size,
+          pump_rate_flag=True, hp=None, draw=None):
+    """Plain MF-CCVM solve (JAX ``dynamics/mf.py`` ``solve``); returns
+    ``(mu, mu_tilde clamped to +-S, sigma)``; the arguments as
+    :func:`advance`'s."""
+    n = q_matrix.shape[-1]
+    shape = tuple(q_matrix.shape[:-2]) + (int(batch_size), n)
+    state = advance(q_matrix, v_vector, params,
+                    initial_state(shape, q_matrix.device, hp), 0, iterations,
+                    pump_rate_flag=pump_rate_flag, hp=hp, draw=draw)
+    return state[0], clamp_readout(state[2], params), state[1]

@@ -32,7 +32,8 @@ from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 
 class PumpedLangevinParams(NamedTuple):
     """Per-solve parameters (``pumped_langevin_solver.py:74-93``), each a
-    Python float holding a float32 value."""
+    Python float holding a float32 value; ``S`` may be a tuple of them, one
+    a column."""
 
     pump: float
     S: float
@@ -105,22 +106,31 @@ def make_adam_step(q_matrix, v_vector, p: PumpedLangevinParams,
     return step
 
 
-def solve(q_matrix, v_vector, params: PumpedLangevinParams, *, iterations,
-          batch_size, pump_rate_flag=True, hp=None, draw=None):
-    """Plain pumped-Langevin solve (JAX ``dynamics/pumped_langevin.py``
-    ``solve``) from c = 0; returns the final c.
+def advance(q_matrix, v_vector, params, state, start, num, *, pump_rate_flag=True,
+            hp=None, draw=None):
+    """Steps ``start`` to ``start + num - 1`` from ``state`` (c, or with
+    Adam (c, m, v)); the JAX ``dynamics/pumped_langevin.py`` ``solve_segment``.
 
     ``q_matrix`` is (n, n) or a stack (I, n, n) with ``v_vector`` (I, 1, n).
     ``draw(i)`` gives step ``i``'s standard-normal draw shaped like the
     state; ``None`` integrates without noise."""
+    if hp is None:
+        step = make_step(q_matrix, v_vector, params, pump_rate_flag)
+    else:
+        step = make_adam_step(q_matrix, v_vector, params, pump_rate_flag, hp)
+    zeros = torch.zeros_like(state if hp is None else state[0])
+    for i in range(int(start), int(start) + int(num)):
+        state = step(state, i, zeros if draw is None else draw(i))
+    return state
+
+
+def solve(q_matrix, v_vector, params, *, iterations, batch_size,
+          pump_rate_flag=True, hp=None, draw=None):
+    """Plain solve (JAX ``dynamics/pumped_langevin.py`` ``solve``) from
+    c = 0; returns the final c; the arguments as :func:`advance`'s."""
     n = q_matrix.shape[-1]
     shape = tuple(q_matrix.shape[:-2]) + (int(batch_size), n)
     c0 = torch.zeros(shape, dtype=torch.float32, device=q_matrix.device)
-    if hp is None:
-        step, state = make_step(q_matrix, v_vector, params, pump_rate_flag), c0
-    else:
-        step = make_adam_step(q_matrix, v_vector, params, pump_rate_flag, hp)
-        state = (c0, c0, c0)
-    for i in range(int(iterations)):
-        state = step(state, i, c0 if draw is None else draw(i))
+    state = advance(q_matrix, v_vector, params, c0 if hp is None else (c0, c0, c0),
+                    0, iterations, pump_rate_flag=pump_rate_flag, hp=hp, draw=draw)
     return state if hp is None else state[0]

@@ -5,16 +5,17 @@ Tests build both frameworks' objects from the same numbers: a JAX
 ``v_vector``, ``scaled_by``) or the fields of a JAX ``DLParams``,
 ``MFParams``, ``LangevinParams``, ``PumpedLangevinParams`` or
 ``AdamHyperparameters`` become the port's counterparts, for the three solver
-families ported (DL, MF, and Langevin with pumped Langevin).  This module
-takes NumPy arrays and plain values only and imports nothing of the JAX
-package.
+families ported (DL, MF, and Langevin with pumped Langevin): S a scalar, an
+(n,) vector or the JAX façades' (batch, n) S with equal rows, and DL's
+generalised pump ramp.  This module takes NumPy arrays and plain values
+only and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
+from ccvm_tpu_torch.dynamics.common import AdamHyperparameters, saturation
 from ccvm_tpu_torch.dynamics.dl import DLParams
 from ccvm_tpu_torch.dynamics.langevin import LangevinParams
 from ccvm_tpu_torch.dynamics.mf import MFParams
@@ -44,50 +45,66 @@ def instance_from_numpy(q64, v64, meta, scaled_by=1.0, solution_bounds=(0.0, 1.0
     return inst
 
 
+def _saturation(S):
+    """A JAX parameter tuple's S as the port's: a scalar, an (n,) S, or a
+    (batch, n) S with equal rows (the JAX façades' ``np.outer(ones(batch),
+    S)``), which is its row; rows that differ are refused."""
+    S = np.asarray(S, np.float32)
+    if S.ndim == 2:
+        if not (S == S[:1]).all():
+            raise ValueError("a (batch, n) S must have equal rows in this port")
+        S = S[0]
+    if S.ndim > 1:
+        raise ValueError(f"S must be a scalar, (n,) or (batch, n), got {S.shape}")
+    return saturation(S)
+
+
+def _params(cls, vals, **extra):
+    """``cls`` from the JAX fields ``vals`` in its order: each a scalar, but
+    S (:func:`_saturation`)."""
+    out = []
+    for name, x in zip(cls._fields, vals):
+        if name == "S":
+            out.append(_saturation(x))
+        elif np.ndim(x):
+            raise ValueError(f"{cls.__name__} fields but S must be scalars")
+        else:
+            out.append(float(np.float32(x)))
+    return cls(*out, **extra)
+
+
 def dl_params_from_numpy(pump, S, dt, noise_ratio, feedback_scale, g,
                          lower_limit, upper_limit, iterations,
                          ramp_power=None, ramp_fraction=None):
-    """``DLParams`` from the JAX ``DLParams`` fields (arrays or floats)."""
-    if ramp_power is not None or ramp_fraction is not None:
-        raise NotImplementedError(
-            "a generalised pump_ramp is not ported to ccvm_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 4)"
-        )
-    vals = (pump, S, dt, noise_ratio, feedback_scale, g, lower_limit,
-            upper_limit, iterations)
-    if any(np.ndim(x) for x in vals):
-        raise ValueError("DLParams fields must be scalars in this port")
-    return DLParams(*(float(np.float32(x)) for x in vals))
-
-
-def _scalar_params(cls, vals):
-    if any(np.ndim(x) for x in vals):
-        raise ValueError(f"{cls.__name__} fields must be scalars in this port")
-    return cls(*(float(np.float32(x)) for x in vals))
+    """``DLParams`` from the JAX ``DLParams`` fields (arrays or floats), the
+    generalised ramp's included (None: unset)."""
+    ramp = {k: None if x is None else float(np.float32(x))
+            for k, x in (("ramp_power", ramp_power), ("ramp_fraction", ramp_fraction))}
+    return _params(DLParams, (pump, S, dt, noise_ratio, feedback_scale, g,
+                              lower_limit, upper_limit, iterations), **ramp)
 
 
 def mf_params_from_numpy(pump, S, dt, j, feedback_scale, g, lower_limit,
                          upper_limit, iterations):
     """``MFParams`` from the JAX ``MFParams`` fields (arrays or floats)."""
-    return _scalar_params(MFParams, (pump, S, dt, j, feedback_scale, g,
-                                     lower_limit, upper_limit, iterations))
+    return _params(MFParams, (pump, S, dt, j, feedback_scale, g, lower_limit,
+                              upper_limit, iterations))
 
 
 def langevin_params_from_numpy(S, dt, sigma, feedback_scale, lower_limit,
                                upper_limit):
     """``LangevinParams`` from the JAX ``LangevinParams`` fields (arrays or
     floats)."""
-    return _scalar_params(LangevinParams, (S, dt, sigma, feedback_scale,
-                                           lower_limit, upper_limit))
+    return _params(LangevinParams, (S, dt, sigma, feedback_scale, lower_limit,
+                                    upper_limit))
 
 
 def pumped_langevin_params_from_numpy(pump, S, dt, sigma, feedback_scale,
                                       lower_limit, upper_limit, iterations):
     """``PumpedLangevinParams`` from the JAX ``PumpedLangevinParams``
     fields (arrays or floats)."""
-    return _scalar_params(PumpedLangevinParams, (
-        pump, S, dt, sigma, feedback_scale, lower_limit, upper_limit,
-        iterations))
+    return _params(PumpedLangevinParams, (pump, S, dt, sigma, feedback_scale,
+                                          lower_limit, upper_limit, iterations))
 
 
 def adam_from_numpy(alpha, beta1, beta2, add_assign):

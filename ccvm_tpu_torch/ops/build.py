@@ -39,20 +39,58 @@ _MAX_THREADS = 256  # csrc/ccvm_common.cuh kMaxThreads
 _MAX_ROW_GROUPS = 16  # at most 64 trajectories per block
 
 
+# Fields of the solve kernels' specs that select a build for a feature (a
+# per-column S, a segment launch): left out of the flags and the tag when 0,
+# so a whole solve with a scalar S is built as before them.
+_FEATURES = ("cols", "seg")
+
+
 def _defines(spec):
-    return [f"-DCCVM_{k.upper()}={int(v)}" for k, v in zip(spec._fields, spec)]
+    return [f"-DCCVM_{k.upper()}={int(v)}" for k, v in zip(spec._fields, spec)
+            if k not in _FEATURES or v]
 
 
 def _tag(spec):
-    return "".join(str(int(v)) for v in spec)
+    return "".join(str(int(v)) for k, v in zip(spec._fields, spec)
+                   if k not in _FEATURES) + "".join(
+        f"{k[0]}{int(v)}" for k, v in zip(spec._fields, spec) if k in _FEATURES and v)
 
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 # (q, v, outputs..., instances, batch, n, iterations, seed, scalars,
-# rows_per_block, stream) of the exported launch functions.
+# rows_per_block, stream) of the exported launch functions; the solve
+# kernels' take the per-column S and a Segment after them (_SOLVE_TAIL).
 _HEAD = [ctypes.c_void_p, ctypes.c_void_p]
 _TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_ulonglong, _F32P, ctypes.c_int, ctypes.c_void_p]
+
+
+class Segment(ctypes.Structure):
+    """A segment launch's host arguments (csrc/ccvm_common.cuh ``Segment``):
+    device pointers of the state to start from (``inp[0]`` None: the
+    initial state) and of the moments to write, DL's clamped c, the absolute
+    first step and the whole solve's steps."""
+
+    _fields_ = [("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p * 6),
+                ("clamped", ctypes.c_void_p), ("start", ctypes.c_int),
+                ("total", ctypes.c_int)]
+
+
+_SOLVE_TAIL = _TAIL + [ctypes.c_void_p, ctypes.POINTER(Segment)]
+
+
+def segment(state, shape, start, total, moments, clamped=None):
+    """The ``Segment`` of a launch from ``state`` (tensors on the card in the
+    kernel's order, or None: the initial state) at step ``start`` of
+    ``total``, writing ``moments`` (and DL's ``clamped`` c); returns it with
+    the contiguous state arrays it points at, which must outlive the
+    launch."""
+    arrays = [] if state is None else [x.reshape(shape).contiguous() for x in state]
+    inp = [x.data_ptr() for x in arrays] + [None] * (6 - len(arrays))
+    out = [m.data_ptr() for m in moments] + [None] * (6 - len(moments))
+    return Segment((ctypes.c_void_p * 6)(*inp), (ctypes.c_void_p * 6)(*out),
+                   None if clamped is None else clamped.data_ptr(), int(start),
+                   int(total)), arrays
 
 
 class DLSpec(NamedTuple):
@@ -65,10 +103,12 @@ class DLSpec(NamedTuple):
     rng: int  # index into ops.philox.RNG_NAMES
     mma: bool = True  # the 3xTF32 tensor-core matvec; False: fp32 CUDA cores
     nt: int = 9  # n-tiles of 8 columns, ceil(N / 8) (0 for the CUDA-core matvec)
+    cols: int = 0  # per-column S: 1 in the final clamp only, 2 in the drift too
+    seg: bool = False  # a segment launch
 
     source = "dl_solve.cu"
     symbol = "ccvm_dl_solve"
-    argtypes = _HEAD + [ctypes.c_void_p] * 3 + _TAIL  # step table, c, s
+    argtypes = _HEAD + [ctypes.c_void_p] * 3 + _SOLVE_TAIL  # step table, c, s
     defines = _defines
     tag = _tag
 
@@ -82,10 +122,12 @@ class MFSpec(NamedTuple):
     noise: bool
     rng: int  # index into ops.philox.RNG_NAMES
     np: int = 72  # N padded to a multiple of 4 (the matvec's bound, unrolled)
+    cols: bool = False  # a per-column S
+    seg: bool = False  # a segment launch
 
     source = "mf_solve.cu"
     symbol = "ccvm_mf_solve"
-    argtypes = _HEAD + [ctypes.c_void_p] * 4 + _TAIL  # step table, mu, mu_tilde, sigma
+    argtypes = _HEAD + [ctypes.c_void_p] * 4 + _SOLVE_TAIL  # step table, mu, mu_tilde, sigma
     defines = _defines
     tag = _tag
 
@@ -102,10 +144,12 @@ class LangevinSpec(NamedTuple):
     noise: bool
     rng: int  # index into ops.philox.RNG_NAMES
     np: int  # N padded to a multiple of 8 (the matvec's bound, unrolled)
+    cols: bool = False  # a per-column S
+    seg: bool = False  # a segment launch
 
     source = "langevin_solve.cu"
     symbol = "ccvm_langevin_solve"
-    argtypes = _HEAD + [ctypes.c_void_p] * 2 + _TAIL  # step table, c
+    argtypes = _HEAD + [ctypes.c_void_p] * 2 + _SOLVE_TAIL  # step table, c
     defines = _defines
     tag = _tag
 
@@ -170,12 +214,13 @@ class LaunchShape(NamedTuple):
     blocks_per_sm: int
 
 
-def dl_launch_shape(n: int, adam: bool, mma: bool = True) -> LaunchShape:
+def dl_launch_shape(n: int, adam: bool, mma: bool = True, cols: int = 0) -> LaunchShape:
     """The launch rule of csrc/dl_solve.cu (``dl_launch_shape`` there).
 
     Tensor cores: a warp owns 8 trajectories, N is padded to a multiple of
     8 (``nt`` = N/8 n-tiles, at most 16), and the block holds Q's 3xTF32
-    fragments (8 NP^2 bytes), a per-column offset (4 NP), and each warp its
+    fragments (8 NP^2 bytes), a per-column offset (4 NP; with ``cols`` 2,
+    a per-column S_d, the x and feedback scales too), and each warp its
     lanes' own arrays, 512 bytes per n-tile and float4: DL's c and s (nt
     float4s); DL-Adam's c and s beyond the four n-tiles it keeps in
     registers, and its two moments (2 nt).  DL: 8 warps (64 trajectories)
@@ -188,7 +233,7 @@ def dl_launch_shape(n: int, adam: bool, mma: bool = True) -> LaunchShape:
         return LaunchShape(rows, threads, smem, -(-n // _TILE) * _TILE, 1 if adam else 2)
     np_ = -(-n // 8) * 8
     nt = np_ // 8
-    fixed = 8 * np_ * np_ + 4 * np_
+    fixed = 8 * np_ * np_ + 4 * np_ * (3 if cols == 2 else 1)
     per_warp = 512 * (max(0, nt - 4) + 2 * nt if adam else nt)
     max_warps, want_blocks = (16, 1) if adam else (8, 2)
     warps = min(max_warps, (SMEM_LIMIT - fixed) // per_warp)
@@ -213,13 +258,13 @@ _QUARTER_REGISTERS = 16384
 _MAX_BLOCKS_PER_SM = 32
 
 
-def mf_launch_shape(n: int, adam: bool) -> LaunchShape:
+def mf_launch_shape(n: int, adam: bool, cols: bool = False) -> LaunchShape:
     """The launch rule of csrc/mf_solve.cu (``mf_launch_shape`` there).
 
     A thread owns a 4 x 4 tile of trajectories and columns (N padded to a
     multiple of 4); a block is at most 16 row groups (64 trajectories) and
     288 threads (two blocks per SM, 18 warps, at N=70), and holds Q (4 NP^2
-    bytes), the per-column V term (4 NP), two x buffers of its rows at
+    bytes), the per-column V term (4 NP; ``cols``: S_j too), two x buffers of its rows at
     stride NP + 4 (Adam: one), and each thread's own float4s: sigma of its
     four rows (64 bytes), and for Adam their two moments and mu (192 bytes
     more).  The blocks per SM are those that shared memory and 96 registers
@@ -230,7 +275,8 @@ def mf_launch_shape(n: int, adam: bool) -> LaunchShape:
     row_groups = min(_MF_MAX_ROW_GROUPS, _MF_THREADS // groups)
     threads = groups * row_groups
     rows = _TILE * row_groups
-    smem = (4 * (np_ * np_ + np_ + (1 if adam else 2) * rows * (np_ + 4))
+    smem = (4 * (np_ * np_ + (2 if cols else 1) * np_
+                 + (1 if adam else 2) * rows * (np_ + 4))
             + (256 if adam else 64) * threads)
     if row_groups < 1 or smem > SMEM_LIMIT:
         raise ValueError(
@@ -253,7 +299,7 @@ _LGV_MAX_COLS = 16  # csrc/langevin_solve.cu kMaxCols: N <= 128
 _LGV_MAX_BLOCKS = 2
 
 
-def langevin_launch_shape(n: int, adam: bool) -> LaunchShape:
+def langevin_launch_shape(n: int, adam: bool, per_col: bool = False) -> LaunchShape:
     """The launch rule of csrc/langevin_solve.cu (``lgv_launch_shape``
     there).
 
@@ -261,8 +307,9 @@ def langevin_launch_shape(n: int, adam: bool) -> LaunchShape:
     16 row groups, 128 threads: a thread owns NP/8 columns (9 at N=70) of 8
     trajectory rows, or 4 for Adam (half that beyond 9 columns), every 16th
     row of the block (128 trajectories a block, Adam 64).  It holds Q
-    (4 NP^2 bytes), two x buffers of its rows at stride NP + 4, and for Adam
-    each thread's second moments of its tile (4 bytes an element).  The blocks
+    (4 NP^2 bytes; ``per_col``: S_j and scale_j, 8 NP more), two x buffers
+    of its rows at stride NP + 4, and for Adam each thread's second moments
+    of its tile (4 bytes an element).  The blocks
     per SM are those that shared memory and the launch bounds allow, at
     most two (the card reports the real count:
     ``langevin_kernels.blocks_per_sm``).  Raises when N does not fit."""
@@ -270,7 +317,8 @@ def langevin_launch_shape(n: int, adam: bool) -> LaunchShape:
     cols = np_ // _LGV_GROUPS
     rows = _LGV_ROW_GROUPS * (4 if adam else 8) // (2 if cols > 9 else 1)
     threads = _LGV_GROUPS * _LGV_ROW_GROUPS
-    smem = 4 * np_ * np_ + 4 * 2 * rows * (np_ + 4) + (4 * rows * np_ if adam else 0)
+    smem = (4 * np_ * np_ + (8 * np_ if per_col else 0) + 4 * 2 * rows * (np_ + 4)
+            + (4 * rows * np_ if adam else 0))
     if cols > _LGV_MAX_COLS or smem > SMEM_LIMIT:
         raise ValueError(
             f"problem size N={n} does not fit the Langevin{'-Adam' if adam else ''} "

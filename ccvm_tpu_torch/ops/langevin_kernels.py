@@ -11,6 +11,14 @@ given); for CPU tensors they run :func:`langevin_solve_reference` and
 kernel to the plain version.  The wrappers hand the kernel its per-step
 scalars as a table (:func:`_step_table`) and its per-solve constants
 (:func:`_scalars`), both by the plain version's own float32 operations.
+``params.S`` is a scalar or one value a column (a tuple), which the
+kernel's per-column build takes.
+
+:func:`langevin_solve_segment` and :func:`pumped_langevin_solve_segment`
+advance a given state (c and Adam's moments) from a given absolute step (the
+JAX ``solve_segment``), and the ``*_solve_sampled`` functions run a whole
+solve as segments with a sample of c after each (the JAX ``solve_sampled``):
+the segments equal the whole launch bit for bit.
 
 The plain versions compute the same function in eager PyTorch with
 :mod:`ccvm_tpu_torch.dynamics.langevin` and
@@ -25,6 +33,7 @@ square root and division take the hardware's approximations).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,6 +42,7 @@ from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import langevin as lgv
 from ccvm_tpu_torch.dynamics import pumped_langevin as plgv
 from ccvm_tpu_torch.ops import build, philox
+from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 
@@ -43,7 +53,7 @@ def launch_shape(n: int, adam: bool = False):
     return tuple(build.langevin_launch_shape(n, adam)[:3])
 
 
-def _spec(n, hp, noise_scale, rng, *, pumped):
+def _spec(n, hp, noise_scale, rng, *, pumped, cols=False, seg=False):
     """The kernel specialisation a launch with these arguments takes."""
     noise = float(noise_scale) != 0.0
     return build.LangevinSpec(
@@ -54,14 +64,18 @@ def _spec(n, hp, noise_scale, rng, *, pumped):
         noise=noise,
         rng=philox.RNG_NAMES.index(rng) if noise else 0,
         np=build.langevin_launch_shape(n, hp is not None).np,
+        cols=bool(cols),
+        seg=bool(seg),
     )
 
 
-def blocks_per_sm(n, *, pumped=False, noise_scale=1.0, rng="popcount32", hp=None):
+def blocks_per_sm(n, *, pumped=False, noise_scale=1.0, rng="popcount32", hp=None,
+                  cols=False, seg=False):
     """Blocks of the specialisation that the wrappers launch with these
-    arguments that the card keeps resident per SM
+    arguments (``cols``, ``seg``: the per-column S and segment builds) that
+    the card keeps resident per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
-    fn = build.load(_spec(n, hp, noise_scale, rng, pumped=pumped),
+    fn = build.load(_spec(n, hp, noise_scale, rng, pumped=pumped, cols=cols, seg=seg),
                     "ccvm_langevin_blocks_per_sm",
                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
     blocks = ctypes.c_int(0)
@@ -75,13 +89,15 @@ def _scalars(params, hp, noise_scale):
     """The kernel's 13 float32 scalars (csrc/langevin_solve.cu
     LangevinScalars): S, dt, feedback_scale, then the per-solve constants as
     the plain version rounds them in float32 (scale = (u - l) / (2 S),
-    (u + l) / 2, dt fs, sigma sqrt(dt)), the noise scale and Adam's."""
+    (u + l) / 2, dt fs, sigma sqrt(dt)), the noise scale and Adam's.  With
+    one S a column, S reads 1 here (the kernel takes :func:`_columns`)."""
     alpha = beta1 = beta2 = 0.0
     if hp is not None:
         alpha, beta1, beta2 = hp.alpha, hp.beta1, hp.beta2
     f = np.float32
+    S = params.S if np.ndim(params.S) == 0 else 1.0
     S, dt, sigma, fs, lo, hi = (f(x) for x in (
-        params.S, params.dt, params.sigma, params.feedback_scale,
+        S, params.dt, params.sigma, params.feedback_scale,
         params.lower_limit, params.upper_limit))
     vals = np.array(
         [S, dt, fs, (hi - lo) / (f(2) * S), (hi + lo) / f(2), dt * fs,
@@ -92,6 +108,18 @@ def _scalars(params, hp, noise_scale):
     return (ctypes.c_float * 13)(*vals.tolist())
 
 
+def _columns(params, device):
+    """The per-column build's (2, n) float32 columns on ``device``: S_j and
+    scale_j = (u - l) / (2 S_j), rounded as :func:`_scalars` rounds the
+    scalar S's (None for a scalar S)."""
+    if np.ndim(params.S) == 0:
+        return None
+    f = np.float32
+    S = np.asarray(params.S, np.float32)
+    scale = (f(params.upper_limit) - f(params.lower_limit)) / (f(2) * S)
+    return torch.from_numpy(np.stack([S, scale])).to(device)
+
+
 def _step_table(params, hp, iterations, pump_rate_flag, device):
     """The kernel's per-step scalars, (iterations, 8) float32 on ``device``,
     by the plain version's own float32 operations
@@ -100,7 +128,8 @@ def _step_table(params, hp, iterations, pump_rate_flag, device):
     p_i = pump (i+1) / T, or pump (0 for Langevin, which has no pump), then
     Adam's 1 - beta1^(i+1), its reciprocal, 1 - beta2^(i+1) and its
     reciprocal (ones without Adam, or for beta2 = 1), then three zeros that
-    pad a row to the kernel's two float4 reads."""
+    pad a row to the kernel's two float4 reads.  Row i is step i of the
+    whole solve; a segment reads its rows from its first step on."""
     fi1 = torch.arange(1, int(iterations) + 1, dtype=torch.float32, device=device)
     ones, zeros = torch.ones_like(fi1), torch.zeros_like(fi1)
     k1 = zeros
@@ -132,50 +161,71 @@ def _check(q_matrix, v_vector, params, rng):
         )
     if v_vector.device != q_matrix.device:
         raise ValueError("Q and V must lie on the same device")
-    if np.ndim(params.S) != 0:
-        raise ValueError(
-            "the Langevin kernels take a scalar S (per-variable S is not "
-            "ported to ccvm_tpu_torch yet: ROADMAP.md, queue 1 item 7)"
-        )
+    check_saturation(params.S, q_matrix.shape[-1], "the Langevin kernels")
 
 
 def _run(launch, seed, q, v, params, *, iterations, batch_size, noise_scale, hp,
-         pump_rate_flag):
+         pump_rate_flag, segment=None):
     """One launch of a built library's ``launch`` function on stacked
-    (I, n, n) Q and (I, n) V on the card; returns c (I, batch, n) and the
-    cudaError_t of the launch.  ``tools/breakdown.py`` times probe builds
-    through it."""
+    (I, n, n) Q and (I, n) V on the card; returns c (I, batch, n), the
+    moments (Adam's (m, v) of a segment launch, else none) and the
+    cudaError_t of the launch.  ``segment``: (state, start, num, steps) of a
+    segment launch (state None: c = 0; steps None: the table built here).
+    ``tools/breakdown.py`` times probe builds through it."""
     num_instances, n = q.shape[0], q.shape[-1]
-    rows, _, _ = launch_shape(n, hp is not None)
-    steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
-    c = torch.zeros((num_instances, batch_size, n), dtype=torch.float32,
+    cols = np.ndim(params.S) != 0
+    rows = build.langevin_launch_shape(n, hp is not None, cols).rows
+    steps = None if segment is None else segment[3]
+    if steps is None:
+        steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
+    col_values = _columns(params, q.device)
+    shape = (num_instances, int(batch_size), n)
+    c = torch.zeros(shape, dtype=torch.float32,
                     device=q.device)  # the result of a solve of 0 iterations
+    seg, moments, num = None, [], int(iterations)
+    if segment is not None:
+        state, start, num, _ = segment
+        moments = [torch.empty_like(c) for _ in range(2 if hp is not None else 0)]
+        seg, _held = build.segment(state, shape, start, iterations, moments)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(
             q.data_ptr(), v.data_ptr(), steps.data_ptr(), c.data_ptr(),
-            num_instances, int(batch_size), n, int(iterations), int(seed) % 2**64,
+            num_instances, int(batch_size), n, int(num), int(seed) % 2**64,
             _scalars(params, hp, float(noise_scale)), rows, stream,
+            None if col_values is None else col_values.data_ptr(),
+            None if seg is None else ctypes.byref(seg),
         )
-    return c, err
+    return c, moments, err
 
 
 def _launch(seed, q_matrix, v_vector, params, *, pumped, iterations,
-            batch_size, pump_rate_flag, noise_scale, rng, hp):
-    """One launch of ``csrc/langevin_solve.cu`` on CUDA tensors."""
+            batch_size, pump_rate_flag, noise_scale, rng, hp, segment=None):
+    """One launch of ``csrc/langevin_solve.cu`` on CUDA tensors: c, or a
+    segment's state (c, or with Adam (c, m, v)), counted."""
     if q_matrix.device.type != "cuda":
         raise ValueError(
             f"the Langevin kernels run on cpu or cuda, not {q_matrix.device}")
     stacked = q_matrix.ndim == 3
     q = (q_matrix if stacked else q_matrix[None]).contiguous()
     v = (v_vector if stacked else v_vector[None]).contiguous()
-    spec = _spec(q.shape[-1], hp, noise_scale, rng, pumped=pumped)
-    c, err = _run(build.load(spec), seed, q, v, params, iterations=iterations,
-                  batch_size=batch_size, noise_scale=noise_scale, hp=hp,
-                  pump_rate_flag=pump_rate_flag)
+    spec = _spec(q.shape[-1], hp, noise_scale, rng, pumped=pumped,
+                 cols=np.ndim(params.S) != 0, seg=segment is not None)
+    c, moments, err = _run(build.load(spec), seed, q, v, params,
+                           iterations=iterations, batch_size=batch_size,
+                           noise_scale=noise_scale, hp=hp,
+                           pump_rate_flag=pump_rate_flag, segment=segment)
     if err != 0:
         raise RuntimeError(f"{spec} kernel launch failed: cudaError_t {err}")
-    return c if stacked else c[0]
+    counts = (pumped_langevin_solve, ("pumped_launches", "pumped_adam_launches")) \
+        if pumped else (langevin_solve, ("langevin_launches", "langevin_adam_launches"))
+    attr = counts[1][hp is not None]
+    setattr(counts[0], attr, getattr(counts[0], attr) + 1)
+    unstack = (lambda x: x) if stacked else (lambda x: x[0])
+    if segment is None:
+        return unstack(c)
+    out = tuple(unstack(x) for x in [c] + moments)
+    return out if hp is not None else out[0]
 
 
 def langevin_solve(
@@ -190,13 +240,8 @@ def langevin_solve(
                   noise_scale=noise_scale, rng=rng, hp=hp)
     if q_matrix.device.type == "cpu":
         return langevin_solve_reference(seed, q_matrix, v_vector, params, **kwargs)
-    c = _launch(seed, q_matrix, v_vector, params, pumped=False,
-                pump_rate_flag=False, **kwargs)
-    if hp is None:
-        langevin_solve.langevin_launches += 1
-    else:
-        langevin_solve.langevin_adam_launches += 1
-    return c
+    return _launch(seed, q_matrix, v_vector, params, pumped=False,
+                   pump_rate_flag=False, **kwargs)
 
 
 def pumped_langevin_solve(
@@ -212,24 +257,144 @@ def pumped_langevin_solve(
     if q_matrix.device.type == "cpu":
         return pumped_langevin_solve_reference(seed, q_matrix, v_vector, params,
                                                **kwargs)
-    c = _launch(seed, q_matrix, v_vector, params, pumped=True, **kwargs)
-    if hp is None:
-        pumped_langevin_solve.pumped_launches += 1
-    else:
-        pumped_langevin_solve.pumped_adam_launches += 1
-    return c
+    return _launch(seed, q_matrix, v_vector, params, pumped=True, **kwargs)
 
 
-# Launch counts of the four kernels (the wrappers add one per launch).
+# Launch counts of the four kernels (the wrappers add one per launch of a
+# kernel's builds, a segment's too).
 langevin_solve.langevin_launches = 0
 langevin_solve.langevin_adam_launches = 0
 pumped_langevin_solve.pumped_launches = 0
 pumped_langevin_solve.pumped_adam_launches = 0
 
 
+def _check_segment(state, start, num, iterations, hp, q_matrix, batch_size):
+    check_segment(None if state is None else ((state,) if hp is None else tuple(state)),
+                  start, num, iterations, ("c",) if hp is None else ("c", "m", "v"),
+                  q_matrix, batch_size)
+
+
+def _segment(pumped, seed, q_matrix, v_vector, params, state, start, num, *,
+             iterations, batch_size, pump_rate_flag, noise_scale, rng, hp, steps):
+    kwargs = dict(iterations=iterations, batch_size=batch_size,
+                  noise_scale=noise_scale, rng=rng, hp=hp)
+    if q_matrix.device.type == "cpu":
+        if pumped:
+            return pumped_langevin_solve_segment_reference(
+                seed, q_matrix, v_vector, params, state, start, num,
+                pump_rate_flag=pump_rate_flag, **kwargs)
+        return langevin_solve_segment_reference(seed, q_matrix, v_vector, params, state,
+                                                start, num, **kwargs)
+    _check(q_matrix, v_vector, params, rng)
+    _check_segment(state, start, num, iterations, hp, q_matrix, batch_size)
+    arrays = None if state is None else ((state,) if hp is None else tuple(state))
+    return _launch(seed, q_matrix, v_vector, params, pumped=pumped,
+                   pump_rate_flag=pump_rate_flag,
+                   segment=(arrays, int(start), num, steps), **kwargs)
+
+
+def langevin_solve_segment(
+    seed, q_matrix, v_vector, params, state, start, num, *, iterations,
+    batch_size, noise_scale=1.0, rng="popcount32", hp=None, steps=None,
+):
+    """Advance ``state`` (c, or with ``hp`` (c, m, v); None: c = 0) by
+    ``num`` steps from absolute step ``start`` of a solve of ``iterations``
+    steps (the JAX ``solve_segment``); returns the state.  ``steps``: the
+    solve's step table (:func:`_step_table`), to build it once for many
+    segments."""
+    return _segment(False, seed, q_matrix, v_vector, params, state, start, num,
+                    iterations=iterations, batch_size=batch_size,
+                    pump_rate_flag=False, noise_scale=noise_scale, rng=rng, hp=hp,
+                    steps=steps)
+
+
+def pumped_langevin_solve_segment(
+    seed, q_matrix, v_vector, params, state, start, num, *, iterations,
+    batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    steps=None,
+):
+    """:func:`langevin_solve_segment` of pumped Langevin."""
+    return _segment(True, seed, q_matrix, v_vector, params, state, start, num,
+                    iterations=iterations, batch_size=batch_size,
+                    pump_rate_flag=pump_rate_flag, noise_scale=noise_scale,
+                    rng=rng, hp=hp, steps=steps)
+
+
+def _sampled(pumped, seed, q_matrix, v_vector, params, segments, *, batch_size,
+             pump_rate_flag, noise_scale, rng, hp, plain=False):
+    """The segments of a whole solve (``plain``: the plain versions', on any
+    device) and the state after each."""
+    iterations = int(sum(int(x) for x in segments))
+    steps = None
+    if q_matrix.device.type == "cuda" and not plain:
+        steps = _step_table(params, hp, iterations, pump_rate_flag, q_matrix.device)
+    kwargs = dict(iterations=iterations, batch_size=batch_size, noise_scale=noise_scale,
+                  rng=rng, hp=hp)
+    if plain:
+        segment = (functools.partial(pumped_langevin_solve_segment_reference,
+                                     pump_rate_flag=pump_rate_flag) if pumped
+                   else langevin_solve_segment_reference)
+    else:
+        segment = functools.partial(_segment, pumped, pump_rate_flag=pump_rate_flag,
+                                    steps=steps)
+    state, start, samples = None, 0, []
+    for num in segments:
+        state = segment(seed, q_matrix, v_vector, params, state, start, int(num),
+                        **kwargs)
+        start += int(num)
+        samples.append(state if hp is None else state[0])
+    return samples[-1], torch.stack(samples)
+
+
+def langevin_solve_sampled(
+    seed, q_matrix, v_vector, params, segments, *, batch_size, noise_scale=1.0,
+    rng="popcount32", hp=None,
+):
+    """A whole solve of ``sum(segments)`` steps as one segment launch each
+    (the JAX ``solve_sampled``).  Returns ``(c, c_samples)``: the final c,
+    and each segment's c stacked on a leading axis, on the tensors'
+    device."""
+    return _sampled(False, seed, q_matrix, v_vector, params, segments,
+                    batch_size=batch_size, pump_rate_flag=False,
+                    noise_scale=noise_scale, rng=rng, hp=hp)
+
+
+def pumped_langevin_solve_sampled(
+    seed, q_matrix, v_vector, params, segments, *, batch_size, pump_rate_flag,
+    noise_scale=1.0, rng="popcount32", hp=None,
+):
+    """:func:`langevin_solve_sampled` of pumped Langevin."""
+    return _sampled(True, seed, q_matrix, v_vector, params, segments,
+                    batch_size=batch_size, pump_rate_flag=pump_rate_flag,
+                    noise_scale=noise_scale, rng=rng, hp=hp)
+
+
+def langevin_solve_sampled_reference(
+    seed, q_matrix, v_vector, params, segments, *, batch_size, noise_scale=1.0,
+    rng="popcount32", hp=None,
+):
+    """Plain PyTorch version of :func:`langevin_solve_sampled` (same
+    arguments, same result), on the tensors' own device."""
+    return _sampled(False, seed, q_matrix, v_vector, params, segments,
+                    batch_size=batch_size, pump_rate_flag=False,
+                    noise_scale=noise_scale, rng=rng, hp=hp, plain=True)
+
+
+def pumped_langevin_solve_sampled_reference(
+    seed, q_matrix, v_vector, params, segments, *, batch_size, pump_rate_flag,
+    noise_scale=1.0, rng="popcount32", hp=None,
+):
+    """Plain PyTorch version of :func:`pumped_langevin_solve_sampled`."""
+    return _sampled(True, seed, q_matrix, v_vector, params, segments,
+                    batch_size=batch_size, pump_rate_flag=pump_rate_flag,
+                    noise_scale=noise_scale, rng=rng, hp=hp, plain=True)
+
+
 def _reference(solve, seed, q_matrix, v_vector, params, *, iterations,
-               batch_size, noise_scale, rng, **kwargs):
-    """A plain solve on the tensors' own device, with the kernel's noise."""
+               batch_size, noise_scale, rng, segment=None, **kwargs):
+    """A plain solve (``segment`` (state, start, num): a plain segment with
+    ``solve`` the dynamics' ``advance``) on the tensors' own device, with
+    the kernel's noise."""
     _check(q_matrix, v_vector, params, rng)
     stacked = q_matrix.ndim == 3
     q = q_matrix if stacked else q_matrix[None]
@@ -242,10 +407,23 @@ def _reference(solve, seed, q_matrix, v_vector, params, *, iterations,
         w = philox.wiener_one(seed, i, rows, n, rng, instances)
         return w if noise_scale == 1.0 else w * noise_scale
 
+    draw = None if noise_scale == 0.0 else draw
+    unstack = (lambda x: x) if stacked else (lambda x: x[0])
     with fp32_matmul():
-        c = solve(q, v, params, iterations=iterations, batch_size=batch_size,
-                  draw=None if noise_scale == 0.0 else draw, **kwargs)
-    return c if stacked else c[0]
+        if segment is None:
+            return unstack(solve(q, v, params, iterations=iterations,
+                                 batch_size=batch_size, draw=draw, **kwargs))
+        state, start, num = segment
+        shape = (q.shape[0], int(batch_size), n)
+        if state is None:
+            c0 = torch.zeros(shape, dtype=torch.float32, device=q.device)
+            state = c0 if kwargs["hp"] is None else (c0, c0, c0)
+        elif kwargs["hp"] is None:
+            state = state.reshape(shape)
+        else:
+            state = tuple(x.reshape(shape) for x in state)
+        state = solve(q, v, params, state, start, num, draw=draw, **kwargs)
+    return unstack(state) if kwargs["hp"] is None else tuple(unstack(x) for x in state)
 
 
 def langevin_solve_reference(
@@ -269,3 +447,28 @@ def pumped_langevin_solve_reference(
                       iterations=iterations, batch_size=batch_size,
                       noise_scale=noise_scale, rng=rng, hp=hp,
                       pump_rate_flag=pump_rate_flag)
+
+
+def langevin_solve_segment_reference(
+    seed, q_matrix, v_vector, params, state, start, num, *, iterations,
+    batch_size, noise_scale=1.0, rng="popcount32", hp=None,
+):
+    """Plain PyTorch version of :func:`langevin_solve_segment` (same
+    arguments, same result), on the tensors' own device."""
+    _check_segment(state, start, num, iterations, hp, q_matrix, batch_size)
+    return _reference(lgv.advance, seed, q_matrix, v_vector, params,
+                      iterations=iterations, batch_size=batch_size,
+                      noise_scale=noise_scale, rng=rng, hp=hp,
+                      segment=(state, start, num))
+
+
+def pumped_langevin_solve_segment_reference(
+    seed, q_matrix, v_vector, params, state, start, num, *, iterations,
+    batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+):
+    """Plain PyTorch version of :func:`pumped_langevin_solve_segment`."""
+    _check_segment(state, start, num, iterations, hp, q_matrix, batch_size)
+    return _reference(plgv.advance, seed, q_matrix, v_vector, params,
+                      iterations=iterations, batch_size=batch_size,
+                      noise_scale=noise_scale, rng=rng, hp=hp,
+                      pump_rate_flag=pump_rate_flag, segment=(state, start, num))

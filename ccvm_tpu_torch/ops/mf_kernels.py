@@ -8,7 +8,15 @@ given); for CPU tensors it runs :func:`mf_solve_reference`.  There is no
 fallback from the kernel to the plain version.  The wrapper hands the
 kernel its per-step scalars as a table (:func:`_step_table`) and its
 per-solve constants (:func:`_scalars`), both by the plain version's own
-float32 operations.
+float32 operations.  ``params.S`` is a scalar or one value a column (a
+tuple), which the kernel's per-column build takes (its divisions by S_j
+the IEEE ones).
+
+:func:`mf_solve_segment` advances a given state (mu, sigma and Adam's
+moments) from a given absolute step (the JAX ``dynamics/mf.py``
+``solve_segment``), and :func:`mf_solve_sampled` runs a whole solve as
+segments with a sample of mu and sigma after each (the JAX ``solve_sampled``):
+the segments equal the whole launch bit for bit.
 
 :func:`mf_solve_reference` computes the same function in eager PyTorch with
 :func:`ccvm_tpu_torch.dynamics.mf.solve`, the kernel's per-step safety clip
@@ -22,6 +30,7 @@ ulp or so (its per-element division takes the hardware's approximation).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +38,7 @@ import torch
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import mf as dyn
 from ccvm_tpu_torch.ops import build, philox
+from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 def launch_shape(n: int, adam: bool = False):
@@ -38,7 +48,7 @@ def launch_shape(n: int, adam: bool = False):
     return tuple(build.mf_launch_shape(n, adam)[:3])
 
 
-def _spec(n, hp, noise_scale, rng):
+def _spec(n, hp, noise_scale, rng, cols=False, seg=False):
     noise = float(noise_scale) != 0.0
     return build.MFSpec(
         adam=hp is not None,
@@ -47,14 +57,18 @@ def _spec(n, hp, noise_scale, rng):
         noise=noise,
         rng=philox.RNG_NAMES.index(rng) if noise else 0,
         np=build.mf_launch_shape(n, hp is not None).np,
+        cols=bool(cols),
+        seg=bool(seg),
     )
 
 
-def blocks_per_sm(n, *, noise_scale=1.0, rng="popcount32", hp=None):
+def blocks_per_sm(n, *, noise_scale=1.0, rng="popcount32", hp=None, cols=False,
+                  seg=False):
     """Blocks of the specialisation that :func:`mf_solve` launches with these
-    arguments that the card keeps resident per SM
+    arguments (``cols``, ``seg``: the per-column S and segment builds) that
+    the card keeps resident per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
-    fn = build.load(_spec(n, hp, noise_scale, rng), "ccvm_mf_blocks_per_sm",
+    fn = build.load(_spec(n, hp, noise_scale, rng, cols, seg), "ccvm_mf_blocks_per_sm",
                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
     blocks = ctypes.c_int(0)
     err = fn(int(n), ctypes.byref(blocks))
@@ -67,12 +81,14 @@ def _scalars(params, hp, noise_scale):
     """The kernel's 24 float32 scalars (csrc/mf_solve.cu MFScalars): the
     solve's, then its per-solve constants in float32 arithmetic as the plain
     version rounds them (1/S and 1/sqrt(dt) rounded to nearest; 2 (3 g^2)
-    and -0.25 (u - l) are exact multiples of the plain version's)."""
+    and -0.25 (u - l) are exact multiples of the plain version's).  With
+    one S a column, S reads 1 here (the kernel takes the columns')."""
     alpha = beta1 = beta2 = 0.0
     if hp is not None:
         alpha, beta1, beta2 = hp.alpha, hp.beta1, hp.beta2
     f = np.float32
-    S, dt, g, lo, hi = (f(x) for x in (params.S, params.dt, params.g,
+    S = params.S if np.ndim(params.S) == 0 else 1.0
+    S, dt, g, lo, hi = (f(x) for x in (S, params.dt, params.g,
                                        params.lower_limit, params.upper_limit))
     sqrt_dt = np.sqrt(dt)
     g_sq = g * g
@@ -93,7 +109,8 @@ def _step_table(params, hp, iterations, pump_rate_flag, device):
     ``dynamics/common.adam_moment_update``): sqrt(1/(4 j_i)), k1 = -(1 + j_i)
     + pump_i, 1 + j_i, -2 j_i, sqrt(j_i), then Adam's 1 - beta1^(i+1), its
     reciprocal, 1 - beta2^(i+1) and its reciprocal (ones without Adam, or
-    for beta2 = 1), then three zeros."""
+    for beta2 = 1), then three zeros.  Row i is step i of the whole solve;
+    a segment reads its rows from its first step on."""
     p = common.float32_scalars(params, device)
     fi1 = torch.arange(1, int(iterations) + 1, dtype=torch.float32, device=device)
     j_i = p.j * torch.exp(-fi1 / p.iterations * 3.0)
@@ -125,11 +142,60 @@ def _check(q_matrix, v_vector, params, rng):
         )
     if v_vector.device != q_matrix.device:
         raise ValueError("Q and V must lie on the same device")
-    if np.ndim(params.S) != 0:
-        raise ValueError(
-            "the MF kernel takes a scalar S (per-variable S is not ported to "
-            "ccvm_tpu_torch yet: ROADMAP.md, queue 1 item 6)"
+    check_saturation(params.S, q_matrix.shape[-1], "the MF kernel")
+
+
+def _launch(seed, q_matrix, v_vector, params, *, iterations, batch_size,
+            pump_rate_flag, noise_scale, rng, hp, segment=None):
+    """One launch of csrc/mf_solve.cu on CUDA tensors.  ``segment``: (state,
+    start, num, steps) of a segment launch (state None: the solve's first
+    state; steps None: the table built here), which returns ``(state,
+    mu_tilde or None)``; else the whole solve's ``(mu, mu_tilde, sigma)``."""
+    if q_matrix.device.type != "cuda":
+        raise ValueError(f"mf_solve runs on cpu or cuda, not {q_matrix.device}")
+    stacked = q_matrix.ndim == 3
+    q = (q_matrix if stacked else q_matrix[None]).contiguous()
+    v = (v_vector if stacked else v_vector[None]).contiguous()
+    num_instances, n = q.shape[0], q.shape[-1]
+    cols = np.ndim(params.S) != 0
+    rows = build.mf_launch_shape(n, hp is not None, cols).rows
+    launch = build.load(_spec(n, hp, noise_scale, rng, cols, segment is not None))
+    steps = None if segment is None else segment[3]
+    if steps is None:
+        steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
+    col_values = (torch.tensor(params.S, dtype=torch.float32, device=q.device)
+                  if cols else None)
+    shape = (num_instances, int(batch_size), n)
+    mu = torch.empty(shape, dtype=torch.float32, device=q.device)
+    mt = torch.zeros_like(mu)  # the readout of a solve of 0 iterations
+    sigma = torch.empty_like(mu)
+    seg, moments, num = None, [], int(iterations)
+    if segment is not None:
+        state, start, num, _ = segment
+        moments = [torch.empty_like(mu) for _ in range(2 if hp is not None else 0)]
+        seg, _held = build.segment(state, shape, start, iterations, moments)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(
+            q.data_ptr(), v.data_ptr(), steps.data_ptr(), mu.data_ptr(),
+            mt.data_ptr(), sigma.data_ptr(), num_instances, int(batch_size), n,
+            int(num), int(seed) % 2**64,
+            _scalars(params, hp, float(noise_scale)), rows, stream,
+            None if col_values is None else col_values.data_ptr(),
+            None if seg is None else ctypes.byref(seg),
         )
+    if err != 0:
+        raise RuntimeError(f"mf_solve kernel launch failed: cudaError_t {err}")
+    if hp is None:
+        mf_solve.mf_launches += 1
+    else:
+        mf_solve.mf_adam_launches += 1
+    unstack = (lambda x: x) if stacked else (lambda x: x[0])
+    if segment is None:
+        return unstack(mu), unstack(mt), unstack(sigma)
+    ends = int(segment[1]) + int(num) == int(iterations)
+    return (tuple(unstack(x) for x in [mu, sigma] + moments),
+            unstack(mt) if ends else None)
 
 
 def mf_solve(
@@ -148,40 +214,118 @@ def mf_solve(
     )
     if q_matrix.device.type == "cpu":
         return mf_solve_reference(seed, q_matrix, v_vector, params, **kwargs)
-    if q_matrix.device.type != "cuda":
-        raise ValueError(f"mf_solve runs on cpu or cuda, not {q_matrix.device}")
-
-    stacked = q_matrix.ndim == 3
-    q = (q_matrix if stacked else q_matrix[None]).contiguous()
-    v = (v_vector if stacked else v_vector[None]).contiguous()
-    num_instances, n = q.shape[0], q.shape[-1]
-    rows, _, _ = launch_shape(n, hp is not None)
-    launch = build.load(_spec(n, hp, noise_scale, rng))
-    steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
-    mu = torch.empty((num_instances, batch_size, n), dtype=torch.float32,
-                     device=q.device)
-    mt = torch.zeros_like(mu)  # the readout of a solve of 0 iterations
-    sigma = torch.empty_like(mu)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(
-            q.data_ptr(), v.data_ptr(), steps.data_ptr(), mu.data_ptr(),
-            mt.data_ptr(), sigma.data_ptr(), num_instances, int(batch_size), n,
-            int(iterations), int(seed) % 2**64,
-            _scalars(params, hp, float(noise_scale)), rows, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"mf_solve kernel launch failed: cudaError_t {err}")
-    if hp is None:
-        mf_solve.mf_launches += 1
-    else:
-        mf_solve.mf_adam_launches += 1
-    return (mu, mt, sigma) if stacked else (mu[0], mt[0], sigma[0])
+    return _launch(seed, q_matrix, v_vector, params, **kwargs)
 
 
-# Launch counts of the two kernels (the wrapper adds one per launch).
+# Launch counts of the two kernels (the wrapper adds one per launch of the
+# kernel's builds, a segment's too).
 mf_solve.mf_launches = 0
 mf_solve.mf_adam_launches = 0
+
+
+def mf_solve_segment(
+    seed, q_matrix, v_vector, params, state, start, num, *, iterations,
+    batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    steps=None,
+):
+    """Advance ``state`` by ``num`` steps from absolute step ``start`` of a
+    solve of ``iterations`` steps (the JAX ``solve_segment``).  ``state`` is
+    ``(mu, sigma)``, with ``hp`` ``(mu, sigma, m, v)``, or None for the
+    solve's first state.  Returns ``(state, mu_tilde)``: where the segment
+    ends the solve, its readout (the last step's mu_tilde clamped to +-S, as
+    :func:`mf_solve` returns it), else None.  ``steps``: the solve's step
+    table (:func:`_step_table`), to build it once for many segments."""
+    _check(q_matrix, v_vector, params, rng)
+    check_segment(state, start, num, iterations,
+                  ("mu", "sigma") + (("m", "v") if hp is not None else ()), q_matrix,
+                  batch_size)
+    kwargs = dict(iterations=iterations, batch_size=batch_size,
+                  pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng,
+                  hp=hp)
+    if q_matrix.device.type == "cpu":
+        return mf_solve_segment_reference(seed, q_matrix, v_vector, params, state,
+                                          start, num, **kwargs)
+    return _launch(seed, q_matrix, v_vector, params,
+                   segment=(state, int(start), num, steps), **kwargs)
+
+
+def mf_solve_sampled(
+    seed, q_matrix, v_vector, params, segments, *, batch_size, pump_rate_flag,
+    noise_scale=1.0, rng="popcount32", hp=None,
+):
+    """A whole solve of ``sum(segments)`` steps as one segment launch each
+    (the JAX ``solve_sampled``).  Returns ``((mu, mu_tilde, sigma),
+    (mu_samples, sigma_samples))``: the whole solve's result, and each
+    segment's mu and sigma stacked on a leading axis, on the tensors'
+    device."""
+    iterations = int(sum(int(x) for x in segments))
+    kwargs = dict(iterations=iterations, batch_size=batch_size,
+                  pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng,
+                  hp=hp)
+    if q_matrix.device.type == "cpu":
+        return mf_solve_sampled_reference(seed, q_matrix, v_vector, params, segments,
+                                          **kwargs)
+    steps = _step_table(params, hp, iterations, pump_rate_flag, q_matrix.device)
+    return _sampled(functools.partial(mf_solve_segment, steps=steps), seed, q_matrix,
+                    v_vector, params, segments, kwargs)
+
+
+def _sampled(segment, seed, q_matrix, v_vector, params, segments, kwargs):
+    state, start, samples = None, 0, ([], [])
+    for num in segments:
+        state, mt = segment(seed, q_matrix, v_vector, params, state, start, int(num),
+                            **kwargs)
+        start += int(num)
+        samples[0].append(state[0])
+        samples[1].append(state[1])
+    return (state[0], mt, state[1]), tuple(torch.stack(x) for x in samples)
+
+
+def mf_solve_sampled_reference(seed, q_matrix, v_vector, params, segments, *,
+                               iterations=None, **kwargs):
+    """Plain PyTorch version of :func:`mf_solve_sampled` (same arguments,
+    same result), on the tensors' own device."""
+    kwargs["iterations"] = int(sum(int(x) for x in segments))
+    return _sampled(mf_solve_segment_reference, seed, q_matrix, v_vector, params,
+                    segments, kwargs)
+
+
+def _draw(seed, q, batch_size, rng, noise_scale):
+    """Step i's draw of the kernel's noise, for a stacked (I, n, n) Q."""
+    rows = torch.arange(int(batch_size), dtype=torch.int64, device=q.device)
+    instances = torch.arange(q.shape[0], dtype=torch.int64, device=q.device)
+
+    def draw(i):
+        w = philox.wiener_one(seed, i, rows, q.shape[-1], rng, instances)
+        return w if noise_scale == 1.0 else w * noise_scale
+
+    return None if noise_scale == 0.0 else draw
+
+
+def mf_solve_segment_reference(
+    seed, q_matrix, v_vector, params, state, start, num, *, iterations,
+    batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+):
+    """Plain PyTorch version of :func:`mf_solve_segment` (same arguments,
+    same result), on the tensors' own device."""
+    _check(q_matrix, v_vector, params, rng)
+    stacked = q_matrix.ndim == 3
+    q = q_matrix if stacked else q_matrix[None]
+    v = (v_vector if stacked else v_vector[None])[:, None, :]
+    shape = (q.shape[0], int(batch_size), q.shape[-1])
+    full = dyn.initial_state(shape, q.device, hp)
+    if state is not None:
+        state = tuple(x.reshape(shape) for x in state)
+        full = state[:2] + full[2:3] + state[2:]
+    with fp32_matmul():
+        full = dyn.advance(q, v, params, full, start, num,
+                           pump_rate_flag=pump_rate_flag, hp=hp,
+                           draw=_draw(seed, q, batch_size, rng, noise_scale))
+    unstack = (lambda x: x) if stacked else (lambda x: x[0])
+    mt = None
+    if int(start) + int(num) == int(iterations):
+        mt = unstack(dyn.clamp_readout(full[2], params))
+    return tuple(unstack(x) for x in full[:2] + full[3:]), mt
 
 
 def mf_solve_reference(
@@ -194,18 +338,11 @@ def mf_solve_reference(
     stacked = q_matrix.ndim == 3
     q = q_matrix if stacked else q_matrix[None]
     v = (v_vector if stacked else v_vector[None])[:, None, :]
-    n = q.shape[-1]
-    rows = torch.arange(int(batch_size), dtype=torch.int64, device=q.device)
-    instances = torch.arange(q.shape[0], dtype=torch.int64, device=q.device)
-
-    def draw(i):
-        w = philox.wiener_one(seed, i, rows, n, rng, instances)
-        return w if noise_scale == 1.0 else w * noise_scale
 
     with fp32_matmul():
         mu, mt, sigma = dyn.solve(
             q, v, params, iterations=iterations, batch_size=batch_size,
             pump_rate_flag=pump_rate_flag, hp=hp,
-            draw=None if noise_scale == 0.0 else draw,
+            draw=_draw(seed, q, batch_size, rng, noise_scale),
         )
     return (mu, mt, sigma) if stacked else (mu[0], mt[0], sigma[0])

@@ -16,8 +16,10 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 
 import numpy as np
+import torch
 
 from ccvm_tpu_torch.dynamics import common
+from ccvm_tpu_torch.native import write_sample_rows
 from ccvm_tpu_torch.runtime import resolve_device
 
 
@@ -26,6 +28,41 @@ def not_ported(feature, item):
     return NotImplementedError(
         f"{feature} is not ported to ccvm_tpu_torch yet (ROADMAP.md, {item})"
     )
+
+
+def per_variable_saturation(S, problem_size, batch_size):
+    """A façade's S as its solve takes it: a scalar, or one value a column
+    (a tuple of float32 values, ``dynamics/common.saturation``).
+
+    A 1-D S of the problem's size is per column, as the JAX façades'
+    ``np.outer(ones(batch), S)`` makes it (``ccvm_tpu/solvers/dl.py:378-383``);
+    another size raises their ``ValueError``.  A (batch, n) S whose rows are
+    equal is its row; rows that differ are not ported (ROADMAP item 14) and
+    raise, taking no other path."""
+    if np.ndim(S) == 0:
+        return float(np.float32(S))
+    S = np.asarray(S, np.float32)
+    if S.ndim == 1:
+        if S.shape[0] != problem_size:
+            raise ValueError("Tensor S size should be equal to problem size.")
+        return common.saturation(S)
+    if S.ndim != 2 or S.shape != (batch_size, problem_size):
+        raise ValueError(
+            f"S must be a scalar, ({problem_size},) or ({batch_size}, "
+            f"{problem_size}), got shape {S.shape}")
+    if not (S == S[:1]).all():
+        raise not_ported("a per-variable S whose rows differ", "queue 1 item 14")
+    return common.saturation(S[0])
+
+
+def saturation_of(params, device):
+    """A parameter tuple's S for the readout's change of variables, as a
+    float32 tensor on ``device``: 0-dim, or (n,) for one a column, which
+    broadcasts over the batch as the JAX façades' (batch, n) S does.  A
+    tensor in both cases, so that both divide alike (PyTorch multiplies a
+    CUDA tensor by the rounded reciprocal of a Python float divisor) and S
+    as a constant vector reads out as the scalar does."""
+    return torch.tensor(params.S, dtype=torch.float32, device=device)
 
 
 class MachineType:
@@ -123,6 +160,63 @@ class CCVMSolver(ABC):
     ##################################
     # Implemented methods            #
     ##################################
+
+    def _evolution_file(self, instance, evolution_step_size, evolution_file):
+        """The evolution file of a sampled solve (``./{name}_evolution.txt``
+        by default), checking the step size as the JAX façades do; None
+        without sampling."""
+        if not evolution_step_size:
+            return None
+        if evolution_step_size < 1:
+            raise ValueError(
+                "The evolution step size must be greater than or equal to 1."
+            )
+        return evolution_file or f"./{instance.name}_evolution.txt"
+
+    @staticmethod
+    def _evolution_sample_plan(iterations, evolution_step_size):
+        """Number of samples and segment lengths for evolution recording
+        (``ccvm_tpu/solvers/base.py:363-386``): a sample after iteration 0,
+        after every ``evolution_step_size``-th iteration, and after the last
+        if not already aligned (``dl_solver.py:866-873``, ``:557-564``)."""
+        num_steps = int(iterations / evolution_step_size)
+        num_samples = num_steps + 1
+        if iterations % evolution_step_size != 0:
+            num_samples += 1
+        sample_points = list(range(0, iterations, evolution_step_size))
+        if sample_points[-1] != iterations - 1:
+            sample_points.append(iterations - 1)
+        segments = []
+        prev = -1
+        for sp in sample_points:
+            segments.append(sp - prev)
+            prev = sp
+        return num_samples, segments
+
+    @staticmethod
+    def _device_sample_stack(samples, num_samples):
+        """(K, batch, n) segment samples -> (batch, n, num_samples), on the
+        samples' device, zero-padded in the trailing dim like the
+        reference's buffer (``ccvm_tpu/solvers/base.py:388-404``): only the
+        best trajectory's (n, num_samples) slice is read back, when the
+        evolution file is written."""
+        samples = torch.movedim(samples, 0, -1)
+        pad = num_samples - samples.shape[-1]
+        if pad:
+            samples = torch.nn.functional.pad(samples, (0, pad))
+        return samples
+
+    @staticmethod
+    def _write_evolution(evolution_file, objval, blocks, append_trailing_tab=True):
+        """Write the best trajectory's sample blocks (each (batch, n,
+        samples) on the device; the row of the lowest objective value read
+        back) to ``evolution_file``, in the reference format
+        (``native.write_sample_rows``)."""
+        best = int(np.argmax(-np.asarray(objval)))
+        with open(evolution_file, "w") as f:
+            for block in blocks:
+                write_sample_rows(f, block[best].cpu().numpy(),
+                                  append_trailing_tab=append_trailing_tab)
 
     def get_scaling_factor(self, q_matrix):
         """Default problem-scaling value: sqrt(sum |Q|) * solver multiplier

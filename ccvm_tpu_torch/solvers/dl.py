@@ -2,9 +2,11 @@
 ``ccvm_simulators/solvers/dl_solver.py`` and ``ccvm_tpu/solvers/dl.py``).
 
 ``device="cuda"`` launches the whole-solve CUDA kernel (``csrc/dl_solve.cu``)
-for every feature this port carries; ``device="cpu"`` runs its plain PyTorch
-version.  Features not ported yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them; none of them takes another path quietly.
+for every feature this port carries (evolution sampling as one segment
+launch a sample, a per-variable S and the generalised ``pump_ramp`` included);
+``device="cpu"`` runs its plain PyTorch version.  Features not ported yet
+raise ``NotImplementedError`` naming the ROADMAP item that brings them; none
+of them takes another path quietly.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from ccvm_tpu_torch.ops import dl_kernels
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
-from ccvm_tpu_torch.solvers.base import CCVMSolver, not_ported
+from ccvm_tpu_torch.solvers.base import (CCVMSolver, not_ported,
+                                         per_variable_saturation, saturation_of)
 
 DL_SCALING_MULTIPLIER = 0.2
 """Reference ``dl_solver.py:12``."""
@@ -231,27 +234,52 @@ class DLSolver(CCVMSolver):
     # Solve paths                    #
     ##################################
 
-    def _make_params(self, pump, S, dt, noise_ratio, feedback_scale, g, iterations):
+    def _make_params(self, pump, S, dt, noise_ratio, feedback_scale, g, iterations,
+                     pump_ramp=None):
+        """DLParams in float32; ``S`` a scalar or one a column;
+        ``pump_ramp`` ``(power, fraction)`` checked as the JAX façade checks
+        it (``ccvm_tpu/solvers/dl.py:229-256``), ``(1.0, 1.0)`` normalised
+        to the reference's linear ramp (unset fields)."""
         lo, hi = self.solution_bounds
         f32 = lambda x: float(np.float32(x))  # noqa: E731
+        ramp_power = ramp_fraction = None
+        if pump_ramp is not None:
+            power, fraction = pump_ramp
+            if not (fraction > 0):
+                raise ValueError("pump_ramp fraction must be positive.")
+            if not (power > 0):
+                raise ValueError("pump_ramp power must be positive.")
+            if (power, fraction) != (1.0, 1.0):
+                ramp_power, ramp_fraction = f32(power), f32(fraction)
         return dyn.DLParams(
-            pump=f32(pump), S=f32(S), dt=f32(dt), noise_ratio=f32(noise_ratio),
-            feedback_scale=f32(feedback_scale), g=f32(g), lower_limit=f32(lo),
-            upper_limit=f32(hi), iterations=f32(iterations),
+            pump=f32(pump), S=common.saturation(S), dt=f32(dt),
+            noise_ratio=f32(noise_ratio), feedback_scale=f32(feedback_scale),
+            g=f32(g), lower_limit=f32(lo), upper_limit=f32(hi),
+            iterations=f32(iterations), ramp_power=ramp_power,
+            ramp_fraction=ramp_fraction,
         )
 
     def _solve(self, seed, params, iterations, pump_rate_flag, pump_is_gt_one,
-               hp=None):
-        """One whole-solve launch on the instance's device (kernel on
-        "cuda", plain version on "cpu"); ``hp`` selects the Adam variant,
-        which works here although the reference's own DL+Adam call site
-        raises TypeError (``dl_solver.py:906-923``)."""
-        return dl_kernels.dl_solve(
-            seed, self.q_matrix, self.v_vector, params,
-            iterations=iterations, batch_size=self.batch_size,
-            pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
-            rng=self.kernel_rng, hp=hp,
-        )
+               evolution_step_size=None, hp=None):
+        """The solve on the instance's device (kernel on "cuda", plain
+        version on "cpu"): one whole-solve launch, or with
+        ``evolution_step_size`` one segment launch a sample (the JAX
+        ``_evolution_sample_plan``), the samples kept on the device in
+        ``c_sample`` / ``s_sample``.  ``hp`` selects the Adam variant, which
+        works here although the reference's own DL+Adam call site raises
+        TypeError (``dl_solver.py:906-923``)."""
+        kwargs = dict(batch_size=self.batch_size, pump_rate_flag=pump_rate_flag,
+                      pump_is_gt_one=pump_is_gt_one, rng=self.kernel_rng, hp=hp)
+        if not evolution_step_size:
+            return dl_kernels.dl_solve(seed, self.q_matrix, self.v_vector, params,
+                                       iterations=iterations, **kwargs)
+        num_samples, segments = self._evolution_sample_plan(iterations,
+                                                            evolution_step_size)
+        (c, s), (c_samples, s_samples) = dl_kernels.dl_solve_sampled(
+            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        self.c_sample = self._device_sample_stack(c_samples, num_samples)
+        self.s_sample = self._device_sample_stack(s_samples, num_samples)
+        return c, s
 
     def __call__(
         self,
@@ -268,36 +296,32 @@ class DLSolver(CCVMSolver):
         """Solve an instance (reference ``dl_solver.py:771-999``).
 
         ``seed`` (int) keys the kernel's Philox noise; ``None`` draws one.
-        ``pump_ramp`` accepts only the reference's linear ramp (``None`` or
-        ``(1.0, 1.0)``) in this port.
+        ``pump_ramp``: optional ``(power, fraction)`` generalising the linear
+        pump ramp to rate(i) = min((i+1)/(fraction*T), 1)**power, as the JAX
+        façade's; ``(1.0, 1.0)`` or ``None`` is the reference schedule.
+        ``evolution_step_size`` records ``c_sample`` / ``s_sample`` and
+        writes the best trajectory's to ``evolution_file``.
         """
         if instance.device != self.device:
             raise ValueError(
                 f"The device type of the instance ({instance.device}) and the solver"
                 f" ({self.device}) must match."
             )
-        if evolution_step_size:
-            raise not_ported("evolution_step_size", "queue 1 item 4")
         if pump_ramp is not None:
             try:
-                ramp = tuple(float(x) for x in pump_ramp)
+                pump_ramp = tuple(float(x) for x in pump_ramp)
             except (TypeError, ValueError):
-                ramp = ()
-            if len(ramp) != 2:
+                pump_ramp = ()
+            if len(pump_ramp) != 2:
                 raise ValueError(
                     f"pump_ramp must be a (power, fraction) pair of numbers, got "
                     f"{pump_ramp!r}.")
-            if ramp != (1.0, 1.0):
-                raise not_ported("a generalised pump_ramp", "queue 1 item 4")
-        if not np.isscalar(self.S):
-            raise not_ported("per-variable S", "queue 1 item 4")
 
         problem_size = instance.problem_size
         self.q_matrix = instance.q_matrix
         self.v_vector = instance.v_vector
         self.solution_bounds = instance.solution_bounds
 
-        S = self.S
         batch_size = self.batch_size
 
         try:
@@ -310,6 +334,11 @@ class DLSolver(CCVMSolver):
             raise KeyError(
                 f"The parameter '{e.args[0]}' for the given instance size is not defined."
             ) from e
+        S = per_variable_saturation(self.S, problem_size, batch_size)
+        self.c_sample = None
+        self.s_sample = None
+        evolution_file = self._evolution_file(instance, evolution_step_size,
+                                              evolution_file)
 
         # An unknown post-processor raises before the solve is spent.
         post_processor_object = (
@@ -319,7 +348,8 @@ class DLSolver(CCVMSolver):
         solve_time_start = time.time()
 
         params = self._make_params(
-            pump, S, dt, noise_ratio, feedback_scale, g, iterations
+            pump, S, dt, noise_ratio, feedback_scale, g, iterations,
+            pump_ramp=pump_ramp,
         )
         pump_is_gt_one = bool(pump > 1)
         if seed is None:
@@ -335,16 +365,18 @@ class DLSolver(CCVMSolver):
                 f"Solver option type {type(algorithm_parameters)} is not supported."
             )
         c, s = self._solve(
-            seed, params, iterations, pump_rate_flag, pump_is_gt_one, hp=hp
+            seed, params, iterations, pump_rate_flag, pump_is_gt_one,
+            evolution_step_size=evolution_step_size, hp=hp,
         )
         if self.timing == "sync" and c.is_cuda:
             torch.cuda.synchronize(c.device)
         solve_time = (time.time() - solve_time_start) / batch_size
 
         lo, hi = self.solution_bounds
+        S = saturation_of(params, c.device)
         if post_processor_object is not None:
             problem_variables = post_processor_object.postprocess(
-                self.change_variables(c, lo, hi, params.S),
+                self.change_variables(c, lo, hi, S),
                 self.q_matrix,
                 self.v_vector,
             )
@@ -356,15 +388,24 @@ class DLSolver(CCVMSolver):
         # The reference applies change_variables AGAIN to post-processed
         # output (dl_solver.py:941-958); kept for parity.  Float64-grade
         # readout: the change of variables and the f32 energy pass run on the
-        # device; only energies and ambiguous rows cross.
-        objval = instance.compute_energy_readout64(
-            problem_variables, change_vars=("boxqp", lo, hi, params.S),
-        )
+        # device; only energies and ambiguous rows cross.  With one S a
+        # column the box coordinates are materialised first, as the JAX
+        # façade does (ccvm_tpu/solvers/dl.py:451-459).
+        if np.ndim(params.S) == 0:
+            objval = instance.compute_energy_readout64(
+                problem_variables, change_vars=("boxqp", lo, hi, params.S),
+            )
+        else:
+            objval = instance.compute_energy_readout64(
+                self.change_variables(problem_variables, lo, hi, S))
 
         if self.timing == "async":
             solve_time = (time.time() - solve_time_start) / batch_size - pp_time
 
-        return Solution(
+        if evolution_step_size:
+            self._write_evolution(evolution_file, objval, (self.c_sample, self.s_sample))
+
+        solution = Solution(
             problem_size=instance.problem_size,
             batch_size=batch_size,
             instance_name=instance.name,
@@ -382,3 +423,6 @@ class DLSolver(CCVMSolver):
             },
             device=self.device,
         )
+        if evolution_step_size:
+            solution.evolution_file = evolution_file
+        return solution

@@ -3,7 +3,8 @@
 ``ccvm_tpu/solvers/langevin.py``).
 
 ``device="cuda"`` launches the whole-solve CUDA kernel
-(``csrc/langevin_solve.cu``) for every feature this port carries;
+(``csrc/langevin_solve.cu``) for every feature this port carries (evolution
+sampling as one segment launch a sample, and a per-variable S, included);
 ``device="cpu"`` runs its plain PyTorch version.  Features not ported yet
 raise ``NotImplementedError`` naming the ROADMAP item that brings them; none
 of them takes another path quietly.
@@ -22,7 +23,8 @@ from ccvm_tpu_torch.ops import langevin_kernels, philox
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
-from ccvm_tpu_torch.solvers.base import CCVMSolver, not_ported
+from ccvm_tpu_torch.solvers.base import (CCVMSolver, not_ported,
+                                         per_variable_saturation, saturation_of)
 
 LANGEVIN_SCALING_MULTIPLIER = 0.05
 """Scaling multiplier used in get_scaling_factor (reference
@@ -45,12 +47,13 @@ def check_langevin_options(mesh, backend, kernel_rng):
         )
 
 
-def langevin_readout(solver, instance, c, S, post_processor_object, batch_size):
+def langevin_readout(solver, instance, c, params, post_processor_object, batch_size):
     """The Langevin family's epilogue (``ccvm_tpu/solvers/langevin.py:360-380``):
-    ``(c + S) / (2 S)`` BEFORE post-processing, then the float64-grade
-    readout with no change of variables.  Returns
-    ``(problem_variables, pp_time, objval)``."""
-    problem_variables = common.langevin_change_variables(c, S)
+    ``(c + S) / (2 S)`` BEFORE post-processing (one S a column broadcast
+    over the batch), then the float64-grade readout with no change of
+    variables.  Returns ``(problem_variables, pp_time, objval)``."""
+    problem_variables = common.langevin_change_variables(
+        c, saturation_of(params, c.device))
     pp_time = 0.0
     if post_processor_object is not None:
         problem_variables = post_processor_object.postprocess(
@@ -59,6 +62,77 @@ def langevin_readout(solver, instance, c, S, post_processor_object, batch_size):
         pp_time = post_processor_object.pp_time / batch_size
     return problem_variables, pp_time, instance.compute_energy_readout64(
         problem_variables)
+
+
+def langevin_family_call(solver, instance, parameter_names, make_params, solve,
+                         post_processor, evolution_step_size, evolution_file,
+                         algorithm_parameters, seed):
+    """The Langevin-family ``__call__`` after the device check (reference
+    ``langevin_solver.py:563-762``, ``pumped_langevin_solver.py:451-658``):
+    the parameters named in ``parameter_names`` (S among them, a scalar or
+    one a column), ``make_params(values)``, ``solve(seed, params,
+    iterations, evolution_step_size, hp)`` (which records ``c_sample``), the
+    readout, the evolution file and the ``Solution``."""
+    problem_size = instance.problem_size
+    solver.q_matrix = instance.q_matrix
+    solver.v_vector = instance.v_vector
+    solver.solution_bounds = instance.solution_bounds
+    batch_size = solver.batch_size
+    try:
+        values = {k: solver.parameter_key[problem_size][k] for k in parameter_names}
+    except KeyError as e:
+        raise KeyError(
+            f"The parameter '{e.args[0]}' for the given instance size is not defined."
+        ) from e
+    values["S"] = per_variable_saturation(values["S"], problem_size, batch_size)
+    solver.c_sample = None
+    evolution_file = solver._evolution_file(instance, evolution_step_size,
+                                            evolution_file)
+    # An unknown post-processor raises before the solve is spent.
+    post_processor_object = (
+        PostProcessorFactory.create_postprocessor(post_processor)
+        if post_processor else None
+    )
+    hp = algorithm_hyperparameters(algorithm_parameters)
+
+    solve_time_start = time.time()
+    params = make_params(values)
+    if seed is None:
+        seed = np.random.SeedSequence().entropy % (2**31)
+    iterations = values["iterations"]
+    c = solve(int(seed), params, iterations, evolution_step_size, hp)
+    if solver.timing == "sync" and c.is_cuda:
+        torch.cuda.synchronize(c.device)
+    # Per-instance normalized solve time (reference :704-708)
+    solve_time = (time.time() - solve_time_start) / batch_size
+
+    problem_variables, pp_time, objval = langevin_readout(
+        solver, instance, c, params, post_processor_object, batch_size)
+
+    if solver.timing == "async":
+        solve_time = (time.time() - solve_time_start) / batch_size - pp_time
+
+    if evolution_step_size:
+        solver._write_evolution(evolution_file, objval, (solver.c_sample,))
+
+    solution = Solution(
+        problem_size=instance.problem_size,
+        batch_size=batch_size,
+        instance_name=instance.name,
+        iterations=iterations,
+        objective_values=objval,
+        solve_time=solve_time,
+        pp_time=pp_time,
+        optimal_value=instance.optimal_sol,
+        best_value=instance.best_sol,
+        num_frac_values=instance.num_frac_values,
+        solution_vector=instance.solution_vector,
+        variables={"problem_variables": problem_variables},
+        device=solver.device,
+    )
+    if evolution_step_size:
+        solution.evolution_file = evolution_file
+    return solution
 
 
 def algorithm_hyperparameters(algorithm_parameters):
@@ -233,19 +307,28 @@ class LangevinSolver(CCVMSolver):
         lo, hi = self.solution_bounds
         f32 = lambda x: float(np.float32(x))  # noqa: E731
         return dyn.LangevinParams(
-            S=f32(S), dt=f32(dt), sigma=f32(sigma),
+            S=common.saturation(S), dt=f32(dt), sigma=f32(sigma),
             feedback_scale=f32(feedback_scale), lower_limit=f32(lo),
             upper_limit=f32(hi),
         )
 
-    def _solve(self, seed, params, iterations, hp=None):
-        """One whole-solve launch on the instance's device (kernel on
-        "cuda", plain version on "cpu"); ``hp`` selects the Adam variant."""
-        return langevin_kernels.langevin_solve(
-            seed, self.q_matrix, self.v_vector, params,
-            iterations=iterations, batch_size=self.batch_size,
-            rng=self.kernel_rng, hp=hp,
-        )
+    def _solve(self, seed, params, iterations, evolution_step_size=None, hp=None):
+        """The solve on the instance's device (kernel on "cuda", plain
+        version on "cpu"): one whole-solve launch, or with
+        ``evolution_step_size`` one segment launch a sample, the samples
+        kept on the device in ``c_sample``; ``hp`` selects the Adam
+        variant."""
+        kwargs = dict(batch_size=self.batch_size, rng=self.kernel_rng, hp=hp)
+        if not evolution_step_size:
+            return langevin_kernels.langevin_solve(
+                seed, self.q_matrix, self.v_vector, params, iterations=iterations,
+                **kwargs)
+        num_samples, segments = self._evolution_sample_plan(iterations,
+                                                            evolution_step_size)
+        c, samples = langevin_kernels.langevin_solve_sampled(
+            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        self.c_sample = self._device_sample_stack(samples, num_samples)
+        return c
 
     def __call__(
         self,
@@ -259,73 +342,20 @@ class LangevinSolver(CCVMSolver):
         """Solve a problem instance (reference ``langevin_solver.py:563-762``).
 
         ``seed`` (int) keys the kernel's Philox noise; ``None`` draws one.
+        ``evolution_step_size`` records ``c_sample`` and writes the best
+        trajectory's to ``evolution_file``.
         """
         if instance.device != self.device:
             raise ValueError(
                 f"The device type of the instance ({instance.device}) and the solver"
                 f" ({self.device}) must match."
             )
-        if evolution_step_size:
-            raise not_ported("Langevin evolution sampling (evolution_step_size)",
-                             "queue 1 item 7")
-
-        problem_size = instance.problem_size
-        self.q_matrix = instance.q_matrix
-        self.v_vector = instance.v_vector
-        self.solution_bounds = instance.solution_bounds
-
-        batch_size = self.batch_size
-
-        try:
-            dt = self.parameter_key[problem_size]["dt"]
-            S = self.parameter_key[problem_size]["S"]
-            iterations = self.parameter_key[problem_size]["iterations"]
-            sigma = self.parameter_key[problem_size]["sigma"]
-            feedback_scale = self.parameter_key[problem_size]["feedback_scale"]
-        except KeyError as e:
-            raise KeyError(
-                f"The parameter '{e.args[0]}' for the given instance size is not defined."
-            ) from e
-        if not np.isscalar(S):
-            raise not_ported("per-variable S on the Langevin solver",
-                             "queue 1 item 7")
-
-        # An unknown post-processor raises before the solve is spent.
-        post_processor_object = (
-            PostProcessorFactory.create_postprocessor(post_processor)
-            if post_processor else None
-        )
-        hp = algorithm_hyperparameters(algorithm_parameters)
-
-        solve_time_start = time.time()
-
-        params = self._make_params(S, dt, sigma, feedback_scale)
-        if seed is None:
-            seed = np.random.SeedSequence().entropy % (2**31)
-        c = self._solve(int(seed), params, iterations, hp=hp)
-        if self.timing == "sync" and c.is_cuda:
-            torch.cuda.synchronize(c.device)
-        # Per-instance normalized solve time (reference :704-708)
-        solve_time = (time.time() - solve_time_start) / batch_size
-
-        problem_variables, pp_time, objval = langevin_readout(
-            self, instance, c, params.S, post_processor_object, batch_size)
-
-        if self.timing == "async":
-            solve_time = (time.time() - solve_time_start) / batch_size - pp_time
-
-        return Solution(
-            problem_size=instance.problem_size,
-            batch_size=batch_size,
-            instance_name=instance.name,
-            iterations=iterations,
-            objective_values=objval,
-            solve_time=solve_time,
-            pp_time=pp_time,
-            optimal_value=instance.optimal_sol,
-            best_value=instance.best_sol,
-            num_frac_values=instance.num_frac_values,
-            solution_vector=instance.solution_vector,
-            variables={"problem_variables": problem_variables},
-            device=self.device,
-        )
+        return langevin_family_call(
+            self, instance, ("dt", "S", "iterations", "sigma", "feedback_scale"),
+            lambda t: self._make_params(t["S"], t["dt"], t["sigma"],
+                                        t["feedback_scale"]),
+            lambda seed, params, iterations, evolution_step_size, hp: self._solve(
+                seed, params, iterations, evolution_step_size=evolution_step_size,
+                hp=hp),
+            post_processor, evolution_step_size, evolution_file,
+            algorithm_parameters, seed)

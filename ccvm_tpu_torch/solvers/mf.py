@@ -2,8 +2,9 @@
 ``ccvm_simulators/solvers/mf_solver.py`` and ``ccvm_tpu/solvers/mf.py``).
 
 ``device="cuda"`` launches the whole-solve CUDA kernel (``csrc/mf_solve.cu``)
-for every feature this port carries; ``device="cpu"`` runs its plain PyTorch
-version.  Features not ported yet raise ``NotImplementedError`` naming the
+for every feature this port carries (evolution sampling as one segment
+launch a sample, and a per-variable S, included); ``device="cpu"`` runs its
+plain PyTorch version.  Features not ported yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them; none of them takes another path quietly.
 """
 
@@ -20,7 +21,8 @@ from ccvm_tpu_torch.ops import mf_kernels, philox
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
-from ccvm_tpu_torch.solvers.base import CCVMSolver, not_ported
+from ccvm_tpu_torch.solvers.base import (CCVMSolver, not_ported,
+                                         per_variable_saturation, saturation_of)
 
 MF_SCALING_MULTIPLIER = 0.05
 """Reference ``mf_solver.py:12``."""
@@ -241,19 +243,30 @@ class MFSolver(CCVMSolver):
         lo, hi = self.solution_bounds
         f32 = lambda x: float(np.float32(x))  # noqa: E731
         return dyn.MFParams(
-            pump=f32(pump), S=f32(S), dt=f32(dt), j=f32(j),
+            pump=f32(pump), S=common.saturation(S), dt=f32(dt), j=f32(j),
             feedback_scale=f32(feedback_scale), g=f32(g), lower_limit=f32(lo),
             upper_limit=f32(hi), iterations=f32(iterations),
         )
 
-    def _solve(self, seed, params, iterations, pump_rate_flag, hp=None):
-        """One whole-solve launch on the instance's device (kernel on
-        "cuda", plain version on "cpu"); ``hp`` selects the Adam variant."""
-        return mf_kernels.mf_solve(
-            seed, self.q_matrix, self.v_vector, params,
-            iterations=iterations, batch_size=self.batch_size,
-            pump_rate_flag=pump_rate_flag, rng=self.kernel_rng, hp=hp,
-        )
+    def _solve(self, seed, params, iterations, pump_rate_flag, evolution_step_size=None,
+               hp=None):
+        """The solve on the instance's device (kernel on "cuda", plain
+        version on "cpu"): one whole-solve launch, or with
+        ``evolution_step_size`` one segment launch a sample, the samples
+        kept on the device in ``mu_sample`` / ``sigma_sample``; ``hp``
+        selects the Adam variant."""
+        kwargs = dict(batch_size=self.batch_size, pump_rate_flag=pump_rate_flag,
+                      rng=self.kernel_rng, hp=hp)
+        if not evolution_step_size:
+            return mf_kernels.mf_solve(seed, self.q_matrix, self.v_vector, params,
+                                       iterations=iterations, **kwargs)
+        num_samples, segments = self._evolution_sample_plan(iterations,
+                                                            evolution_step_size)
+        (mu, mu_tilde, sigma), (mu_samples, sigma_samples) = mf_kernels.mf_solve_sampled(
+            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        self.mu_sample = self._device_sample_stack(mu_samples, num_samples)
+        self.sigma_sample = self._device_sample_stack(sigma_samples, num_samples)
+        return mu, mu_tilde, sigma
 
     def __call__(
         self,
@@ -269,15 +282,14 @@ class MFSolver(CCVMSolver):
         """Solve an instance (reference ``mf_solver.py:766-989``).
 
         ``seed`` (int) keys the kernel's Philox noise; ``None`` draws one.
+        ``evolution_step_size`` records ``mu_sample`` / ``sigma_sample`` and
+        writes the best trajectory's to ``evolution_file``.
         """
         if instance.device != self.device:
             raise ValueError(
                 f"The device type of the instance ({instance.device}) and the solver"
                 f" ({self.device}) must match."
             )
-        if evolution_step_size:
-            raise not_ported("MF evolution sampling (evolution_step_size)",
-                             "queue 1 item 6")
 
         problem_size = instance.problem_size
         self.q_matrix = instance.q_matrix
@@ -298,8 +310,11 @@ class MFSolver(CCVMSolver):
                 f"The parameter '{e.args[0]}' for the given instance size is not"
                 " defined."
             ) from e
-        if not np.isscalar(S):
-            raise not_ported("per-variable S on the MF solver", "queue 1 item 6")
+        S = per_variable_saturation(S, problem_size, batch_size)
+        self.mu_sample = None
+        self.sigma_sample = None
+        evolution_file = self._evolution_file(instance, evolution_step_size,
+                                              evolution_file)
 
         # An unknown post-processor raises before the solve is spent.
         post_processor_object = (
@@ -321,7 +336,8 @@ class MFSolver(CCVMSolver):
         if seed is None:
             seed = np.random.SeedSequence().entropy % (2**31)
         mu, mu_tilde, sigma = self._solve(
-            int(seed), params, iterations, pump_rate_flag, hp=hp
+            int(seed), params, iterations, pump_rate_flag,
+            evolution_step_size=evolution_step_size, hp=hp,
         )
         if self.timing == "sync" and mu_tilde.is_cuda:
             torch.cuda.synchronize(mu_tilde.device)
@@ -330,7 +346,8 @@ class MFSolver(CCVMSolver):
         lo, hi = self.solution_bounds
         # MF post-processes the CHANGED variables and uses the post-processor
         # output directly (reference mf_solver.py:927-948).
-        problem_variables = self.change_variables(mu_tilde, lo, hi, params.S)
+        problem_variables = self.change_variables(
+            mu_tilde, lo, hi, saturation_of(params, mu_tilde.device))
         if post_processor_object is not None:
             problem_variables = post_processor_object.postprocess(
                 problem_variables, self.q_matrix, self.v_vector,
@@ -346,7 +363,12 @@ class MFSolver(CCVMSolver):
         if self.timing == "async":
             solve_time = (time.time() - solve_time_start) / batch_size - pp_time
 
-        return Solution(
+        if evolution_step_size:
+            self._write_evolution(evolution_file, objval,
+                                  (self.mu_sample, self.sigma_sample),
+                                  append_trailing_tab=False)
+
+        solution = Solution(
             problem_size=instance.problem_size,
             batch_size=batch_size,
             instance_name=instance.name,
@@ -365,3 +387,6 @@ class MFSolver(CCVMSolver):
             },
             device=self.device,
         )
+        if evolution_step_size:
+            solution.evolution_file = evolution_file
+        return solution

@@ -3,8 +3,9 @@
 ``ccvm_tpu/solvers/pumped_langevin.py``).
 
 ``device="cuda"`` launches the whole-solve CUDA kernel
-(``csrc/langevin_solve.cu``, pumped specialisation); ``device="cpu"`` runs
-its plain PyTorch version.  Features not ported yet raise
+(``csrc/langevin_solve.cu``, pumped specialisation; evolution sampling as one
+segment launch a sample, and a per-variable S, included); ``device="cpu"``
+runs its plain PyTorch version.  Features not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.  There is
 no machine model of its own: the base class's cpu and gpu models apply, as
 in the JAX package.
@@ -12,20 +13,15 @@ in the JAX package.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import pumped_langevin as dyn
 from ccvm_tpu_torch.ops import langevin_kernels
-from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
-from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.base import CCVMSolver, not_ported
-from ccvm_tpu_torch.solvers.langevin import (algorithm_hyperparameters,
-                                             check_langevin_options,
-                                             langevin_readout)
+from ccvm_tpu_torch.solvers.langevin import (check_langevin_options,
+                                             langevin_family_call)
 
 PUMPED_LANGEVIN_SCALING_MULTIPLIER = 0.05
 """Reference ``pumped_langevin_solver.py:10``."""
@@ -115,19 +111,30 @@ class PumpedLangevinSolver(CCVMSolver):
         lo, hi = self.solution_bounds
         f32 = lambda x: float(np.float32(x))  # noqa: E731
         return dyn.PumpedLangevinParams(
-            pump=f32(pump), S=f32(S), dt=f32(dt), sigma=f32(sigma),
+            pump=f32(pump), S=common.saturation(S), dt=f32(dt), sigma=f32(sigma),
             feedback_scale=f32(feedback_scale), lower_limit=f32(lo),
             upper_limit=f32(hi), iterations=f32(iterations),
         )
 
-    def _solve(self, seed, params, iterations, pump_rate_flag, hp=None):
-        """One whole-solve launch on the instance's device (kernel on
-        "cuda", plain version on "cpu"); ``hp`` selects the Adam variant."""
-        return langevin_kernels.pumped_langevin_solve(
-            seed, self.q_matrix, self.v_vector, params,
-            iterations=iterations, batch_size=self.batch_size,
-            pump_rate_flag=pump_rate_flag, rng=self.kernel_rng, hp=hp,
-        )
+    def _solve(self, seed, params, iterations, pump_rate_flag, evolution_step_size=None,
+               hp=None):
+        """The solve on the instance's device (kernel on "cuda", plain
+        version on "cpu"): one whole-solve launch, or with
+        ``evolution_step_size`` one segment launch a sample, the samples
+        kept on the device in ``c_sample``; ``hp`` selects the Adam
+        variant."""
+        kwargs = dict(batch_size=self.batch_size, pump_rate_flag=pump_rate_flag,
+                      rng=self.kernel_rng, hp=hp)
+        if not evolution_step_size:
+            return langevin_kernels.pumped_langevin_solve(
+                seed, self.q_matrix, self.v_vector, params, iterations=iterations,
+                **kwargs)
+        num_samples, segments = self._evolution_sample_plan(iterations,
+                                                            evolution_step_size)
+        c, samples = langevin_kernels.pumped_langevin_solve_sampled(
+            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        self.c_sample = self._device_sample_stack(samples, num_samples)
+        return c
 
     def __call__(
         self,
@@ -142,75 +149,20 @@ class PumpedLangevinSolver(CCVMSolver):
         """Solve an instance (reference ``pumped_langevin_solver.py:451-658``).
 
         ``seed`` (int) keys the kernel's Philox noise; ``None`` draws one.
+        ``evolution_step_size`` records ``c_sample`` and writes the best
+        trajectory's to ``evolution_file``.
         """
         if instance.device != self.device:
             raise ValueError(
                 f"The device type of the instance ({instance.device}) and the solver"
                 f" ({self.device}) must match."
             )
-        if evolution_step_size:
-            raise not_ported(
-                "pumped-Langevin evolution sampling (evolution_step_size)",
-                "queue 1 item 7")
-
-        problem_size = instance.problem_size
-        self.q_matrix = instance.q_matrix
-        self.v_vector = instance.v_vector
-        self.solution_bounds = instance.solution_bounds
-
-        batch_size = self.batch_size
-
-        try:
-            pump = self.parameter_key[problem_size]["pump"]
-            dt = self.parameter_key[problem_size]["dt"]
-            S = self.parameter_key[problem_size]["S"]
-            iterations = self.parameter_key[problem_size]["iterations"]
-            sigma = self.parameter_key[problem_size]["sigma"]
-            feedback_scale = self.parameter_key[problem_size]["feedback_scale"]
-        except KeyError as e:
-            raise KeyError(
-                f"The parameter '{e.args[0]}' for the given instance size is not defined."
-            ) from e
-        if not np.isscalar(S):
-            raise not_ported("per-variable S on the pumped-Langevin solver",
-                             "queue 1 item 7")
-
-        # An unknown post-processor raises before the solve is spent.
-        post_processor_object = (
-            PostProcessorFactory.create_postprocessor(post_processor)
-            if post_processor else None
-        )
-        hp = algorithm_hyperparameters(algorithm_parameters)
-
-        solve_time_start = time.time()
-
-        params = self._make_params(pump, S, dt, sigma, feedback_scale, iterations)
-        if seed is None:
-            seed = np.random.SeedSequence().entropy % (2**31)
-        c = self._solve(int(seed), params, iterations, pump_rate_flag, hp=hp)
-        if self.timing == "sync" and c.is_cuda:
-            torch.cuda.synchronize(c.device)
-        solve_time = (time.time() - solve_time_start) / batch_size
-
-        # Calibrate the variable before post-processing (reference :603-619)
-        problem_variables, pp_time, objval = langevin_readout(
-            self, instance, c, params.S, post_processor_object, batch_size)
-
-        if self.timing == "async":
-            solve_time = (time.time() - solve_time_start) / batch_size - pp_time
-
-        return Solution(
-            problem_size=instance.problem_size,
-            batch_size=batch_size,
-            instance_name=instance.name,
-            iterations=iterations,
-            objective_values=objval,
-            solve_time=solve_time,
-            pp_time=pp_time,
-            optimal_value=instance.optimal_sol,
-            best_value=instance.best_sol,
-            num_frac_values=instance.num_frac_values,
-            solution_vector=instance.solution_vector,
-            variables={"problem_variables": problem_variables},
-            device=self.device,
-        )
+        return langevin_family_call(
+            self, instance, ("pump", "dt", "S", "iterations", "sigma", "feedback_scale"),
+            lambda t: self._make_params(t["pump"], t["S"], t["dt"], t["sigma"],
+                                        t["feedback_scale"], t["iterations"]),
+            lambda seed, params, iterations, evolution_step_size, hp: self._solve(
+                seed, params, iterations, pump_rate_flag,
+                evolution_step_size=evolution_step_size, hp=hp),
+            post_processor, evolution_step_size, evolution_file,
+            algorithm_parameters, seed)

@@ -93,7 +93,7 @@ def _mf_timer(fn, problem, hp, noise_scale, batch):
         err = fn(q.data_ptr(), v.data_ptr(), steps.data_ptr(), mu.data_ptr(),
                  mt.data_ptr(), sigma.data_ptr(), 1, batch, n, iterations, 100,
                  mf_kernels._scalars(p, hp, noise_scale), rows,
-                 torch.cuda.current_stream().cuda_stream)
+                 torch.cuda.current_stream().cuda_stream, None, None)
         end.record()
         torch.cuda.synchronize()
         if err != 0:
@@ -112,7 +112,7 @@ def _langevin_timer(fn, problem, hp, noise_scale, batch):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         p = params(iterations)
         start.record()
-        _, err = langevin_kernels._run(fn, 100, q, v, p, iterations=iterations,
+        _, _, err = langevin_kernels._run(fn, 100, q, v, p, iterations=iterations,
                                        batch_size=batch, noise_scale=noise_scale,
                                        hp=hp, pump_rate_flag=True)
         end.record()

@@ -108,7 +108,30 @@ exits non-zero without printing a result:
    last stdout line parsed, ``bench.py``'s keys and metric name required
    and a positive value, its stderr tables printed; the kernels line gains
    each kernel's launches by phase (6, 10 and 11; 8 for the race's);
-12. the last line: {"ok": true, "device": {...}}.
+12. the façade features on every production kernel (run after phase 9;
+   its plain solves, batch 1024, 2,000 steps, in the workers beside phases
+   3-5), with the launch counts zeroed before and read after: (a) at the
+   main shape, noise on, the segment launches of ``evolution_step_size``
+   1,000's plan (16) end where the whole launch ends, bit for bit, both
+   timed; (b) each kernel's samples of the plan of step 250 against its
+   plain version's at PARITY_TOL (the DL family's through step 1,000, as
+   deep as phase 7 holds DL; every sample's difference printed); (c) a
+   per-column S drawn in [0.5 S, 1.5 S], noise off and on, against the
+   plain version at PARITY_TOL (DL also at pump 0.9; the DL family held
+   over P12_DL_HOLD_STEPS, its 2,000-step differences printed beside its
+   scalar-S kernel's), and a constant S vector against the scalar-S kernel,
+   bit for bit; (d) DL and
+   DL-Adam with ``pump_ramp`` (2.0, 0.5) and (0.5, 1.0) against the plain
+   version, and (1.0, 1.0) against None, bit for bit; (e) the four façades
+   at the main shape with ``evolution_step_size`` 1,000 and a per-column S
+   (DL with ``pump_ramp`` (2.0, 0.5), the others with grad-descent): wall,
+   P(0.1%), P(1%) and the evolution file's rows, and the tuned S as a
+   constant vector giving the scalar-S run's objective values; (f) phase
+   7's scalar-S kernel times against those recorded in PERF.md; phase 2
+   prints each of these builds' registers, spills and residency, and fails
+   on a Langevin-family spill; the kernels line gains each kernel's
+   phase-12 launches;
+13. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -250,6 +273,36 @@ BFGS_MEAN_TOL = 1e-5
 # BFGS may not raise any row's energy by more than this (float64 energies of
 # its input and output in [0, 1]).
 BFGS_ENERGY_TOL = 1e-4
+# Phase 12: the segment launch, a per-column S and DL's ramps, batch 1024,
+# 2,000 steps, a sample every 250th step; the main shape's plan of step 1,000
+# (16 segments); DL's two generalised ramps; plain solves in this many
+# worker processes.
+P12_BATCH, P12_STEPS, P12_STEP, P12_MAIN_STEP = 1024, 2000, 250, 1000
+P12_RAMPS = ((2.0, 0.5), (0.5, 1.0))
+P12_GROUPS = 6
+# The DL family's elementwise holds in phase 12 reach as deep as phase 7's
+# (EARLIER_PLAIN_DEPTH): its 3xTF32 matvec, and Adam's hardware square root
+# and division, part from the plain version by round-off that noise-on
+# DL-Adam grows past 1e-4 by step 1,751 (1.0e-3 at 2,000; segments equal
+# the whole launch, so its scalar-S kernel alike); and DL at pump 0.9 (fs
+# 200, S_d = S) only over 50 steps: it is chaotic (its scalar-S kernel
+# parts from the plain version by 5.4e-3 over 2,000 steps, noise on, and
+# the per-column build by 1.6e-4 within 100).  The 2,000-step differences
+# are printed beside (the scalar-S kernel's with the noise on); the
+# numbers are phase 12's on an NVIDIA H100 80GB HBM3 at 700 W.
+P12_DL_HOLD_STEPS = {"dl_solve": 1000, "dl_adam_solve": 1000,
+                     "dl_solve pump 0.9": 50, "dl_adam_solve pump 0.9": 1000}
+# The scalar-S kernels' times at the main shape recorded in PERF.md section 6
+# before the segment and per-column builds were added (NVIDIA H100 80GB HBM3
+# at 700 W), which phase 7's are read against.
+RECORDED_MS = {"dl_solve": 392.5, "dl_adam_solve": 475.4, "mf_solve": 478.2,
+          "mf_adam_solve": 561.3, "langevin_solve": 308.8,
+          "langevin_adam_solve": 433.2, "pumped_langevin_solve": 321.2,
+          "pumped_langevin_adam_solve": 444.6}
+# ... each may be at most this much slower here: a slowdown of the scalar
+# path's code (a spill, a lost block per SM) costs more, while cards of one
+# model at one power limit differ by about 1% (the recorded runs spread 0.8%).
+RECORDED_SLOWER = 0.03
 # Phase 11 waits this long for bench_torch.py.
 BENCH_TIMEOUT_S = 400
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device_amortised_rate")
@@ -313,8 +366,14 @@ def plain_solve(module, function, seed, q, v, params, kwargs):
     t = time.perf_counter()
     out = fn(seed, torch.from_numpy(q).cuda(), torch.from_numpy(v).cuda(), params,
              **kwargs)
-    out = tuple(x.cpu().numpy() for x in (out if isinstance(out, tuple) else (out,)))
-    return out, time.perf_counter() - t
+    return tuple(x.cpu().numpy() for x in flat(out)), time.perf_counter() - t
+
+
+def flat(out):
+    """The tensors of a (nested) tuple of outputs, in order, None left out."""
+    if isinstance(out, (tuple, list)):
+        return [y for x in out for y in flat(x)]
+    return [] if out is None else [out]
 
 
 def stop(proc):
@@ -325,13 +384,15 @@ def stop(proc):
 
 
 def plain_worker():
-    """``chip_smoke.py --plain-worker``: one ``plain_solve``, its arguments
-    pickled on standard input and its result pickled on standard output
-    (anything else the solve prints goes to standard error)."""
+    """``chip_smoke.py --plain-worker``: one ``plain_solve``, or a list of
+    them (``("many", jobs)``), its arguments pickled on standard input and
+    its result pickled on standard output (anything else the solve prints
+    goes to standard error)."""
     job = pickle.load(sys.stdin.buffer)
     with os.fdopen(os.dup(1), "wb") as out:
         os.dup2(2, 1)
-        pickle.dump(plain_solve(*job), out)
+        pickle.dump([plain_solve(*j) for j in job[1]] if job[0] == "many"
+                    else plain_solve(*job), out)
 
 
 def launch_counters():
@@ -392,6 +453,12 @@ class PlainWorkers:
         """A future of ``plain_solve``'s result on these arguments."""
         return self._threads.submit(
             self._run, (module, function, seed, q, v, params, kwargs))
+
+    def submit_many(self, jobs):
+        """A future of the list of ``plain_solve``'s results on each job's
+        arguments, run in one process (one start-up for many short
+        solves)."""
+        return self._threads.submit(self._run, ("many", jobs))
 
     def _run(self, job):
         with self._lock:
@@ -543,6 +610,37 @@ def main(cleanup):
             f"{fam}-Adam noise off": (pumped, adam_hps[0.999], False),
             f"{fam}-Adam beta2 1 noise off": (pumped, adam_hps[1.0], False)})
     specs += [lgv_spec(*case) for case in lgv_builds.values()]
+    # Each production kernel's Adam hyperparameters on the main path.
+    main_hp = {"dl_solve": None, "dl_adam_solve": adam_hps[0.999],
+               "mf_solve": None, "mf_adam_solve": adam_hps[0.999],
+               "langevin_solve": None,
+               "langevin_adam_solve": lgv_adam["langevin"].to_hyperparameters(),
+               "pumped_langevin_solve": None,
+               "pumped_langevin_adam_solve": lgv_adam["pumped"].to_hyperparameters()}
+
+    def feature_spec(kname, noise, cols, seg):
+        """The build of a kernel that phase 12 launches: ``cols`` its
+        per-column S (DL: 1 at pump > 1, 2 at pump <= 1), ``seg`` a segment
+        launch."""
+        hp, ns = main_hp[kname], 1.0 if noise else 0.0
+        family = kname.split("_")[0]
+        if family == "dl":
+            return dl_kernels._spec(N, hp, ns, "popcount16", True, cols, seg)
+        if family == "mf":
+            return mf_kernels._spec(N, hp, ns, "popcount32", bool(cols), seg)
+        return langevin_kernels._spec(N, hp, ns, "popcount32", pumped=family == "pumped",
+                                      cols=bool(cols), seg=seg)
+
+    # Phase 12's builds, (kernel, noise, cols, seg): segments with the noise
+    # on (a, b), a per-column S with the noise off and on (c; DL also at
+    # pump 0.9), and both at once on the façades (e).
+    feature_builds = sorted({
+        (k, noise, cols, seg) for k in main_hp
+        for noise, cols, seg in ((True, 0, True), (False, 1, False), (True, 1, False),
+                                 (True, 1, True))
+    } | {(k, noise, 2, False) for k in ("dl_solve", "dl_adam_solve")
+         for noise in (False, True)})
+    specs += [feature_spec(*case) for case in feature_builds]
     # The race harness's variants: (v3, fuse, unroll, rng name) of phase 8's
     # noise-off holds (rng unused), its noise-on holds and its race rows.
     variant_cases = {
@@ -646,6 +744,32 @@ def main(cleanup):
         if waves / -(-waves // 1) < 0.9:
             failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
                             f"within 10%")
+    # Phase 12's builds: registers, spills and residency; no Langevin-family
+    # build may spill.
+    for kname, noise, cols, seg in feature_builds:
+        fs = feature_spec(kname, noise, cols, seg)
+        family, hp = kname.split("_")[0], main_hp[kname]
+        ns = 1.0 if noise else 0.0
+        if family == "dl":
+            blocks = dl_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=cols, seg=seg)
+            shape = build.dl_launch_shape(N, hp is not None, True, cols)
+        elif family == "mf":
+            blocks = mf_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=bool(cols),
+                                              seg=seg)
+            shape = build.mf_launch_shape(N, hp is not None, bool(cols))
+        else:
+            blocks = langevin_kernels.blocks_per_sm(
+                N, pumped=family == "pumped", noise_scale=ns, hp=hp, cols=bool(cols),
+                seg=seg)
+            shape = build.langevin_launch_shape(N, hp is not None, bool(cols))
+        rep = reports.get(fs)
+        report = build.kernel_report(rep) if rep else "built before this run"
+        log(f"  {kname} noise {int(noise)} cols {cols} seg {int(seg)} ({fs.tag()}): "
+            f"{report}; {blocks} blocks per SM of {shape.threads} threads, "
+            f"{shape.smem} bytes of shared memory a block")
+        if family in ("langevin", "pumped") and rep is not None and \
+                "0 bytes spill stores, 0 bytes spill loads" not in report:
+            failures.append(f"{kname} (cols {cols}, seg {int(seg)}) spills: {report}")
     # Scaled instances on the card, through the user-facing entry points.
     def instance(path, solver_cls=DLSolver, instance_type="tuning"):
         inst = ProblemInstance(device="cuda", instance_type=instance_type, file_path=path)
@@ -773,12 +897,6 @@ def main(cleanup):
     # phases 3-5, and every one has ended before phase 6 times anything.
     # (kernel wrapper, plain version, seed, instance, params, kwargs) by
     # (phase, label).
-    main_hp = {"dl_solve": None, "dl_adam_solve": adam_hps[0.999],
-               "mf_solve": None, "mf_adam_solve": adam_hps[0.999],
-               "langevin_solve": None,
-               "langevin_adam_solve": lgv_adam["langevin"].to_hyperparameters(),
-               "pumped_langevin_solve": None,
-               "pumped_langevin_adam_solve": lgv_adam["pumped"].to_hyperparameters()}
     full = dict(iterations=ITERATIONS, noise_scale=1.0)
     jobs = {}
     for kname in ("langevin_solve", "langevin_adam_solve", "pumped_langevin_solve",
@@ -824,6 +942,81 @@ def main(cleanup):
             v20_solver["mf"]._make_params(vm["pump"], vm["S"], vm["dt"], vm["j"],
                                           vm["feedback_scale"], MF_G, ITERATIONS),
             dict(full, batch_size=4096, pump_rate_flag=True, rng="popcount32", hp=hp))
+    # Phase 12's cases (batch 1024, 2,000 steps) and their plain versions,
+    # which run in the workers after phase 5's and 7's: (b) the samples of
+    # the plan of step 250, noise on; (c) a per-column S drawn from a seed
+    # in [0.5 S, 1.5 S], noise off and on (DL also at pump 0.9, with its
+    # scalar-S kernel's plain version beside it); (d) DL's generalised ramps.
+    p12_plan = DLSolver._evolution_sample_plan(P12_STEPS, P12_STEP)[1]
+    draw = np.random.RandomState(12)
+    scalar_S = {"dl": 1.0, "mf": mf_tuned["S"], "langevin": lgv_tuned["langevin"]["S"],
+                "pumped": lgv_tuned["pumped"]["S"]}
+    p12_S = {f: (s0 * draw.uniform(0.5, 1.5, N)).astype(np.float32)
+             for f, s0 in scalar_S.items()}
+    p12_fns = {  # family: (module, whole solve, sampled solve)
+        "dl": (dl_kernels, "dl_solve", "dl_solve_sampled"),
+        "mf": (mf_kernels, "mf_solve", "mf_solve_sampled"),
+        "langevin": (langevin_kernels, "langevin_solve", "langevin_solve_sampled"),
+        "pumped": (langevin_kernels, "pumped_langevin_solve",
+                   "pumped_langevin_solve_sampled")}
+    p12_inst = {"dl": inst, "mf": mf_inst, **lgv_inst}
+
+    def p12_case(label, iterations, batch, noise, S=None, ramp=None):
+        """(family, kernel wrapper, sampled wrapper, plain names, q, v,
+        params, kwargs) of a phase-12 label: a kernel name, or "<kernel> pump
+        0.9" for DL at pump 0.9; S one a column (None: the tuned scalar)."""
+        kname, _, pump = label.partition(" pump ")
+        family = kname.split("_")[0]
+        mod, whole, sampled = p12_fns[family]
+        pump = float(pump) if pump else None
+        if family == "dl":
+            p = solver._make_params(tuned["pump"] if pump is None else pump,
+                                    1.0 if S is None else S, tuned["dt"],
+                                    tuned["noise_ratio"], tuned["feedback_scale"], G,
+                                    iterations, pump_ramp=ramp)
+            kw = dict(pump_rate_flag=True, rng="popcount16",
+                      pump_is_gt_one=(tuned["pump"] if pump is None else pump) > 1)
+        elif family == "mf":
+            p = mf_solver._make_params(mf_tuned["pump"], mf_tuned["S"] if S is None else S,
+                                       mf_tuned["dt"], mf_tuned["j"],
+                                       mf_tuned["feedback_scale"], MF_G, iterations)
+            kw = dict(pump_rate_flag=True, rng="popcount32")
+        else:
+            t = lgv_tuned[family]
+            p = lgv_params(family, iterations)._replace(
+                S=t["S"] if S is None else tuple(float(x) for x in S))
+            kw = dict(rng="popcount32", **({"pump_rate_flag": True}
+                                           if family == "pumped" else {}))
+        kw.update(batch_size=batch, noise_scale=noise, hp=main_hp[kname])
+        return (family, getattr(mod, whole), getattr(mod, sampled), mod.__name__,
+                p12_inst[family].q_matrix, p12_inst[family].v_vector, p, kw)
+
+    p12_jobs = {}
+    for kname in main_hp:
+        _, _, _, module, q_, v_, p_, kw_ = p12_case(kname, P12_STEPS, P12_BATCH, 1.0)
+        p12_jobs["b", kname] = (module, f"{p12_fns[kname.split('_')[0]][2]}_reference", 5,
+                                q_, v_, p_, dict(kw_, segments=p12_plan))
+    for label in list(main_hp) + ["dl_solve pump 0.9", "dl_adam_solve pump 0.9"]:
+        family = label.split("_")[0]
+        for noise in (0.0, 1.0):
+            for kind, S, steps in (("c", p12_S[family], P12_STEPS),
+                                   ("c scalar", None, P12_STEPS),
+                                   ("c hold", p12_S[family], P12_DL_HOLD_STEPS.get(label))):
+                if kind != "c" and family != "dl" or kind == "c scalar" and not noise:
+                    continue
+                _, _, _, module, q_, v_, p_, kw_ = p12_case(label, steps, P12_BATCH,
+                                                            noise, S=S)
+                p12_jobs[kind, label, noise] = (
+                    module, f"{p12_fns[family][1]}_reference", 6, q_, v_, p_,
+                    dict(kw_, iterations=steps))
+    for kname in ("dl_solve", "dl_adam_solve"):
+        for ramp in P12_RAMPS:
+            for noise in (0.0, 1.0):
+                _, _, _, module, q_, v_, p_, kw_ = p12_case(kname, P12_STEPS, P12_BATCH,
+                                                            noise, ramp=ramp)
+                p12_jobs["d", kname, ramp, noise] = (
+                    module, "dl_solve_reference", 6, q_, v_, p_,
+                    dict(kw_, iterations=P12_STEPS))
     workers = min(len(jobs), max(1, (os.cpu_count() or 2) - 1))
     pool = PlainWorkers(workers)
     cleanup.callback(pool.close)
@@ -832,6 +1025,14 @@ def main(cleanup):
                                 inst_.q_matrix.cpu().numpy(),
                                 inst_.v_vector.cpu().numpy(), p, kw)
                for key, (_, plain, seed, inst_, p, kw) in jobs.items()}
+    # Phase 12's plain solves, a few seconds each: in groups, one process
+    # each, after the others.
+    p12_keys = list(p12_jobs)
+    p12_groups = [p12_keys[g::P12_GROUPS] for g in range(P12_GROUPS)]
+    p12_futures = [pool.submit_many([
+        (module, function, seed, q_.cpu().numpy(), v_.cpu().numpy(), p_, kw_)
+        for module, function, seed, q_, v_, p_, kw_ in (p12_jobs[k] for k in group)])
+        for group in p12_groups]
 
     def plain_result(key):
         """A worker's plain outputs, back on the card, and its seconds."""
@@ -1042,6 +1243,10 @@ def main(cleanup):
             f"{family} success probabilities disagree"
     # Phase 7's plain solves over 15,000 steps; then the workers stop.
     deep_plain = {key[1]: plain_result(key)[0] for key in jobs if key[0] == "phase 7"}
+    p12_plain = {}
+    for group, future in zip(p12_groups, p12_futures):
+        for key, (arrays, seconds) in zip(group, future.result()):
+            p12_plain[key] = [torch.from_numpy(a).cuda() for a in arrays]
     pool.close()
     log(f"phase 5 workers: {len(jobs)} plain solves at full depth in {workers} "
         f"processes, all ended {time.perf_counter() - t_pool:.1f} s after the first "
@@ -1370,7 +1575,7 @@ def main(cleanup):
 
     def variant_pv(iterations):
         """The DL tuned parameters as the harness's params_vec, T = iterations."""
-        return np.array(list(params(iterations)), np.float32)
+        return np.array(list(params(iterations))[:9], np.float32)
 
     def variant_run(v3, seed, batch, iterations, rng_name, unroll, fuse=False,
                     noise_scale=1.0, plain=True):
@@ -1565,6 +1770,190 @@ def main(cleanup):
                  max_diff(out, ref), "phase 9 noise off, batch 1000, 300 steps, c and s,")
     log(f"phase 9 DL at the bundled sizes: {time.perf_counter() - t9:.1f} s")
 
+    log(f"phase 12 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 12. the segment launch, a per-column S and DL's ramps in every
+    # production kernel, and the four façades' evolution sampling and
+    # per-variable S at the main shape, with the launch counts zeroed before
+    # and read after.
+    t12 = time.perf_counter()
+    zero_counts()
+
+    # (a) A whole solve at the main shape as the segments of step 1,000's
+    # plan ends where the whole launch ends, bit for bit.
+    main_plan = DLSolver._evolution_sample_plan(ITERATIONS, P12_MAIN_STEP)[1]
+    for kname in main_hp:
+        _, whole, sampled, _, q_, v_, p_, kw_ = p12_case(kname, ITERATIONS, MAIN_BATCH, 1.0)
+        want, whole_ms = timed(lambda: whole(100, q_, v_, p_, iterations=ITERATIONS, **kw_))
+        (got, samples), seg_ms = timed(lambda: sampled(100, q_, v_, p_, main_plan, **kw_))
+        same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+        del want, got, samples
+        family = kname.split("_")[0]
+        _, _, _, _, _, _, pc, _ = p12_case(kname, ITERATIONS, MAIN_BATCH, 1.0,
+                                           S=p12_S[family])
+        out, col_ms = timed(lambda: whole(100, q_, v_, pc, iterations=ITERATIONS, **kw_))
+        assert all(torch.isfinite(x).all() for x in flat(out))
+        del out
+        log(f"phase 12 (a) {kname}: {len(main_plan)} segment launches {seg_ms:.1f} ms "
+            f"against one whole launch {whole_ms:.1f} ms ({seg_ms / whole_ms - 1:+.2%}), "
+            f"batch {MAIN_BATCH}, N={N}, {ITERATIONS} steps, noise on; final state "
+            f"{'equal bit for bit' if same else 'DIFFERS'}; with a per-column S the "
+            f"whole launch {col_ms:.1f} ms ({col_ms / whole_ms - 1:+.2%})")
+        if not same:
+            failures.append(f"{kname}: segments differ from the whole launch")
+
+    # (b) Every sample against the plain version's, at PARITY_TOL (the DL
+    # family's through step P12_DL_HOLD_STEPS).
+    sample_steps = np.cumsum(p12_plan)
+    for kname in main_hp:
+        _, _, sampled, _, q_, v_, p_, kw_ = p12_case(kname, P12_STEPS, P12_BATCH, 1.0)
+        _, samples = sampled(5, q_, v_, p_, p12_plan, **kw_)
+        samples = flat(samples)
+        ref = p12_plain["b", kname][-len(samples):]
+        by_sample = [max((a[i] - b[i]).abs().max().item() for a, b in zip(samples, ref))
+                     for i in range(len(p12_plan))]
+        depth = P12_DL_HOLD_STEPS.get(kname, P12_STEPS)
+        same = all(torch.equal(a, b) for a, b in zip(samples, ref))
+        log(f"phase 12 (b) {kname}: max |kernel - plain| by step "
+            f"{ {int(k): float(f'{e:.3e}') for k, e in zip(sample_steps, by_sample)} }")
+        hold(kname, kname, max(e for k, e in zip(sample_steps, by_sample) if k <= depth),
+             f"phase 12 (b) {len(p12_plan)} samples (step {P12_STEP}) held through step "
+             f"{depth}, batch {P12_BATCH}, {P12_STEPS} steps, noise on "
+             f"({'bit for bit' if same else 'not bit for bit'}),", defer=True)
+
+    # (c) A per-column S against the plain version, noise off and on; a
+    # constant S vector against the scalar-S kernel, bit for bit.
+    for label in list(main_hp) + ["dl_solve pump 0.9", "dl_adam_solve pump 0.9"]:
+        kname = label.split(" ")[0]
+        family = kname.split("_")[0]
+        for noise in (0.0, 1.0):
+            _, whole, _, _, q_, v_, p_, kw_ = p12_case(label, P12_STEPS, P12_BATCH, noise,
+                                                       S=p12_S[family])
+            out = flat(whole(6, q_, v_, p_, iterations=P12_STEPS, **kw_))
+            err = max_diff(tuple(out), tuple(p12_plain["c", label, noise]))
+            what = (f"phase 12 (c) per-column S, batch {P12_BATCH}, {P12_STEPS} steps, "
+                    f"noise {'on' if noise else 'off'},")
+            if family != "dl":
+                hold(kname, label, err, what, defer=True)
+                continue
+            scalar = ""
+            if noise:
+                _, _, _, _, q_, v_, ps, kw_ = p12_case(label, P12_STEPS, P12_BATCH, noise)
+                out_s = flat(whole(6, q_, v_, ps, iterations=P12_STEPS, **kw_))
+                err_s = max_diff(tuple(out_s), tuple(p12_plain["c scalar", label, noise]))
+                scalar = f", the scalar-S kernel's {err_s:.3e}"
+            log(f"{what} {label}: max |kernel - plain| = {err:.3e}{scalar}")
+            depth = P12_DL_HOLD_STEPS[label]
+            _, _, _, _, q_, v_, p_, kw_ = p12_case(label, depth, P12_BATCH, noise,
+                                                   S=p12_S[family])
+            out = flat(whole(6, q_, v_, p_, iterations=depth, **kw_))
+            hold(kname, label, max_diff(tuple(out), tuple(p12_plain["c hold", label, noise])),
+                 f"phase 12 (c) per-column S, batch {P12_BATCH}, {depth} steps, noise "
+                 f"{'on' if noise else 'off'},", defer=True)
+        _, whole, _, _, q_, v_, ps, kw_ = p12_case(label, P12_STEPS, P12_BATCH, 1.0)
+        _, _, _, _, _, _, pc, _ = p12_case(label, P12_STEPS, P12_BATCH, 1.0,
+                                           S=np.full(N, scalar_S[family], np.float32))
+        same = all(torch.equal(a, b) for a, b in zip(
+            flat(whole(6, q_, v_, ps, iterations=P12_STEPS, **kw_)),
+            flat(whole(6, q_, v_, pc, iterations=P12_STEPS, **kw_))))
+        log(f"phase 12 (c) {label}: a constant S vector "
+            f"{'equals' if same else 'DIFFERS from'} the scalar-S kernel bit for bit")
+        if not same:
+            failures.append(f"{label}: a constant S vector differs from the scalar S")
+
+    # (d) DL's generalised ramps against the plain version; (1.0, 1.0) is
+    # the reference's linear ramp, bit for bit.
+    for kname in ("dl_solve", "dl_adam_solve"):
+        for ramp in P12_RAMPS:
+            for noise in (0.0, 1.0):
+                _, whole, _, _, q_, v_, p_, kw_ = p12_case(kname, P12_STEPS, P12_BATCH,
+                                                           noise, ramp=ramp)
+                out = flat(whole(6, q_, v_, p_, iterations=P12_STEPS, **kw_))
+                hold(kname, f"{kname} pump_ramp {ramp}",
+                     max_diff(tuple(out), tuple(p12_plain["d", kname, ramp, noise])),
+                     f"phase 12 (d) batch {P12_BATCH}, {P12_STEPS} steps, noise "
+                     f"{'on' if noise else 'off'},", defer=True)
+        runs = []
+        for ramp in (None, (1.0, 1.0)):
+            _, whole, _, _, q_, v_, p_, kw_ = p12_case(kname, P12_STEPS, P12_BATCH, 1.0,
+                                                       ramp=ramp)
+            runs.append(flat(whole(6, q_, v_, p_, iterations=P12_STEPS, **kw_)))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"phase 12 (d) {kname}: pump_ramp (1.0, 1.0) "
+            f"{'equals' if same else 'DIFFERS from'} None bit for bit")
+        if not same:
+            failures.append(f"{kname}: pump_ramp (1.0, 1.0) differs from None")
+
+    # (e) The four façades at the main shape with evolution sampling (step
+    # 1,000) and a per-column S; DL with pump_ramp (2.0, 0.5), the others
+    # with grad-descent.  Each evolution file holds the JAX format's rows (N
+    # a variable block, DL's and MF's two blocks), one value a sample.  With
+    # the tuned S as a constant vector the objective values equal the
+    # scalar-S run's.
+    evo_dir = os.path.join(REPO, "build", "phase12")
+    os.makedirs(evo_dir, exist_ok=True)
+    facades = (("DL", DLSolver, pk, inst, {"pump_ramp": (2.0, 0.5)}, 2, "dl"),
+               ("MF", MFSolver, mf_pk, mf_inst, {"g": MF_G, "post_processor": "grad-descent"},
+                2, "mf"),
+               ("Langevin", LangevinSolver, lgv_pk["langevin"], lgv_inst["langevin"],
+                {"post_processor": "grad-descent"}, 1, "langevin"),
+               ("pumped", PumpedLangevinSolver, lgv_pk["pumped"], lgv_inst["pumped"],
+                {"post_processor": "grad-descent"}, 1, "pumped"))
+
+    def with_s(cls, pkey, S):
+        """A façade at the main shape with this S (DL's in its constructor,
+        the others' in the parameter key)."""
+        if cls is DLSolver:
+            fac = cls(device="cuda", batch_size=MAIN_BATCH, S=S)
+            fac.parameter_key = pkey
+        else:
+            fac = cls(device="cuda", batch_size=MAIN_BATCH)
+            fac.parameter_key = {N: dict(pkey[N], S=S)}
+        return fac
+
+    num_samples = DLSolver._evolution_sample_plan(ITERATIONS, P12_MAIN_STEP)[0]
+    for label, cls, pkey, inst_, call, blocks, family in facades:
+        fac = with_s(cls, pkey, p12_S[family])
+        path = os.path.join(evo_dir, f"{family}_evolution.txt")
+        t = time.perf_counter()
+        sol = fac(inst_, seed=1, evolution_step_size=P12_MAIN_STEP, evolution_file=path,
+                  **call)
+        wall = time.perf_counter() - t
+        rows = np.loadtxt(sol.evolution_file, ndmin=2)
+        perf = sol.solution_performance
+        log(f"phase 12 (e) {label} façade, per-column S, evolution step "
+            f"{P12_MAIN_STEP}{', pump_ramp (2.0, 0.5)' if family == 'dl' else ''}: "
+            f"wall {wall:.3f} s at N={N}, batch {MAIN_BATCH}, {ITERATIONS} steps, "
+            f"P(0.1%)={perf['optimal']:.4f} P(1%)={perf['one_percent']:.4f}, "
+            f"evolution file {rows.shape[0]} rows of {rows.shape[1]} samples")
+        if rows.shape != (blocks * N, num_samples) or not np.all(np.isfinite(rows)):
+            failures.append(f"{label}: evolution file of shape {rows.shape}")
+        if not np.all(np.isfinite(sol.objective_values)):
+            failures.append(f"{label}: objective values not finite")
+        del sol, fac
+        objective = []
+        for S in (scalar_S[family], np.full(N, scalar_S[family], np.float32)):
+            fac = with_s(cls, pkey, S)
+            objective.append(fac(inst_, seed=2, **call).objective_values)
+        same = np.array_equal(objective[0], objective[1])
+        log(f"phase 12 (e) {label} façade: the tuned S as a constant vector "
+            f"{'gives' if same else 'DOES NOT give'} the scalar-S run's objective values")
+        if not same:
+            failures.append(f"{label}: a constant S vector changes the objective values")
+    launched12 = counts()
+    for fn_ in os.listdir(evo_dir):
+        os.remove(os.path.join(evo_dir, fn_))
+    os.rmdir(evo_dir)
+
+    # (f) The scalar path is unchanged: phase 7's kernel times against the
+    # recorded ones.
+    for kname, recorded in RECORDED_MS.items():
+        change = ms_of[kname] / recorded - 1
+        log(f"phase 12 (f) {kname}: {ms_of[kname]:.1f} ms against the recorded {recorded} "
+            f"({change:+.2%}; {'within' if abs(change) <= 0.01 else 'beyond'} 1%)")
+        if change > RECORDED_SLOWER:
+            failures.append(f"{kname}: {change:+.2%} against the recorded time")
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s; launches {launched12}")
+
     log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 11. bench_torch.py, in a child process that is waited for and killed
     # if the run fails
@@ -1597,7 +1986,7 @@ def main(cleanup):
         row["launches_by_phase"] = (
             {"8": row["launches"]} if name_ in ("dl_v2", "dl_v3") else
             {"6": row["launches"], "10": launched_pp[name_],
-             "11": launched_bench[name_]})
+             "11": launched_bench[name_], "12": launched12[name_]})
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -117,11 +117,87 @@ def test_stacked_reference_equals_serial_solves_with_seed_plus_instance():
     ],
     ids=["post_processor", "evolution", "pump_ramp"],
 )
-def test_features_left_out_raise(call):
-    """Every post-processor is ported; a post-processed evolution run still
-    raises, before the solve is spent."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _solve(DLSolver, ProblemInstance, **call)
+def test_features_left_out_raise(tmp_path, call):
+    """The features PRs 1-3 left out (a post-processed evolution run,
+    evolution sampling, a generalised pump ramp) now run on the port and
+    match the JAX façade: objective values to rtol 1e-4 (Adam's
+    post-processor: ROUND_OFF_DECIDED), samples to rtol 1e-4 and the
+    evolution file to atol 2e-4 (it rounds to 4 decimals)."""
+    if "evolution_step_size" in call:
+        call = dict(call, evolution_file=str(tmp_path / "evolution.txt"))
+    sol_j = _solve(JDLSolver, JProblemInstance, **call)
+    j_file = call.get("evolution_file") and np.loadtxt(call["evolution_file"])
+    sol_t = _solve(DLSolver, ProblemInstance, **call)
+    rtol = ROUND_OFF_DECIDED.get(call.get("post_processor"), (1e-4,))[0]
+    np.testing.assert_allclose(np.asarray(sol_t.objective_values),
+                               np.asarray(sol_j.objective_values), rtol=rtol)
+    assert sol_t.solution_performance == sol_j.solution_performance
+    if "evolution_step_size" in call:
+        assert sol_t.evolution_file == call["evolution_file"]
+        np.testing.assert_allclose(np.loadtxt(sol_t.evolution_file), j_file, atol=2e-4)
+
+
+RAMPS = [(2.0, 0.5), (0.5, 1.0), (1.0, 0.25)]
+
+
+@pytest.mark.parametrize("pump_ramp", RAMPS)
+@pytest.mark.parametrize("adam", [False, True])
+def test_pump_ramp_matches_jax(adam, pump_ramp):
+    """DL and DL-Adam with a generalised ramp rate(i) =
+    min((i+1)/T / fraction, 1)^power, against the JAX façade."""
+    jcall, tcall = {"pump_ramp": pump_ramp}, {"pump_ramp": pump_ramp}
+    if adam:
+        from ccvm_tpu import AdamParameters as JAdamParameters
+
+        jcall["algorithm_parameters"] = JAdamParameters(alpha=0.05)
+        tcall["algorithm_parameters"] = AdamParameters(alpha=0.05)
+    sol_j = _solve(JDLSolver, JProblemInstance, **jcall)
+    sol_t = _solve(DLSolver, ProblemInstance, **tcall)
+    np.testing.assert_allclose(np.asarray(sol_t.objective_values),
+                               np.asarray(sol_j.objective_values), rtol=1e-4)
+    assert sol_t.solution_performance == sol_j.solution_performance
+
+
+@pytest.mark.parametrize("adam", [False, True])
+def test_unit_pump_ramp_is_the_reference_schedule(adam):
+    """``(1.0, 1.0)`` normalises to no ramp, as the JAX façade does: the
+    same solve as ``None``, bit for bit; another ramp differs."""
+    call = {"algorithm_parameters": AdamParameters(alpha=0.05)} if adam else {}
+    base = _solve(DLSolver, ProblemInstance, **call).objective_values
+    unit = _solve(DLSolver, ProblemInstance, pump_ramp=(1.0, 1.0), **call)
+    assert np.array_equal(unit.objective_values, base)
+    other = _solve(DLSolver, ProblemInstance, pump_ramp=(2.0, 0.5), **call)
+    assert not np.array_equal(other.objective_values, base)
+
+
+@pytest.mark.parametrize("pump_ramp,message", [
+    ((2.0, 0.0), "fraction must be positive"), ((2.0, -1.0), "fraction must be positive"),
+    ((0.0, 0.5), "power must be positive"), ((-1.0, 1.0), "power must be positive")])
+def test_non_positive_pump_ramp_raises_the_jax_error(pump_ramp, message):
+    for solver_cls, instance_cls in ((JDLSolver, JProblemInstance),
+                                     (DLSolver, ProblemInstance)):
+        with pytest.raises(ValueError, match=message):
+            _solve(solver_cls, instance_cls, pump_ramp=pump_ramp)
+
+
+@pytest.mark.parametrize("pump_ramp", RAMPS + [None])
+def test_step_table_holds_the_ramp_bit_for_bit(pump_ramp):
+    """The kernel's step table holds fs (0.5 + rate) and pump rate with the
+    plain version's ``pump_rate_schedule`` at every step, bit for bit."""
+    from ccvm_tpu_torch.dynamics import dl as dyn
+    from ccvm_tpu_torch.ops import dl_kernels
+
+    power, fraction = pump_ramp or (None, None)
+    params = DLParams(8.0, 1.0, 0.001, 10.0, 200.0, 0.05, 0.0, 1.0, 40.0,
+                      ramp_power=power, ramp_fraction=fraction)
+    table = dl_kernels._step_table(params, None, 1.0, 40, True, "cpu")
+    p = dyn._scalars(params, "cpu")
+    for i in range(40):
+        rate = dyn.pump_rate_schedule(p, i, True)
+        assert torch.equal(table[i, 0], p.feedback_scale * (0.5 + rate))
+        assert torch.equal(table[i, 1], p.pump * rate)
+    if pump_ramp is not None:
+        assert table[39, 1] == 8.0  # the plateau (or the end of the ramp)
 
 
 @pytest.mark.parametrize("pump_ramp", [2.0, (1.0,), (1.0, 1.0, 1.0), ("a", 1.0)])
@@ -133,10 +209,21 @@ def test_malformed_pump_ramp_raises_a_value_error_naming_it(pump_ramp):
 
 
 def test_per_variable_s_and_mesh_raise():
-    solver = DLSolver(device="cpu", batch_size=8, S=np.ones(20))
-    solver.parameter_key = PARAMS
+    """A 1-D S of the problem's size now runs (and matches the JAX façade:
+    ``tests/test_torch_per_variable_s.py``); another size raises the JAX
+    package's ValueError; a mesh still raises naming its ROADMAP item."""
     inst = ProblemInstance(device="cpu", file_path=TEST020)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    jinst = JProblemInstance(device="cpu", file_path=TEST020)
+    sols = []
+    for solver_cls, inst_ in ((JDLSolver, jinst), (DLSolver, inst)):
+        solver = solver_cls(device="cpu", batch_size=8, S=np.ones(20))
+        solver.parameter_key = PARAMS
+        sols.append(solver(inst_, g=0.0, seed=1))
+    np.testing.assert_allclose(np.asarray(sols[1].objective_values),
+                               np.asarray(sols[0].objective_values), rtol=1e-4)
+    solver = DLSolver(device="cpu", batch_size=8, S=np.ones(21))
+    solver.parameter_key = PARAMS
+    with pytest.raises(ValueError, match="Tensor S size"):
         solver(inst)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DLSolver(device="cpu", mesh=object())

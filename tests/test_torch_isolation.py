@@ -277,8 +277,14 @@ def test_langevin_solves_on_cpu_tensors_are_the_reference(family):
     assert torch.equal(c, getattr(langevin_kernels, reference)(3, q, v, p, **kw))
     # The plain version is not a launch of the kernel.
     assert before == _launch_counts()
+    # One S a column (the façades' per-variable S) is taken, on the CPU by
+    # the plain version; another length is refused.
+    p_col = p._replace(S=tuple(np.linspace(0.3, 0.9, 12, dtype=np.float32).tolist()))
+    assert torch.equal(solve(3, q, v, p_col, **kw),
+                       getattr(langevin_kernels, reference)(3, q, v, p_col, **kw))
+    assert before == _launch_counts()
     with pytest.raises(ValueError, match="scalar S"):
-        solve(3, q, v, p._replace(S=np.ones(12)), **kw)
+        solve(3, q, v, p._replace(S=np.ones(11)), **kw)
 
 
 def test_langevin_launch_shape_is_mf_s():
@@ -330,8 +336,14 @@ def test_mf_solve_on_cpu_tensors_is_the_reference():
     # The plain version is not a launch of the kernel.
     assert before == (mf_kernels.mf_solve.mf_launches,
                       mf_kernels.mf_solve.mf_adam_launches)
+    # One S a column (the façades' per-variable S) is taken, on the CPU by
+    # the plain version; another length is refused.
+    p_col = p._replace(S=tuple(np.linspace(10.0, 30.0, 12, dtype=np.float32).tolist()))
+    out = mf_kernels.mf_solve(3, q, v, p_col, **kw)
+    ref = mf_kernels.mf_solve_reference(3, q, v, p_col, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(out, ref))
     with pytest.raises(ValueError, match="scalar S"):
-        mf_kernels.mf_solve(3, q, v, p._replace(S=np.ones(12)), **kw)
+        mf_kernels.mf_solve(3, q, v, p._replace(S=np.ones(11)), **kw)
 
 
 def test_mf_launch_shape_fits_the_bundled_sizes_and_rejects_huge_n():

@@ -146,20 +146,44 @@ def test_pumped_has_only_the_cpu_and_gpu_machine_models():
      {"post_processor": "bfgs", "evolution_step_size": 10}],
     ids=["evolution", "post_processor"],
 )
-def test_features_left_out_raise(family, call):
-    """Every post-processor is ported; a post-processed evolution run still
-    raises, before the solve is spent."""
-    _, tcls, params, _ = FAMILIES[family]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _solve(tcls, ProblemInstance, params, batch=8, **call)
+def test_features_left_out_raise(tmp_path, family, call):
+    """Evolution sampling, with and without a post-processor, now runs on
+    the port and matches the JAX façade: objective values to rtol 1e-4
+    (BFGS: ROUND_OFF_DECIDED), the c samples to rtol 1e-4 and the evolution
+    file (4 decimals) to atol 2e-4."""
+    jcls, tcls, params, _ = FAMILIES[family]
+    runs = []
+    for side, cls, inst_cls in (("jax", jcls, JProblemInstance),
+                                ("torch", tcls, ProblemInstance)):
+        solver = cls(device="cpu", batch_size=8)
+        solver.parameter_key = params
+        inst = inst_cls(device="cpu", file_path=TEST020, instance_type="test")
+        inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+        runs.append((solver, solver(inst, seed=3, evolution_file=str(tmp_path / side),
+                                    **call)))
+    (js, sol_j), (ts, sol_t) = runs
+    rtol = ROUND_OFF_DECIDED.get(call.get("post_processor"), (1e-4,))[0]
+    np.testing.assert_allclose(np.asarray(sol_t.objective_values),
+                               np.asarray(sol_j.objective_values), rtol=rtol)
+    assert sol_t.solution_performance == sol_j.solution_performance
+    np.testing.assert_allclose(ts.c_sample.numpy(), np.asarray(js.c_sample),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.loadtxt(sol_t.evolution_file),
+                               np.loadtxt(sol_j.evolution_file), atol=2e-4)
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_per_variable_s_mesh_tune_and_backend_raise(family):
-    _, tcls, params, _ = FAMILIES[family]
-    vector_s = {20: dict(params[20], S=np.full(20, 0.5))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _solve(tcls, ProblemInstance, vector_s, batch=8)
+    """A 1-D S of the problem's size now runs and matches the JAX façade
+    (more in tests/test_torch_per_variable_s.py); a mesh, tune and a
+    backend other than "auto" still raise naming their ROADMAP items."""
+    jcls, tcls, params, _ = FAMILIES[family]
+    vector_s = {20: dict(params[20], S=np.linspace(0.4, 0.6, 20))}
+    sol_j = _solve(jcls, JProblemInstance, vector_s, batch=8)
+    sol_t = _solve(tcls, ProblemInstance, vector_s, batch=8)
+    np.testing.assert_allclose(np.asarray(sol_t.objective_values),
+                               np.asarray(sol_j.objective_values), rtol=1e-4)
+    assert sol_t.solution_performance == sol_j.solution_performance
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcls(device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -61,8 +61,9 @@ def noise_off(monkeypatch):
     be served by) a solve elsewhere in the process."""
     monkeypatch.setattr(jcommon, "normal",
                         lambda key, shape, dtype=jnp.float32: jnp.zeros(shape, dtype))
-    monkeypatch.setattr(mf_kernels, "mf_solve",
-                        functools.partial(mf_kernels.mf_solve, noise_scale=0.0))
+    for name in ("mf_solve", "mf_solve_sampled"):
+        monkeypatch.setattr(mf_kernels, name,
+                            functools.partial(getattr(mf_kernels, name), noise_scale=0.0))
     jax.clear_caches()
     yield
     jax.clear_caches()
@@ -155,17 +156,37 @@ def test_machine_time_and_energy_match_jax():
      {"post_processor": "bfgs", "evolution_step_size": 10}],
     ids=["evolution", "post_processor"],
 )
-def test_features_left_out_raise(call):
-    """Every post-processor is ported; a post-processed evolution run still
-    raises, before the solve is spent."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _solve(MFSolver, ProblemInstance, batch=8, **call)
+def test_features_left_out_raise(noise_off, tmp_path, call):
+    """Evolution sampling, with and without a post-processor, now runs on
+    the port and matches the JAX façade: objective values to rtol 1e-4
+    (BFGS: ROUND_OFF_DECIDED), the mu and sigma samples to rtol 1e-4 and
+    the evolution file (4 decimals, no trailing tab) to atol 2e-4."""
+    sols = []
+    for side, cls, inst_cls in (("jax", JMFSolver, JProblemInstance),
+                                ("torch", MFSolver, ProblemInstance)):
+        solver = cls(device="cpu", batch_size=8)
+        solver.parameter_key = PARAMS
+        inst = inst_cls(device="cpu", file_path=TEST020, instance_type="test")
+        inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+        sol = solver(inst, seed=3, evolution_file=str(tmp_path / side), **call)
+        sols.append((solver, sol))
+    (js, sol_j), (ts, sol_t) = sols
+    _agree(sol_t, sol_j, call.get("post_processor"))
+    for name in ("mu_sample", "sigma_sample"):
+        np.testing.assert_allclose(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+                                   rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.loadtxt(sol_t.evolution_file),
+                               np.loadtxt(sol_j.evolution_file), atol=2e-4)
 
 
-def test_per_variable_s_mesh_and_tune_raise():
-    params = {20: dict(PARAMS[20], S=np.full(20, 20.0))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _solve(MFSolver, ProblemInstance, params, batch=8)
+def test_per_variable_s_mesh_and_tune_raise(noise_off):
+    """A 1-D S of the problem's size now runs and matches the JAX façade
+    (more in tests/test_torch_per_variable_s.py); a mesh and tune still
+    raise naming their ROADMAP items."""
+    params = {20: dict(PARAMS[20], S=np.linspace(15.0, 25.0, 20))}
+    sol_j = _solve(JMFSolver, JProblemInstance, params, batch=8)
+    sol_t = _solve(MFSolver, ProblemInstance, params, batch=8)
+    _agree(sol_t, sol_j)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MFSolver(device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
