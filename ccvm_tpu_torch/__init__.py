@@ -11,12 +11,17 @@ MF-CCVM, Langevin and pumped Langevin; the five post-processors
 (grad-descent, Adam, ASGD, BFGS and L-BFGS, plain torch on the tensor's
 device); ``Metadata``; and ``ccvmplotlib`` (TTS, ETS and success-probability
 statistics and plots), which is host-only: it needs pandas and matplotlib,
-and nothing else of the port imports it.  What is still to come is listed
-in ROADMAP.md.
+and nothing else of the port imports it.  ``parallel.sweep_solve`` solves
+many same-size instances in one stacked launch, ``tuning`` grid-searches a
+façade's parameters with it (each façade's ``tune``), ``checkpoint``
+snapshots and resumes a solve run as segment launches, and ``profiling``
+traces a run with ``torch.profiler``.  What is still to come is listed in
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"
 
+from ccvm_tpu_torch import checkpoint, profiling
 from ccvm_tpu_torch.metadata import Metadata
 from ccvm_tpu_torch.problem_classes.boxqp import ProblemInstance
 from ccvm_tpu_torch.solution import Solution
@@ -30,6 +35,8 @@ from ccvm_tpu_torch.solvers import (
 )
 
 __all__ = [
+    "checkpoint",
+    "profiling",
     "Metadata",
     "ProblemInstance",
     "Solution",

@@ -7,13 +7,17 @@ holds a data-dependent ``while_loop`` (the backtracking) and a ``lax.cond``
 (the curvature-guarded pair store).  Here every step is batch-first plain
 torch on the tensor's own device, with per-row masks in their place:
 
-  * history buffers of shape (batch, history, n), ``rho`` (batch, history)
-    and ``num_pairs`` (batch,), valid pairs in the trailing ``num_pairs``
-    slots, most recent last;
+  * history buffers of shape (..., history, n), ``rho`` (..., history)
+    and ``num_pairs`` (...,), valid pairs in the trailing ``num_pairs``
+    slots, most recent last, where ``...`` is the batch, or an instance
+    axis and the batch: one call refines a whole sweep, as the JAX sweep's
+    one ``vmap`` over instances does (``ccvm_tpu/parallel/sweep.py:331-344``),
+    each instance's rows as a call on that instance alone would;
   * the two-loop recursion with per-row validity masks;
   * the backtracking tries every row at once, a row keeping the first step
-    length whose Armijo test holds while the others go on halving theirs,
-    and stops when no row is left: a matvec a trial, and one sync with the
+    length whose Armijo test holds while the others go on halving theirs
+    (so a row's step length does not depend on the other rows), and stops
+    when no row of the whole sweep is left: a matvec a trial, and one sync with the
     host a trial to ask whether any row is.  Running every trial under masks
     instead syncs never but takes ``max_backtracks`` trials an iteration;
     on an NVIDIA H100 at the main shape (batch 65536, N=70, the DL solve's
@@ -25,7 +29,8 @@ torch on the tensor's own device, with per-row masks in their place:
 
 The objective is the JAX module's per-row ``0.5 x.(Q x) + V.x``, whose
 gradient is ``Q x + V``: in batch ``x @ Q.T``, not the ``c @ Q`` of the
-other post-processors (the two differ for an asymmetric Q).
+other post-processors (the two differ for an asymmetric Q); over an
+instance axis Q is (I, n, n) and V (I, 1, n).
 """
 
 from __future__ import annotations
@@ -36,37 +41,37 @@ from ccvm_tpu_torch.runtime import fp32_matmul
 
 
 def _dot(a, b):
-    """Row-wise dot product of two (batch, n) tensors."""
+    """Row-wise dot product over the last axis."""
     return (a * b).sum(-1)
 
 
 def _value_and_grad(x, q_matrix, v_vector):
     """(0.5 x.(Q x) + V.x, Q x + V) per row."""
-    qx = torch.matmul(x, q_matrix.T)
+    qx = torch.matmul(x, q_matrix.mT)
     return 0.5 * _dot(x, qx) + _dot(v_vector, x), qx + v_vector
 
 
 def _two_loop(g, S, Y, rho, num_pairs):
     """The L-BFGS two-loop recursion (``ccvm_tpu/ops/lbfgs.py:24-52``) over
-    rolled (batch, history, n) buffers; returns the search direction."""
-    history = S.shape[1]
+    rolled (..., history, n) buffers; returns the search direction."""
+    history = S.shape[-2]
     alphas = []
     q = g
     for t in range(history):
         j = history - 1 - t
-        a = torch.where(t < num_pairs, rho[:, j] * _dot(S[:, j], q), 0.0)
-        q = q - a[:, None] * Y[:, j]
+        a = torch.where(t < num_pairs, rho[..., j] * _dot(S[..., j, :], q), 0.0)
+        q = q - a[..., None] * Y[..., j, :]
         alphas.append(a)
     alphas.reverse()
 
-    s_last, y_last = S[:, -1], Y[:, -1]
+    s_last, y_last = S[..., -1, :], Y[..., -1, :]
     gamma = torch.where(num_pairs > 0,
                         _dot(s_last, y_last) / (_dot(y_last, y_last) + 1e-12), 1.0)
-    r = gamma[:, None] * q
+    r = gamma[..., None] * q
     for j in range(history):
-        beta = rho[:, j] * _dot(Y[:, j], r)
-        upd = S[:, j] * (alphas[j] - beta)[:, None]
-        r = r + torch.where((j >= history - num_pairs)[:, None], upd, 0.0)
+        beta = rho[..., j] * _dot(Y[..., j, :], r)
+        upd = S[..., j, :] * (alphas[j] - beta)[..., None]
+        r = r + torch.where((j >= history - num_pairs)[..., None], upd, 0.0)
     return -r
 
 
@@ -78,7 +83,7 @@ def _step_length(x, f, g, d, t0, q_matrix, v_vector, lower, upper, max_backtrack
     t = t0
     active = torch.ones_like(f, dtype=torch.bool)
     for _ in range(max_backtracks):
-        x_try = torch.clamp(x + t[:, None] * d, lower, upper)
+        x_try = torch.clamp(x + t[..., None] * d, lower, upper)
         f_try, _ = _value_and_grad(x_try, q_matrix, v_vector)
         ok = f_try <= f + 1e-4 * _dot(g, x_try - x)
         active = active & ~ok
@@ -101,8 +106,9 @@ def lbfgs_box_batch(
     max_backtracks=25,
 ):
     """Box-projected L-BFGS over a (batch, n) float32 tensor of starting
-    points, on its device; returns the refined (batch, n) tensor."""
-    batch, n = c.shape
+    points, on its device, or an (I, batch, n) one with an (I, n, n) Q and
+    an (I, 1, n) V; returns the refined tensor of ``c``'s shape."""
+    *lead, n = c.shape
     device, dtype = c.device, c.dtype
     lower, upper, scale = (torch.tensor(float(b), dtype=dtype, device=device)
                            for b in (lower, upper, first_step_scale))
@@ -110,37 +116,37 @@ def lbfgs_box_batch(
     with fp32_matmul():
         x = torch.clamp(c, lower, upper)
         f, g = _value_and_grad(x, q_matrix, v_vector)
-        S = torch.zeros((batch, history, n), dtype=dtype, device=device)
+        S = torch.zeros((*lead, history, n), dtype=dtype, device=device)
         Y = torch.zeros_like(S)
-        rho = torch.zeros((batch, history), dtype=dtype, device=device)
-        num_pairs = torch.zeros(batch, dtype=torch.int32, device=device)
+        rho = torch.zeros((*lead, history), dtype=dtype, device=device)
+        num_pairs = torch.zeros(lead, dtype=torch.int32, device=device)
         for _ in range(max_iter):
             d = _two_loop(g, S, Y, rho, num_pairs)
             # Steepest descent where the direction does not descend (an
             # indefinite Q can make it so).
-            d = torch.where((_dot(g, d) < 0)[:, None], d, -g)
+            d = torch.where((_dot(g, d) < 0)[..., None], d, -g)
             # torch-LBFGS-style conservative first step:
             # t0 = min(1, 1/|g|_1) * first_step_scale.
             first = torch.minimum(one, torch.div(one, g.abs().sum(-1) + 1e-12)) * scale
             t0 = torch.where(num_pairs > 0, one, first)
             t = _step_length(x, f, g, d, t0, q_matrix, v_vector, lower, upper,
                              max_backtracks)
-            x_new = torch.clamp(x + t[:, None] * d, lower, upper)
+            x_new = torch.clamp(x + t[..., None] * d, lower, upper)
             f_new, g_new = _value_and_grad(x_new, q_matrix, v_vector)
             # Reject the step entirely where it did not decrease the objective.
             improved = f_new < f
-            x_new = torch.where(improved[:, None], x_new, x)
+            x_new = torch.where(improved[..., None], x_new, x)
             f_new = torch.where(improved, f_new, f)
-            g_new = torch.where(improved[:, None], g_new, g)
+            g_new = torch.where(improved[..., None], g_new, g)
 
             s, y = x_new - x, g_new - g
             sy = _dot(s, y)
             store = improved & (sy > 1e-10)
-            keep = store[:, None, None]
-            S = torch.where(keep, torch.cat([S[:, 1:], s[:, None]], 1), S)
-            Y = torch.where(keep, torch.cat([Y[:, 1:], y[:, None]], 1), Y)
-            rho = torch.where(store[:, None],
-                              torch.cat([rho[:, 1:], torch.div(one, sy)[:, None]], 1),
+            keep = store[..., None, None]
+            S = torch.where(keep, torch.cat([S[..., 1:, :], s[..., None, :]], -2), S)
+            Y = torch.where(keep, torch.cat([Y[..., 1:, :], y[..., None, :]], -2), Y)
+            rho = torch.where(store[..., None],
+                              torch.cat([rho[..., 1:], torch.div(one, sy)[..., None]], -1),
                               rho)
             num_pairs = torch.where(store, torch.clamp(num_pairs + 1, max=history),
                                     num_pairs)

@@ -18,6 +18,17 @@ from ccvm_tpu_torch.post_processor.post_processor import PostProcessor, as_float
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 
+def _gd_refine(c, q_matrix, v_vector, lower_clamp, upper_clamp, step_size, num_iter):
+    """``num_iter`` steps of ``c -= step (c Q + V); clamp`` on float32
+    tensors (``lower_clamp``, ``upper_clamp`` and ``step_size`` 0-dim); over
+    an instance axis c is (I, B, n), Q (I, n, n) and V (I, 1, n)."""
+    with fp32_matmul():
+        for _ in range(num_iter):
+            grads = torch.matmul(c, q_matrix) + v_vector
+            c = torch.clamp(c - step_size * grads, lower_clamp, upper_clamp)
+    return c
+
+
 class PostProcessorGradDescent(PostProcessor):
     def __init__(self):
         self.pp_time = 0
@@ -51,9 +62,6 @@ class PostProcessorGradDescent(PostProcessor):
             torch.full((), float(x), dtype=torch.float32, device=c.device)
             for x in (lower_clamp, upper_clamp, step_size)
         )
-        with fp32_matmul():
-            for _ in range(num_iter_pp):
-                grads = torch.matmul(c, q_matrix) + v_vector
-                c = torch.clamp(c - step * grads, lo, hi)
+        c = _gd_refine(c, q_matrix, v_vector, lo, hi, step, num_iter_pp)
         self.pp_time = self.elapsed(start_time, c)
         return c

@@ -39,21 +39,65 @@ class InstanceType(enum.Enum):
 
 def _energy(confs, q_matrix, v_vector, scaled_by):
     """Batched BoxQP objective 0.5 xQx + Vx, scaled, in IEEE float32 (the
-    readout's rounding bound assumes true float32 products)."""
+    readout's rounding bound assumes true float32 products).  Over an
+    instance axis: (I, B, n) confs, (I, n, n) Q, (I, n) V and an (I, 1)
+    tensor ``scaled_by``."""
     with fp32_matmul():
         qx = torch.matmul(confs, q_matrix)
         energy1 = torch.sum(confs * qx, dim=-1) * scaled_by
-        energy2 = torch.matmul(confs, v_vector) * scaled_by
+        if v_vector.ndim == 2:  # a batched matvec: V as (I, n, 1)
+            energy2 = torch.matmul(confs, v_vector[..., None])[..., 0] * scaled_by
+        else:
+            energy2 = torch.matmul(confs, v_vector) * scaled_by
     return 0.5 * energy1 + energy2
 
 
 def _energy_and_bound(confs, q_matrix, v_vector, scaled_by):
-    """(2, batch): f32 energies and their abs-value rounding-bound inputs
-    (see :func:`ambiguous_readout_rows`)."""
+    """(2, batch), or (2, I, B) over an instance axis: f32 energies and
+    their abs-value rounding-bound inputs (see
+    :func:`ambiguous_readout_rows`)."""
     e = _energy(confs, q_matrix, v_vector, scaled_by)
     a = _energy(torch.abs(confs), torch.abs(q_matrix), torch.abs(v_vector),
                 abs(scaled_by))
     return torch.stack([e, a])
+
+
+def stacked_readout64(instances, confs, q_matrices, v_vectors):
+    """float64-grade readout of a stacked sweep
+    (``ccvm_tpu/parallel/sweep.py:84-151``): (I, batch) float64 energies
+    whose every ``Solution`` statistic equals the full-float64 path's, as
+    :meth:`ProblemInstance.compute_energy_readout64` guarantees for one
+    instance.  ``confs`` (I, batch, n) lie on the device with the stacked
+    (I, n, n) Q and (I, n) V; the f32 energies and bounds of every instance
+    cross in one (2, I, batch) copy, and the rows a float32 pass cannot
+    classify, gathered over all instances, in one more."""
+    num_instances, batch, n = confs.shape
+    scales = torch.tensor([float(np.float32(inst.scaled_by)) for inst in instances],
+                          dtype=torch.float32, device=confs.device)[:, None]
+    both = _energy_and_bound(confs, q_matrices, v_vectors, scales)
+    both = both.cpu().numpy().astype(np.float64)
+    e_all, abs_all = both[0], both[1]
+    per_instance = []
+    for i, inst in enumerate(instances):
+        if inst.optimal_sol is None:
+            per_instance.append(np.arange(batch))
+        else:
+            per_instance.append(np.flatnonzero(ambiguous_readout_rows(
+                e_all[i], inst.optimal_sol, n, abs_e=abs_all[i])))
+    flat = np.concatenate([idx + i * batch for i, idx in enumerate(per_instance)])
+    if flat.size:
+        rows = confs.reshape(num_instances * batch, n)[
+            torch.as_tensor(flat, device=confs.device)].cpu().numpy()
+        off = 0
+        for i, inst in enumerate(instances):
+            idx = per_instance[i]
+            if idx.size:
+                e_all[i, idx] = inst.compute_energy_host64(rows[off:off + idx.size])
+                # Kept-f32 rows clamped to the recomputed best, as
+                # compute_energy_readout64 does.
+                e_all[i] = np.maximum(e_all[i], e_all[i, idx].min())
+            off += idx.size
+    return e_all
 
 
 def _apply_cv(pv, cv_mode, lo, hi, S):

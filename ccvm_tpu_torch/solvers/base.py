@@ -21,6 +21,7 @@ import torch
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.native import write_sample_rows
 from ccvm_tpu_torch.runtime import resolve_device
+from ccvm_tpu_torch.tuning import tune_solver
 
 
 def not_ported(feature, item):
@@ -133,10 +134,6 @@ class CCVMSolver(ABC):
     ##################################
 
     @abstractmethod
-    def tune(self):
-        """Determine the best solver parameters over a set of instances."""
-
-    @abstractmethod
     def _solve(self):
         """Solve a problem instance (Adam-filtered when given Adam
         hyperparameters)."""
@@ -217,6 +214,20 @@ class CCVMSolver(ABC):
             for block in blocks:
                 write_sample_rows(f, block[best].cpu().numpy(),
                                   append_trailing_tab=append_trailing_tab)
+
+    def tune(self, instances, post_processor=None, parameter_ranges=None, **kwargs):
+        """Grid-search ``parameter_ranges`` on ``instances`` and make the
+        winner the solver's ``parameter_key`` (``is_tuned`` then reads
+        True); returns it.  See :func:`ccvm_tpu_torch.tuning.tune_solver`
+        for the keyword arguments (the reference's tune is a crashing
+        placeholder, ``dl_solver.py:327-329``)."""
+        best = tune_solver(
+            self, instances, parameter_ranges=parameter_ranges,
+            post_processor=post_processor, **kwargs,
+        )
+        self._parameter_key = best
+        self._is_tuned = True
+        return best
 
     def get_scaling_factor(self, q_matrix):
         """Default problem-scaling value: sqrt(sum |Q|) * solver multiplier

@@ -155,10 +155,6 @@ class DLSolver(CCVMSolver):
                 f"Invalid optics_machine_parameters: Missing required keys - {missing_keys}"
             )
 
-    def tune(self, instances, post_processor=None, parameter_ranges=None, **kwargs):
-        """The grid-search tuner arrives with ``tuning.py``."""
-        raise not_ported("DLSolver.tune", "queue 1 item 10")
-
     ##################################
     # Machine models                 #
     ##################################

@@ -249,10 +249,6 @@ class LangevinSolver(CCVMSolver):
                 f"Invalid fpga_machine_parameters: Missing required keys - {missing_keys}"
             )
 
-    def tune(self, instances, post_processor=None, parameter_ranges=None, **kwargs):
-        """The grid-search tuner arrives with ``tuning.py``."""
-        raise not_ported("LangevinSolver.tune", "queue 1 item 10")
-
     ##################################
     # Machine models                 #
     ##################################

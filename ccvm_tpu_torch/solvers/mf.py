@@ -156,10 +156,6 @@ class MFSolver(CCVMSolver):
                 f"Invalid optics_machine_parameters: Missing required keys - {missing_keys}"
             )
 
-    def tune(self, instances, post_processor=None, parameter_ranges=None, **kwargs):
-        """The grid-search tuner arrives with ``tuning.py``."""
-        raise not_ported("MFSolver.tune", "queue 1 item 10")
-
     ##################################
     # Machine models                 #
     ##################################

@@ -19,7 +19,7 @@ import torch
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import pumped_langevin as dyn
 from ccvm_tpu_torch.ops import langevin_kernels
-from ccvm_tpu_torch.solvers.base import CCVMSolver, not_ported
+from ccvm_tpu_torch.solvers.base import CCVMSolver
 from ccvm_tpu_torch.solvers.langevin import (check_langevin_options,
                                              langevin_family_call)
 
@@ -98,10 +98,6 @@ class PumpedLangevinSolver(CCVMSolver):
         return common.fit_to_constraints_boxqp(
             torch.as_tensor(c), lower_clamp, upper_clamp
         )
-
-    def tune(self, instances, post_processor=None, parameter_ranges=None, **kwargs):
-        """The grid-search tuner arrives with ``tuning.py``."""
-        raise not_ported("PumpedLangevinSolver.tune", "queue 1 item 10")
 
     ##################################
     # Solve paths                    #

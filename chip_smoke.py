@@ -131,7 +131,30 @@ exits non-zero without printing a result:
    prints each of these builds' registers, spills and residency, and fails
    on a Langevin-family spill; the kernels line gains each kernel's
    phase-12 launches;
-13. the last line: {"ok": true, "device": {...}}.
+13. this slice's modules on the card (run after phase 12), with the launch
+   counts zeroed before and read after: (a) ``sweep_solve`` of each façade
+   over all 50 Size70 instances, scaled, batch 1000 each, the tuned N=70
+   parameters, seed 0 (DL without a post-processor, MF, Langevin, pumped and
+   Langevin-Adam with grad-descent): one stacked launch of 50,000
+   trajectories each, instances 0, 1 and 49 held against ``solver(instance,
+   seed=i)``: kernel outputs bit for bit; DL's objective values within the
+   readout's rounding bound and its statistics equal; the others'
+   refinements within SWEEP_PP_TOL and a gap statistic moved only by rows
+   whose objectives are that close (counted); each sweep's wall,
+   traj-iter/s, kernel time and mean P(0.1%) / P(1%), and DL's serial loop
+   over the 50 instances beside its sweep; (b) ``LangevinSolver.tune`` as
+   ``tools/tune_benchmark_set.py`` runs it (3 instances, its 9-candidate
+   grid, batch 256, grad-descent, seed 7), stacked and serial: the same
+   winner, every candidate's score fractions equal and its best objective
+   within TUNE_BEST_RTOL; (c) ``checkpointed_solve`` of DL and
+   Langevin-Adam at the main shape, a snapshot every 5,000 steps: equal to
+   the whole launch bit for bit, and so is a run cut after its first
+   snapshot and resumed; (d) phase 6's DL call under ``profiling.trace``
+   with ``annotate`` spans around the solve and the readout: the trace's
+   window, the device's busy time and idle share, the five longest device
+   operations, and the traced kernel within TRACE_TOL of phase 6's CUDA
+   events; the kernels line gains each kernel's phase-13 launches;
+14. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -303,6 +326,26 @@ RECORDED_MS = {"dl_solve": 392.5, "dl_adam_solve": 475.4, "mf_solve": 478.2,
 # path's code (a spill, a lost block per SM) costs more, while cards of one
 # model at one power limit differ by about 1% (the recorded runs spread 0.8%).
 RECORDED_SLOWER = 0.03
+# Phase 13: sweeps of every Size70 instance at benchmarking_study.py's batch,
+# tools/tune_benchmark_set.py's Langevin tuning (its defaults, grid, batch,
+# three instances and seed) and the checkpoint period at the main shape.
+P13_BATCH = 1000
+P13_HELD = (0, 1, 49)
+P13_TUNE_BASE = {"dt": 0.002, "S": 0.5, "sigma": 0.5, "feedback_scale": 1.0}
+P13_TUNE_GRID = {"sigma": [0.25, 0.5, 1.0], "feedback_scale": [0.5, 1.0, 2.0]}
+P13_TUNE_BATCH = 256
+P13_CKPT_EVERY = 5000
+# A sweep's grad-descent runs as one batched product over the instances,
+# cuBLAS another kernel than a serial solve's: its refinement is held to this
+# (values in [0, 1]), and so is the relative difference of a row's objective
+# where it moves a gap statistic; tuning's best objective (the sum over three
+# instances) to TUNE_BEST_RTOL.
+SWEEP_PP_TOL = 1e-5
+TUNE_BEST_RTOL = 1e-6
+# The DL kernel's traced time against its CUDA-event time in phase 6.
+TRACE_TOL = 0.05
+# The optimality gaps (%) of Solution's statistics.
+GAP_THRESHOLDS = (0.1, 1.0, 2.0, 3.0, 4.0, 5.0, 10.0)
 # Phase 11 waits this long for bench_torch.py.
 BENCH_TIMEOUT_S = 400
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device_amortised_rate")
@@ -506,6 +549,348 @@ def max_diff(a, b):
     if not isinstance(a, tuple):
         a, b = (a,), (b,)
     return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+class Recorded:
+    """A kernel wrapper that records each call's outputs and the CUDA
+    events around it in ``calls``, patched over the module's name for it;
+    its launch counts are the wrapper's own (read and written through, as
+    the module counts them by that name)."""
+
+    def __init__(self, real):
+        object.__setattr__(self, "_real", real)
+        object.__setattr__(self, "calls", [])
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = self._real(*args, **kwargs)
+        end.record()
+        self.calls.append((out, start, end))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._real, name, value)
+
+
+def gap_flips(sol_a, sol_b):
+    """Rows whose side of a gap threshold differs between two solutions of
+    one instance, and each one's relative objective difference."""
+    import numpy as np
+
+    def gaps(sol):
+        pos = -np.asarray(sol.objective_values, np.float64)
+        return (sol.optimal_value - pos) * 100.0 / np.abs(pos)
+
+    ga, gb = gaps(sol_a), gaps(sol_b)
+    flips = np.zeros(ga.shape, bool)
+    for thr in GAP_THRESHOLDS:
+        flips |= (ga <= thr) != (gb <= thr)
+    ea, eb = (np.asarray(s.objective_values, np.float64) for s in (sol_a, sol_b))
+    return np.flatnonzero(flips), np.abs(ea - eb) / np.abs(eb)
+
+
+def device_busy(trace_path, spans):
+    """From a Chrome-format profiler trace: the window from the start of the
+    first of ``spans`` (host annotations) to the end of the last, the
+    device's busy time in it (the union of its kernels, copies and sets), and
+    the device operations by duration, longest first; times in ms."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    marks = [e for e in events if e.get("name") in spans and e.get("ph") == "X"]
+    missing = set(spans) - {e["name"] for e in marks}
+    if missing:
+        raise AssertionError(f"the trace lacks the spans {sorted(missing)}")
+    lo = min(e["ts"] for e in marks)
+    hi = max(e["ts"] + e["dur"] for e in marks)
+    device = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in
+                     ("kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    busy, end = 0.0, lo
+    for e in device:
+        a, b = max(e["ts"], end), min(e["ts"] + e["dur"], hi)
+        if b > a:
+            busy += b - a
+            end = b
+    longest = sorted(((e["dur"] / 1e3, e["name"]) for e in device), reverse=True)
+    return (hi - lo) / 1e3, busy / 1e3, longest
+
+
+def sweep_phase(tuned_all, dl_event_ms, counters, failures):
+    """Phase 13: ``sweep_solve`` over every Size70 instance on each façade,
+    ``LangevinSolver.tune`` stacked and serial, ``checkpointed_solve`` at the
+    main shape, and a DL main-path solve under ``profiling.trace``; returns
+    the launch counts of the phase (zeroed before it)."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ccvm_tpu_torch import (AdamParameters, DLSolver, LangevinSolver, MFSolver,
+                                ProblemInstance, PumpedLangevinSolver, checkpoint,
+                                profiling, tuning)
+    from ccvm_tpu_torch.dynamics import common
+    from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
+    from ccvm_tpu_torch.parallel import sweep_solve
+    from ccvm_tpu_torch.problem_classes.boxqp.problem_instance import _energy_and_bound
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t13 = time.perf_counter()
+    files = sorted(glob.glob(os.path.join(SIZE70, "*.in")))
+
+    def instances(paths):
+        return [ProblemInstance(device="cuda", instance_type="tuning", file_path=f)
+                for f in paths]
+
+    def key(family):
+        return {N: {**tuned_all[family][str(N)], "iterations": ITERATIONS}}
+
+    # (a) Sweeps: benchmarking_study.py --sweep's call on every façade.
+    lgv_adam = AdamParameters(**tuned_all["adam"]["langevin"][str(N)])
+    sweeps = (("DL", DLSolver, "dl", None, None, dl_kernels, "dl_solve"),
+              ("MF", MFSolver, "mf", "grad-descent", None, mf_kernels, "mf_solve"),
+              ("Langevin", LangevinSolver, "langevin", "grad-descent", None,
+               langevin_kernels, "langevin_solve"),
+              ("pumped", PumpedLangevinSolver, "pumped", "grad-descent", None,
+               langevin_kernels, "pumped_langevin_solve"),
+              ("Langevin-Adam", LangevinSolver, "langevin", "grad-descent", lgv_adam,
+               langevin_kernels, "langevin_solve"))
+    gamma = 16.0 * (N + 8) * 2.0 ** -23  # the readout's rounding bound
+    dl_sweep = None
+    for label, cls, family, pp, adam, module, function in sweeps:
+        solver = cls(device="cuda", batch_size=P13_BATCH)
+        solver.parameter_key = key(family)
+        insts = instances(files)
+        with mock.patch.object(module, function,
+                               Recorded(getattr(module, function))) as recorded:
+            rec = recorded.calls
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sols = sweep_solve(solver, insts, post_processor=pp, algorithm_parameters=adam,
+                               seed=0, scale=True)
+            wall = time.perf_counter() - t
+            serial = {i: solver(insts[i], seed=i, post_processor=pp,
+                                algorithm_parameters=adam) for i in P13_HELD}
+        torch.cuda.synchronize()
+        stacked, start, end = rec[0]
+        kernel_ms = start.elapsed_time(end)
+        same = all(torch.equal(a[i], b) for i, (out, _, _) in zip(P13_HELD, rec[1:])
+                   for a, b in zip(flat(stacked), flat(out)))
+        assert len(sols) == len(files) and all(
+            np.all(np.isfinite(s.objective_values)) for s in sols), label
+        if not same:
+            failures.append(f"phase 13 {label}: a held instance's kernel outputs differ "
+                            f"from its serial launch")
+        obj_err, pv_err, flipped, rounding = 0.0, 0.0, 0, 0.0
+        for i in P13_HELD:
+            a, b = sols[i], serial[i]
+            pv_err = max(pv_err, max_diff(a.variables["problem_variables"],
+                                          b.variables["problem_variables"]))
+            rows, rel = gap_flips(a, b)
+            obj_err = max(obj_err, float(rel.max()))
+            flipped += rows.size
+            if pp is None:
+                # The same configurations read out stacked and alone: the f32
+                # energies within both passes' rounding bound, the
+                # statistics (from float64 where the bound is too wide) equal.
+                confs = common.change_variables_boxqp(
+                    a.variables["problem_variables"], *insts[i].solution_bounds,
+                    torch.tensor(1.0, device=insts[i].q_matrix.device))
+                abs_e = _energy_and_bound(confs, insts[i].q_matrix, insts[i].v_vector,
+                                          float(np.float32(insts[i].scaled_by)))[1]
+                diff = np.abs(np.asarray(a.objective_values) -
+                              np.asarray(b.objective_values))
+                rounding = max(rounding, float(
+                    (diff / (2 * gamma * abs_e.cpu().numpy().astype(np.float64))).max()))
+                if a.solution_performance != b.solution_performance or \
+                        a.best_objective_value != b.best_objective_value:
+                    failures.append(f"phase 13 {label} instance {i}: statistics differ")
+            elif rows.size and rel[rows].max() > SWEEP_PP_TOL:
+                failures.append(f"phase 13 {label} instance {i}: {rows.size} rows change "
+                                f"a gap statistic, objective {rel[rows].max():.3e} apart")
+        if pp is not None and pv_err > SWEEP_PP_TOL:
+            failures.append(f"phase 13 {label}: refinement {pv_err:.3e} from serial")
+        if rounding > 1.0:
+            failures.append(f"phase 13 {label}: objective values {rounding:.3f} x the "
+                            f"readout's rounding bound apart")
+        p01 = np.mean([s.solution_performance["optimal"] for s in sols])
+        p1 = np.mean([s.solution_performance["one_percent"] for s in sols])
+        log(f"phase 13 (a) {label} sweep{'' if pp is None else ' with ' + pp}: "
+            f"{len(files)} instances x batch {P13_BATCH}, N={N}, {ITERATIONS} steps in "
+            f"one stacked launch, wall {wall:.3f} s, "
+            f"{len(files) * P13_BATCH * ITERATIONS / wall:.4g} traj-iter/s, kernel "
+            f"(CUDA events) {kernel_ms:.1f} ms; mean P(0.1%)={p01:.4f} P(1%)={p1:.4f}; "
+            f"instances {P13_HELD} against serial launches with seed i: kernel outputs "
+            f"{'equal bit for bit' if same else 'DIFFER'}, largest relative objective "
+            f"difference {obj_err:.3e}"
+            + (f" ({rounding:.3f} x the readout's rounding bound), statistics equal"
+               if pp is None else f", refinement {pv_err:.3e} (tol {SWEEP_PP_TOL}), "
+               f"{flipped} rows on the other side of a gap threshold"))
+        if label == "DL":
+            dl_sweep = (solver, insts, wall)
+        del sols, serial, rec, stacked
+
+    # ... and the serial loop benchmarking_study.py runs without --sweep.
+    solver, insts, sweep_wall = dl_sweep
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i, inst in enumerate(insts):
+        solver(inst, seed=i)
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t
+    log(f"phase 13 (a) DL over {len(insts)} instances: one sweep {sweep_wall:.3f} s, "
+        f"the serial loop {serial_wall:.3f} s ({serial_wall / sweep_wall:.2f} x)")
+    del dl_sweep, solver, insts
+
+    # (b) Tuning: tools/tune_benchmark_set.py's Langevin run, each candidate
+    # scored by one stacked launch, then by serial launches.
+    runs = {}
+    for use_sweep in (True, False):
+        solver = LangevinSolver(device="cuda", batch_size=P13_TUNE_BATCH, timing="async")
+        solver.parameter_key = {N: {**P13_TUNE_BASE, "iterations": ITERATIONS}}
+        insts = instances(files[:3])
+        for inst in insts:
+            inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+        # Each candidate's (params, score) as the tuner logs it.
+        with mock.patch.object(tuning.logger, "info") as info:
+            t = time.perf_counter()
+            best = solver.tune(insts, post_processor="grad-descent",
+                               parameter_ranges=P13_TUNE_GRID,
+                               tuning_batch_size=P13_TUNE_BATCH, seed=7,
+                               use_sweep=use_sweep)
+            wall = time.perf_counter() - t
+        runs[use_sweep] = (best, [c.args[2:] for c in info.call_args_list
+                                  if c.args[0].startswith("tune size")], wall)
+    (best_s, scores_s, wall_s), (best_l, scores_l, wall_l) = runs[True], runs[False]
+    fractions_equal = [a[:2] == b[:2] for (_, a), (_, b) in zip(scores_s, scores_l)]
+    best_err = max(abs(a[2] - b[2]) / abs(b[2]) for (_, a), (_, b) in
+                   zip(scores_s, scores_l))
+    log(f"phase 13 (b) LangevinSolver.tune, {len(scores_s)} candidates on 3 instances, "
+        f"batch {P13_TUNE_BATCH}, {ITERATIONS} steps, grad-descent, seed 7: stacked "
+        f"{wall_s:.3f} s, serial {wall_l:.3f} s; winners {best_s[N]} and {best_l[N]}; "
+        f"{sum(fractions_equal)} of {len(fractions_equal)} candidates' score fractions "
+        f"equal, largest relative difference of the best objective {best_err:.3e}")
+    for (params, a), (_, b) in zip(scores_s, scores_l):
+        log(f"  {params}: stacked {a}, serial {b}")
+    if best_s != best_l or not all(fractions_equal) or len(scores_s) != 9 or \
+            best_err > TUNE_BEST_RTOL:
+        failures.append("phase 13 (b): stacked and serial tuning disagree")
+
+    # (c) Checkpoint / resume at the main shape, DL and Langevin-Adam.
+    inst = instances(files[:1])[0]
+    inst.scale_coefs(DLSolver(device="cuda").get_scaling_factor(inst.q_matrix))
+    dl_solver = DLSolver(device="cuda", batch_size=MAIN_BATCH)
+    dl_solver.solution_bounds = inst.solution_bounds
+    t = tuned_all["dl"][str(N)]
+    lgv_inst = instances(files[:1])[0]
+    lgv_solver = LangevinSolver(device="cuda", batch_size=MAIN_BATCH)
+    lgv_inst.scale_coefs(lgv_solver.get_scaling_factor(lgv_inst.q_matrix))
+    lgv_solver.solution_bounds = lgv_inst.solution_bounds
+    lt = tuned_all["langevin"][str(N)]
+    ckpts = (
+        ("DL", dl_kernels.dl_solve_segment, dl_kernels.dl_solve, inst,
+         dl_solver._make_params(t["pump"], 1.0, t["dt"], t["noise_ratio"],
+                                t["feedback_scale"], G, ITERATIONS),
+         dict(pump_rate_flag=True, pump_is_gt_one=t["pump"] > 1, rng="popcount16"),
+         lambda st: (torch.clamp(st[0], -1.0, 1.0), st[1])),
+        ("Langevin-Adam", langevin_kernels.langevin_solve_segment,
+         langevin_kernels.langevin_solve, lgv_inst,
+         lgv_solver._make_params(lt["S"], lt["dt"], lt["sigma"], lt["feedback_scale"]),
+         dict(rng="popcount32", hp=lgv_adam.to_hyperparameters()),
+         lambda st: st[:1]))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as snaps:
+        for label, segment, whole, inst_, p, kw, final in ckpts:
+            q, v = inst_.q_matrix, inst_.v_vector
+            kw = dict(kw, batch_size=MAIN_BATCH)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = flat(whole(100, q, v, p, iterations=ITERATIONS, **kw))
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            path = os.path.join(snaps, f"{label}.npz")
+            t0 = time.perf_counter()
+            state = checkpoint.checkpointed_solve(segment, 100, q, v, p, None, ITERATIONS,
+                                                  every=P13_CKPT_EVERY, path=path, **kw)
+            ckpt_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            straight = all(torch.equal(a, b) for a, b in zip(flat(final(state)), want))
+            os.remove(path)
+            began = []
+
+            def dies_after_the_first(*args, **kwargs):
+                if began:
+                    raise InterruptedError("the run is cut after its first snapshot")
+                began.append(args[5])
+                return segment(*args, **kwargs)
+
+            try:
+                checkpoint.checkpointed_solve(dies_after_the_first, 100, q, v, p, None,
+                                              ITERATIONS, every=P13_CKPT_EVERY, path=path,
+                                              **kw)
+                raise AssertionError("the interrupted run was not interrupted")
+            except InterruptedError:
+                pass
+            _, at, _ = checkpoint.load_state(path)
+            state = checkpoint.checkpointed_solve(segment, 100, q, v, p, None, ITERATIONS,
+                                                  every=P13_CKPT_EVERY, path=path, **kw)
+            resumed = all(torch.equal(a, b) for a, b in zip(flat(final(state)), want))
+            log(f"phase 13 (c) {label} checkpointed_solve at batch {MAIN_BATCH}, N={N}, "
+                f"{ITERATIONS} steps, every {P13_CKPT_EVERY}: wall {ckpt_s:.3f} s against "
+                f"the whole launch's {whole_s:.3f} s, snapshots of {size} bytes; "
+                f"{'equal' if straight else 'DIFFERS from'} the whole launch bit for bit; "
+                f"cut after step {at} and resumed: "
+                f"{'equal' if resumed else 'DIFFERS'}")
+            if not (straight and resumed and at == P13_CKPT_EVERY):
+                failures.append(f"phase 13 (c) {label}: checkpointed solve differs")
+            del want, state
+
+    # (d) Profiling: phase 6's DL call under torch.profiler.
+    class Annotated(DLSolver):
+        def _solve(self, *args, **kwargs):
+            with profiling.annotate("ccvm-solve"):
+                return super()._solve(*args, **kwargs)
+
+    solver = Annotated(device="cuda", batch_size=MAIN_BATCH, timing="async")
+    solver.parameter_key = {N: {**tuned_all["dl"][str(N)], "iterations": ITERATIONS}}
+    readout = inst.compute_energy_readout64
+
+    def annotated_readout(*args, **kwargs):
+        with profiling.annotate("ccvm-readout"):
+            return readout(*args, **kwargs)
+
+    inst.compute_energy_readout64 = annotated_readout
+    solver(inst, seed=1)  # warm-up
+    trace_dir = os.path.join(REPO, "build", "phase13_trace")
+    with profiling.trace(trace_dir):
+        sol = solver(inst, seed=1)
+    traces = sorted(glob.glob(os.path.join(trace_dir, "*.pt.trace.json")))
+    window, busy, longest = device_busy(traces[-1], ("ccvm-solve", "ccvm-readout"))
+    traced = [ms for ms, op in longest if "dl_solve_kernel" in op]
+    kernel_ms = float(np.median(dl_event_ms))
+    log(f"phase 13 (d) DL main path under torch.profiler (CPU and CUDA activity): "
+        f"window {window:.3f} ms from the solve's span to the readout's end, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / window:.4f}; P(0.1%)="
+        f"{sol.solution_performance['optimal']:.4f}; the five longest device operations:")
+    for ms, op in longest[:5]:
+        log(f"  {ms:.3f} ms {op[:110]}")
+    log(f"phase 13 (d) dl_solve traced {traced} ms against phase 6's CUDA events "
+        f"{kernel_ms:.1f} ms (median; tol {TRACE_TOL:.0%}); trace {os.path.getsize(traces[-1])} "
+        f"bytes")
+    if len(traced) != 1 or abs(traced[0] / kernel_ms - 1) > TRACE_TOL:
+        failures.append(f"phase 13 (d): traced dl_solve {traced} against {kernel_ms}")
+    for f in traces:
+        os.remove(f)
+    os.rmdir(trace_dir)
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s; launches {launched}")
+    return launched
 
 
 def main(cleanup):
@@ -1319,6 +1704,8 @@ def main(cleanup):
         """Launch counts with every kernel not named at 0."""
         return {k: expected.get(k, 0) for k in KERNELS}
 
+    event_ms = {}  # each main path's kernel times (CUDA events) by label
+
     def main_path(cls, pkey, instance_, label, min_p1=0.95, **call):
         main_solver = event_timed(cls)(device="cuda", batch_size=MAIN_BATCH,
                                        timing="async")
@@ -1339,6 +1726,7 @@ def main(cleanup):
         torch.cuda.synchronize()
         kernel_ms = [a.elapsed_time(b) for a, b in main_solver.kernel_events]
         assert len(kernel_ms) == 3, kernel_ms
+        event_ms[label] = kernel_ms
         c = best.variables["problem_variables"]
         assert c.shape == (MAIN_BATCH, N) and c.is_cuda
         assert torch.isfinite(c).all()
@@ -1954,6 +2342,14 @@ def main(cleanup):
             failures.append(f"{kname}: {change:+.2%} against the recorded time")
     log(f"phase 12: {time.perf_counter() - t12:.1f} s; launches {launched12}")
 
+    log(f"phase 13 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 13. sweeps, tuning, checkpoint / resume and a profiler trace
+    launched13 = sweep_phase(tuned_all, event_ms["DL"], counters, failures)
+    assert launched13 == only(**{k: launched13[k] for k in main_hp}), launched13
+    for k in ("dl_solve", "mf_solve", "langevin_solve", "langevin_adam_solve",
+              "pumped_langevin_solve"):
+        assert launched13[k] > 0, launched13
+
     log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 11. bench_torch.py, in a child process that is waited for and killed
     # if the run fails
@@ -1986,7 +2382,8 @@ def main(cleanup):
         row["launches_by_phase"] = (
             {"8": row["launches"]} if name_ in ("dl_v2", "dl_v3") else
             {"6": row["launches"], "10": launched_pp[name_],
-             "11": launched_bench[name_], "12": launched12[name_]})
+             "11": launched_bench[name_], "12": launched12[name_],
+             "13": launched13[name_]})
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

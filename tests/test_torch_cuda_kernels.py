@@ -7,6 +7,7 @@ Marked ``cuda``: each test skips with a reason on a host without a card
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -719,3 +720,56 @@ def test_constant_s_vector_equals_the_scalar_kernel(kname):
     kw = dict(kw, iterations=_FEATURE_ITERS)
     assert all(torch.equal(a, b) for a, b in
                zip(_as_tuple(whole(4, q, v, p, **kw)), _as_tuple(whole(4, q, v, pc, **kw))))
+
+
+# Sweeps and checkpoints on the card: the stacked launch at the Size70
+# instances' shape (batch 1000 leaves each instance's last block partial)
+# and the segment build of DL-Adam behind checkpointed_solve.
+_SWEEP_CLASSES = {"dl": DLSolver, "mf": MFSolver, "langevin": LangevinSolver,
+                  "pumped": PumpedLangevinSolver}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(_SWEEP_CLASSES))
+def test_five_instance_sweep_equals_serial_launches(family):
+    """sweep_solve over five Size70 instances at batch 1000 (tuned
+    parameters, 300 steps, noise on) gives each instance the kernel outputs
+    and statistics of ``solver(instance, seed=seed + i)``, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    from ccvm_tpu_torch.parallel import sweep_solve
+
+    with open(os.path.join(REPO, "examples", "tuned_parameters.json")) as f:
+        tuned = json.load(f)[family]["70"]
+    folder = os.path.join(REPO, "examples", "benchmarking_instances", "Size70")
+    files = sorted(os.listdir(folder))[:5]
+    solver = _SWEEP_CLASSES[family](device="cuda", batch_size=1000)
+    solver.parameter_key = {70: dict(tuned, iterations=300)}
+    insts = [ProblemInstance(device="cuda", instance_type="tuning",
+                             file_path=os.path.join(folder, f)) for f in files]
+    swept = sweep_solve(solver, insts, seed=3, scale=True)
+    for i, inst in enumerate(insts):
+        serial = solver(inst, seed=3 + i)
+        for key, value in serial.variables.items():
+            assert torch.equal(swept[i].variables[key], value), (i, key)
+        assert swept[i].solution_performance == serial.solution_performance
+        assert swept[i].best_objective_value == serial.best_objective_value
+
+
+@pytest.mark.cuda
+def test_checkpointed_dl_adam_solve_equals_the_whole_launch(tmp_path):
+    """checkpointed_solve of DL-Adam (segments of 40 of 120 steps, the six
+    state arrays through each snapshot) ends where the whole launch ends,
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    from ccvm_tpu_torch import checkpoint
+
+    q, v, p, kw = _feature_case("dl_adam_solve", 70)
+    path = str(tmp_path / "dl_adam.npz")
+    state = checkpoint.checkpointed_solve(dl_kernels.dl_solve_segment, 7, q, v, p, None,
+                                          _FEATURE_ITERS, every=40, path=path, **kw)
+    c, s = dl_kernels.dl_solve(7, q, v, p, iterations=_FEATURE_ITERS, **kw)
+    assert len(state) == 6
+    assert torch.equal(torch.clamp(state[0], -p.S, p.S), c) and torch.equal(state[1], s)
+    assert checkpoint.load_state(path)[1] == _FEATURE_ITERS

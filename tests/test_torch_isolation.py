@@ -40,6 +40,8 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import ccvm_tpu_torch.post_processor.bfgs, ccvm_tpu_torch.post_processor.lbfgs;"
         "import ccvm_tpu_torch.ops.lbfgs, ccvm_tpu_torch.metadata, ccvm_tpu_torch.tools.lbfgs_race;"
         "import ccvm_tpu_torch.ccvmplotlib.utils.sampleTTSmetric;"
+        "import ccvm_tpu_torch.parallel, ccvm_tpu_torch.parallel.sweep, ccvm_tpu_torch.tuning;"
+        "import ccvm_tpu_torch.checkpoint, ccvm_tpu_torch.profiling;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -104,6 +106,9 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
     package's files in comments are allowed: they say which TPU code each
     part replaces."""
     offenders = []
+    scanned = {os.path.relpath(p, PKG) for p in _port_python_sources()}
+    assert {os.path.join("parallel", "__init__.py"), os.path.join("parallel", "sweep.py"),
+            "tuning.py", "checkpoint.py", "profiling.py"} <= scanned
     for path in _port_python_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -227,6 +232,29 @@ def test_mf_solve_on_cuda_tensors_never_reaches_the_plain_version(monkeypatch, t
     with pytest.raises(RuntimeError, match="nvcc not found"):
         mf_kernels.mf_solve(1, _CudaLike((12, 12)), _CudaLike((12,)), p,
                             iterations=10, batch_size=8, pump_rate_flag=True)
+
+
+def test_checkpointed_solve_on_cuda_tensors_never_reaches_the_plain_version(
+        monkeypatch, tmp_path):
+    """checkpointed_solve launches the segment build on CUDA tensors (here,
+    without nvcc, its build raises) and writes no snapshot."""
+    from ccvm_tpu_torch import checkpoint
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(mf_kernels, "mf_solve_segment_reference", plain)
+    p = MFParams(0.0, 20.0, 0.0025, 5.0, 400.0, 0.01, 0.0, 1.0, 10.0)
+    path = str(tmp_path / "ck.npz")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        checkpoint.checkpointed_solve(mf_kernels.mf_solve_segment, 1, _CudaLike((12, 12)),
+                                      _CudaLike((12,)), p, None, 10, every=5, path=path,
+                                      batch_size=8, pump_rate_flag=True)
+    assert not os.path.exists(path)
 
 
 _LANGEVIN_CASES = {

@@ -175,8 +175,10 @@ def test_features_left_out_raise(tmp_path, family, call):
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_per_variable_s_mesh_tune_and_backend_raise(family):
     """A 1-D S of the problem's size now runs and matches the JAX façade
-    (more in tests/test_torch_per_variable_s.py); a mesh, tune and a
-    backend other than "auto" still raise naming their ROADMAP items."""
+    (more in tests/test_torch_per_variable_s.py); a mesh and a backend
+    other than "auto" still raise naming their ROADMAP items; tune runs
+    (tests/test_torch_tuning.py) and, as the JAX package's, needs a
+    parameter key first."""
     jcls, tcls, params, _ = FAMILIES[family]
     vector_s = {20: dict(params[20], S=np.linspace(0.4, 0.6, 20))}
     sol_j = _solve(jcls, JProblemInstance, vector_s, batch=8)
@@ -186,7 +188,7 @@ def test_per_variable_s_mesh_tune_and_backend_raise(family):
     assert sol_t.solution_performance == sol_j.solution_performance
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcls(device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Set solver.parameter_key before tuning"):
         tcls(device="cpu").tune([])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcls(device="cpu", backend="pallas")
