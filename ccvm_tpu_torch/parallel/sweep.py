@@ -195,15 +195,16 @@ def sweep_solve(
         )
         raw = langevin_kernels.pumped_langevin_solve(
             seed, qs, vs, params, pump_rate_flag=pump_rate_flag, **kw)
-    if solver.timing == "sync":
-        _synchronize(raw)
-    solve_wall = time.time() - t0
-
     S = saturation_of(params, raw.device)
     if cls in ("LangevinSolver", "PumpedLangevinSolver"):
         pp_input = common.langevin_change_variables(raw, S)
     else:
         pp_input = common.change_variables_boxqp(raw, lo, hi, S)
+    # The solve clock stops once the change of variables is done, under
+    # either timing, as the JAX sweep's does (ccvm_tpu/parallel/sweep.py:368-369),
+    # so that pp_wall is the refinement's own.
+    _synchronize(pp_input)
+    solve_wall = time.time() - t0
 
     pp_wall = 0.0
     if post_processor is not None:
@@ -221,8 +222,6 @@ def sweep_solve(
     confs = (common.change_variables_boxqp(problem_variables, lo, hi, S)
              if needs_final_cv else problem_variables)
     objvals = stacked_readout64(instances, confs, qs, vs)
-    if solver.timing == "async":
-        solve_wall = time.time() - t0 - pp_wall
 
     # Wall time attributed evenly across the sweep, then batch-normalised
     # (reference solve-time semantics, dl_solver.py:933).

@@ -154,7 +154,31 @@ exits non-zero without printing a result:
    window, the device's busy time and idle share, the five longest device
    operations, and the traced kernel within TRACE_TOL of phase 6's CUDA
    events; the kernels line gains each kernel's phase-13 launches;
-14. the last line: {"ok": true, "device": {...}}.
+14. the entry-point scripts on the card (run after phase 13), with the launch
+   counts zeroed before and read after: (a)
+   ``examples/torch_port/benchmarking_study.py --sweep`` over all four
+   solvers and every bundled size (all 50 instances of each, 300 files),
+   batch 1000, 15,000 steps, the tuned parameters, seed 0 (no ``--plots``:
+   the card's host has had no matplotlib; the CPU tests draw the plots):
+   no instance failed or retried, one metadata row an instance, each
+   (solver, size)'s wall, traj-iter/s, kernel time (CUDA events), the load
+   time of its files and mean P(0.1%) / P(1%), and N=70's rows equal to
+   phase 13 (a)'s sweeps (statistics and best objective); (b) the study's serial path
+   (``run_resilient``, seeds 0 + idx) for DL at N=70, each instance's
+   P(0.1%), P(1%) and best objective equal to (a)'s, its wall beside the
+   sweep's; (c) the four single-instance examples, each Solution finite and
+   within tools/tpu_validate.py's band of the same script on the CPU (the
+   plain versions, the same seed), and the plot example's solve to its
+   metadata; (d) the tuner twin
+   (``ccvm_tpu_torch/tools/tune_benchmark_set.py``) on the four solvers at
+   Size70, batch 256: each winner and wall, the table's shape, Langevin's
+   winner equal to phase 13 (b)'s and examples/tuned_parameters.json
+   unchanged; (e) a Langevin sweep with grad-descent under ``timing="async"``
+   and ``"sync"``: under async the solve clock at least the kernel's CUDA-event
+   time and ``pp_time`` under ASYNC_PP_SHARE of it; phase 2 builds and
+   reports every specialisation the study launches; the kernels line gains
+   each kernel's phase-14 launches;
+15. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -344,6 +368,18 @@ SWEEP_PP_TOL = 1e-5
 TUNE_BEST_RTOL = 1e-6
 # The DL kernel's traced time against its CUDA-event time in phase 6.
 TRACE_TOL = 0.05
+# Phase 14: the entry-point scripts (examples/torch_port/ and the tuner twin)
+# at their users' sizes: the study over every bundled size (all 50 instances
+# of each), batch 1000, 15,000 steps, seed 0, the tuned parameters; the
+# tuner at Size70 (its three instances, batch 256).
+SCRIPTS = os.path.join(REPO, "examples", "torch_port")
+STUDY_SIZES = (20, 30, 40, 50, 60, 70)
+STUDY_SOLVERS = ("dl", "mf", "langevin", "pumped")
+STUDY_LABELS = {"dl": "DL", "mf": "MF", "langevin": "Langevin", "pumped": "pumped"}
+P14_TUNE_BATCH = 256
+# An async sweep's pp_time (the refinement) against its kernel's time: under
+# this share.
+ASYNC_PP_SHARE = 0.1
 # The optimality gaps (%) of Solution's statistics.
 GAP_THRESHOLDS = (0.1, 1.0, 2.0, 3.0, 4.0, 5.0, 10.0)
 # Phase 11 waits this long for bench_torch.py.
@@ -552,14 +588,15 @@ def max_diff(a, b):
 
 
 class Recorded:
-    """A kernel wrapper that records each call's outputs and the CUDA
-    events around it in ``calls``, patched over the module's name for it;
-    its launch counts are the wrapper's own (read and written through, as
-    the module counts them by that name)."""
+    """A kernel wrapper that records each call's outputs (None unless
+    ``keep``) and the CUDA events around it in ``calls``, patched over the
+    module's name for it; its launch counts are the wrapper's own (read and
+    written through, as the module counts them by that name)."""
 
-    def __init__(self, real):
+    def __init__(self, real, keep=True):
         object.__setattr__(self, "_real", real)
         object.__setattr__(self, "calls", [])
+        object.__setattr__(self, "keep", keep)
 
     def __call__(self, *args, **kwargs):
         import torch
@@ -568,7 +605,7 @@ class Recorded:
         start.record()
         out = self._real(*args, **kwargs)
         end.record()
-        self.calls.append((out, start, end))
+        self.calls.append((out if self.keep else None, start, end))
         return out
 
     def __getattr__(self, name):
@@ -624,7 +661,9 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
     """Phase 13: ``sweep_solve`` over every Size70 instance on each façade,
     ``LangevinSolver.tune`` stacked and serial, ``checkpointed_solve`` at the
     main shape, and a DL main-path solve under ``profiling.trace``; returns
-    the launch counts of the phase (zeroed before it)."""
+    the launch counts of the phase (zeroed before it), each sweep's
+    (instance name, statistics, best objective) by label, and the stacked
+    tuning's winner."""
     import glob
     import tempfile
 
@@ -663,6 +702,7 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
                langevin_kernels, "langevin_solve"))
     gamma = 16.0 * (N + 8) * 2.0 ** -23  # the readout's rounding bound
     dl_sweep = None
+    stats = {}
     for label, cls, family, pp, adam, module, function in sweeps:
         solver = cls(device="cuda", batch_size=P13_BATCH)
         solver.parameter_key = key(family)
@@ -732,6 +772,8 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
             + (f" ({rounding:.3f} x the readout's rounding bound), statistics equal"
                if pp is None else f", refinement {pv_err:.3e} (tol {SWEEP_PP_TOL}), "
                f"{flipped} rows on the other side of a gap threshold"))
+        stats[label] = [(s.instance_name, s.solution_performance, s.best_objective_value)
+                        for s in sols]
         if label == "DL":
             dl_sweep = (solver, insts, wall)
         del sols, serial, rec, stacked
@@ -890,6 +932,263 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
     os.rmdir(trace_dir)
     launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     log(f"phase 13: {time.perf_counter() - t13:.1f} s; launches {launched}")
+    return launched, stats, best_s[N]
+
+def load_script(name):
+    """An entry-point script of examples/torch_port/, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_port_{name}",
+                                                  os.path.join(SCRIPTS, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def entry_point_phase(tuned_all, p13_stats, p13_winner, counters, failures):
+    """Phase 14: the entry-point scripts on the card (the study, the four
+    single-instance examples, the plot example, the tuner) and the repaired
+    async sweep clock; returns the launch counts of the phase (zeroed
+    before it)."""
+    import glob
+    import hashlib
+    import io
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ccvm_tpu_torch import LangevinSolver, ProblemInstance
+    from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
+    from ccvm_tpu_torch.parallel import sweep_solve
+    from ccvm_tpu_torch.tools import tune_benchmark_set
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t14 = time.perf_counter()
+    with open(TUNED, "rb") as f:
+        tuned_digest = hashlib.sha256(f.read()).hexdigest()
+    study = load_script("benchmarking_study")
+    kernel_of = {"dl": (dl_kernels, "dl_solve"), "mf": (mf_kernels, "mf_solve"),
+                 "langevin": (langevin_kernels, "langevin_solve"),
+                 "pumped": (langevin_kernels, "pumped_langevin_solve")}
+
+    # run_resilient logs each failed attempt: a retry is one of these.
+    retries = []
+
+    class Retries(logging.Handler):
+        def emit(self, record):
+            retries.append(record.getMessage())
+
+    retry_log = logging.getLogger("ccvm_tpu_torch.parallel.multihost")
+    handler = Retries(logging.WARNING)
+    retry_log.addHandler(handler)
+
+    # Each instance file's load (parse, and the copy to the card), in order.
+    loads = []
+
+    class TimedInstance(ProblemInstance):
+        def __init__(self, *args, **kwargs):
+            t = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            loads.append((kwargs["file_path"], time.perf_counter() - t))
+
+    def study_args(out, *extra):
+        return study.parse_args(["--params", TUNED, "--seed", "0", "--batch-size", "1000",
+                                 "--iterations", str(ITERATIONS), "--output-dir", out,
+                                 "--device", "cuda"] + list(extra))
+
+    def rows(out, name, size):
+        with open(os.path.join(out, f"{name}_benchmark.json")) as f:
+            return [r for r in json.load(f)["result_metadata"] if r["problem_size"] == size]
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        # (a) The study with --sweep over every bundled size, each size's
+        # kernel timed by CUDA events and its files' loads by the host clock.
+        # No --plots: the card's host has had no matplotlib; the plots of
+        # these metadata files are drawn by the CPU tests.
+        out_a = os.path.join(tmp, "sweep")
+        failed = {}
+        with contextlib.ExitStack() as stack:
+            rec = {name: stack.enter_context(mock.patch.object(
+                module, fn, Recorded(getattr(module, fn), keep=False)))
+                for name, (module, fn) in kernel_of.items()}
+            stack.enter_context(mock.patch.object(study, "ProblemInstance", TimedInstance))
+            printed = stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            summary = study.run_sweep(study_args(out_a, "--sweep"), failed)
+            study_wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        log(f"phase 14 (a) examples/torch_port/benchmarking_study.py --sweep --params "
+            f"examples/tuned_parameters.json: {study_wall:.3f} s in all")
+        for ln in printed.getvalue().split("=== Sweep summary ===")[1].strip().splitlines():
+            log(f"  {ln}")
+        assert [row[:2] for row in summary] == [(s, n) for s in STUDY_SOLVERS
+                                                for n in STUDY_SIZES], summary
+        per_size = len(loads) // len(summary)
+        for k, (name, size, count, p_opt, wall) in enumerate(summary):
+            files = sorted(glob.glob(os.path.join(REPO, "examples", "benchmarking_instances",
+                                                  f"Size{size}", "*.in")))
+            chunk = loads[k * per_size:(k + 1) * per_size]
+            assert [path for path, _ in chunk] == files, (name, size)
+            _, start, end = rec[name].calls[STUDY_SIZES.index(size)]
+            got = rows(out_a, name, size)
+            p1 = np.mean([r["solution_performance"]["one_percent"] for r in got])
+            log(f"phase 14 (a) {name} N={size}: {count} instances x batch 1000, "
+                f"{ITERATIONS} steps in one stacked launch: wall {wall:.3f} s, "
+                f"{count * 1000 * ITERATIONS / wall:.4g} traj-iter/s, kernel (CUDA events) "
+                f"{start.elapsed_time(end):.1f} ms, load of its {len(chunk)} files "
+                f"{1e3 * sum(dt for _, dt in chunk):.1f} ms; mean P(0.1%)={p_opt:.4f} "
+                f"P(1%)={p1:.4f}; metadata rows {len(got)}")
+            if failed[name, size] or len(got) != count or count != len(files):
+                failures.append(f"phase 14 (a) {name} N={size}: {len(failed[name, size])} "
+                                f"failed, {len(got)} rows of {len(files)} instances")
+        load_s = sum(dt for _, dt in loads)
+        log(f"phase 14 (a) {len(loads)} instance files loaded (each parsed once a solver "
+            f"and copied to the card) in {load_s:.3f} s, {load_s / study_wall:.1%} of the "
+            f"study's wall")
+        for name in STUDY_SOLVERS:
+            # N=70's rows against phase 13 (a)'s sweep of the same seed.
+            want = p13_stats[STUDY_LABELS[name]]
+            have = [(r["instance_name"], r["solution_performance"], r["best_objective_value"])
+                    for r in rows(out_a, name, N)]
+            differ = sum(a != b for a, b in zip(have, want))
+            log(f"phase 14 (a) {name} N={N}: statistics and best objective of "
+                f"{len(have)} instances against phase 13 (a)'s sweep: {differ} differ")
+            if differ or len(have) != len(want):
+                failures.append(f"phase 14 (a) {name} N={N}: {differ} instances differ "
+                                f"from phase 13")
+
+        # (b) The study's serial path for DL at N=70 (run_resilient, seeds
+        # 0 + idx) against (a)'s rows.
+        out_b = os.path.join(tmp, "serial")
+        failed_b = {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary_b = study.run_sweep(study_args(out_b, "--solvers", "dl", "--sizes",
+                                                   str(N)), failed_b)
+        sweep_wall = summary[STUDY_SOLVERS.index("dl") * len(STUDY_SIZES) + len(STUDY_SIZES)
+                             - 1][4]
+        keys = ("optimal", "one_percent")
+        differ = sum(
+            [a["solution_performance"][k] for k in keys] + [a["best_objective_value"]] !=
+            [b["solution_performance"][k] for k in keys] + [b["best_objective_value"]]
+            for a, b in zip(rows(out_b, "dl", N), rows(out_a, "dl", N)))
+        log(f"phase 14 (b) the study's serial path, dl N={N}: {summary_b[0][2]} instances, "
+            f"wall {summary_b[0][4]:.3f} s against the sweep's {sweep_wall:.3f} s "
+            f"({summary_b[0][4] / sweep_wall:.2f} x); P(0.1%), P(1%) and best objective of "
+            f"each instance against (a)'s: {differ} differ; failed {len(failed_b[('dl', N)])}, "
+            f"retried {len(retries)}")
+        if differ or failed_b[("dl", N)] or len(rows(out_b, "dl", N)) != summary_b[0][2]:
+            failures.append(f"phase 14 (b): {differ} instances differ from the sweep, "
+                            f"{len(failed_b[('dl', N)])} failed")
+        if retries:
+            failures.append(f"phase 14: run_resilient retried {retries}")
+
+        # (c) The four single-instance examples (batch 1000, N=20, 1,500
+        # steps), each held against the same script on the CPU (the plain
+        # versions, the same seed) within tools/tpu_validate.py's band, and
+        # the plot example up to the metadata its plots read.
+        twins = ("ccvm_boxqp_dl", "ccvm_boxqp_mf", "langevin_boxqp", "pumped_langevin_boxqp")
+        mods = {t: load_script(t) for t in twins}
+        with contextlib.redirect_stdout(io.StringIO()):
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                on_cpu = pool.submit(lambda: {
+                    t: mods[t].main(device="cpu", seed=0)[0].solution_performance
+                    for t in twins})
+                card = {}
+                for t in twins:
+                    start = time.perf_counter()
+                    card[t] = (mods[t].main(device="cuda", seed=0), time.perf_counter() - start)
+                cpu_perf = on_cpu.result()
+        for t in twins:
+            sols, wall = card[t]
+            sol = sols[0]
+            perf = sol.solution_performance
+            finite = len(sols) == 1 and bool(np.all(np.isfinite(sol.objective_values)))
+            log(f"phase 14 (c) examples/torch_port/{t}.py: {sol.instance_name}, batch "
+                f"{sol.batch_size}, {sol.iterations} steps, wall {wall:.3f} s, objective "
+                f"values {'finite' if finite else 'NOT finite'}; P(0.1%)="
+                f"{perf['optimal']:.4f} P(1%)={perf['one_percent']:.4f}, best "
+                f"{sol.best_objective_value:.6f} of {sol.optimal_value:.6f}; against the "
+                f"script on the CPU:")
+            if not finite or not success_band_ok(perf, cpu_perf[t], sol.batch_size,
+                                                 names=("card", "CPU")):
+                failures.append(f"phase 14 (c) {t}: outside the band of the CPU run")
+        plot = load_script("ccvm_boxqp_plot")
+        out_c = os.path.join(tmp, "plot")
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, path, sols = plot.solve_to_metadata(device="cuda", out_dir=out_c, seed=0)
+        with open(path) as f:
+            meta = json.load(f)["result_metadata"]
+        log(f"phase 14 (c) examples/torch_port/ccvm_boxqp_plot.py's solve_to_metadata: "
+            f"{len(meta)} metadata row, {sols[0].iterations} steps, solve time "
+            f"{meta[0]['solve_time']:.3e} s a trajectory, P(1%)="
+            f"{meta[0]['solution_performance']['one_percent']:.4f}")
+        if len(meta) != 1 or not np.all(np.isfinite(sols[0].objective_values)):
+            failures.append("phase 14 (c): the plot example's metadata")
+
+        # (d) The tuner twin at Size70, one solver a call, merged into one
+        # file; examples/tuned_parameters.json untouched.
+        out_d = os.path.join(tmp, "tuned_parameters_torch.json")
+        for name in STUDY_SOLVERS:
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                table = tune_benchmark_set.main(out_path=out_d, sizes=(N,), per_size=3,
+                                                iterations=ITERATIONS,
+                                                tuning_batch_size=P14_TUNE_BATCH,
+                                                device="cuda", solvers=(name,))
+            log(f"phase 14 (d) python -m ccvm_tpu_torch.tools.tune_benchmark_set "
+                f"--solvers {name} --sizes {N}: "
+                f"{np.prod([len(v) for v in tune_benchmark_set.GRIDS[name].values()])} "
+                f"candidates on 3 instances, batch {P14_TUNE_BATCH}, {ITERATIONS} steps: "
+                f"winner {table[name][str(N)]}, wall {time.perf_counter() - t:.3f} s")
+        with open(out_d) as f:
+            written = json.load(f)
+        with open(TUNED, "rb") as f:
+            untouched = hashlib.sha256(f.read()).hexdigest() == tuned_digest
+        winner = {k: v for k, v in p13_winner.items() if k != "iterations"}
+        shape_ok = sorted(written) == sorted(STUDY_SOLVERS) and all(
+            list(written[s]) == [str(N)] and "iterations" not in written[s][str(N)]
+            for s in STUDY_SOLVERS)
+        log(f"phase 14 (d) the table: {sorted(written)} at {N}, without iterations: "
+            f"{shape_ok}; Langevin's winner {written['langevin'][str(N)]} against phase "
+            f"13 (b)'s {winner}; examples/tuned_parameters.json "
+            f"{'unchanged' if untouched else 'CHANGED'}")
+        if not (shape_ok and untouched and written["langevin"][str(N)] == winner):
+            failures.append("phase 14 (d): the tuner's table")
+
+    # (e) The sweep's solve clock under both timings: Langevin with
+    # grad-descent over the 50 Size70 instances.
+    files = sorted(glob.glob(os.path.join(SIZE70, "*.in")))
+    trajectories = len(files) * 1000
+    clocks = {}
+    for timing in ("async", "sync"):
+        solver = LangevinSolver(device="cuda", batch_size=1000, timing=timing)
+        solver.parameter_key = {N: {**tuned_all["langevin"][str(N)], "iterations": ITERATIONS}}
+        insts = [ProblemInstance(device="cuda", instance_type="tuning", file_path=f)
+                 for f in files]
+        with mock.patch.object(langevin_kernels, "langevin_solve",
+                               Recorded(langevin_kernels.langevin_solve, keep=False)) as r:
+            sols = sweep_solve(solver, insts, post_processor="grad-descent", seed=0,
+                               scale=True)
+        torch.cuda.synchronize()
+        _, start, end = r.calls[0]
+        clocks[timing] = (sols[0].solve_time * trajectories, sols[0].pp_time * trajectories,
+                          start.elapsed_time(end) / 1e3)
+        solve_s, pp_s, kernel_s = clocks[timing]
+        log(f"phase 14 (e) Langevin sweep with grad-descent, timing {timing!r}, "
+            f"{len(files)} x 1000: solve_time x {trajectories} = {solve_s:.4f} s, pp_time x "
+            f"{trajectories} = {pp_s:.4f} s, the kernel (CUDA events) {kernel_s:.4f} s")
+    solve_s, pp_s, kernel_s = clocks["async"]
+    if solve_s < kernel_s or pp_s >= ASYNC_PP_SHARE * kernel_s:
+        failures.append(f"phase 14 (e): under async the solve clock {solve_s:.4f} s and "
+                        f"pp {pp_s:.4f} s against the kernel's {kernel_s:.4f} s")
+    retry_log.removeHandler(handler)
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s; launches {launched}")
     return launched
 
 
@@ -969,8 +1268,8 @@ def main(cleanup):
     def mf_spec(hp=None, noise=True, n=N):
         return mf_kernels._spec(n, hp, 1.0 if noise else 0.0, "popcount32")
 
-    def lgv_spec(pumped, hp=None, noise=True):
-        return langevin_kernels._spec(N, hp, 1.0 if noise else 0.0, "popcount32",
+    def lgv_spec(pumped, hp=None, noise=True, n=N):
+        return langevin_kernels._spec(n, hp, 1.0 if noise else 0.0, "popcount32",
                                       pumped=pumped)
 
     specs = [spec(*case) for case in dl_cases.values()]
@@ -995,6 +1294,15 @@ def main(cleanup):
             f"{fam}-Adam noise off": (pumped, adam_hps[0.999], False),
             f"{fam}-Adam beta2 1 noise off": (pumped, adam_hps[1.0], False)})
     specs += [lgv_spec(*case) for case in lgv_builds.values()]
+    # Phase 14's other sizes: the study's MF, Langevin and pumped sweeps and
+    # the N=20 examples, noise on (DL's are among dl_cases).
+    study_builds = {f"{fam} n {n}": (fam, n) for n in STUDY_SIZES[:-1]
+                    for fam in ("MF", "Langevin", "pumped")}
+
+    def study_spec(fam, n):
+        return mf_spec(None, n=n) if fam == "MF" else lgv_spec(fam == "pumped", n=n)
+
+    specs += [study_spec(*case) for case in study_builds.values()]
     # Each production kernel's Adam hyperparameters on the main path.
     main_hp = {"dl_solve": None, "dl_adam_solve": adam_hps[0.999],
                "mf_solve": None, "mf_adam_solve": adam_hps[0.999],
@@ -1129,6 +1437,24 @@ def main(cleanup):
         if waves / -(-waves // 1) < 0.9:
             failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
                             f"within 10%")
+    # Phase 14's builds: registers, spills and residency (the waves of a
+    # study sweep, 50 x 1000 rows); no Langevin-family build may spill.
+    for label, (fam, n) in study_builds.items():
+        if fam == "MF":
+            blocks = mf_kernels.blocks_per_sm(n)
+            shape = build.mf_launch_shape(n, False)
+        else:
+            blocks = langevin_kernels.blocks_per_sm(n, pumped=fam == "pumped")
+            shape = build.langevin_launch_shape(n, False)
+        rep = reports.get(study_spec(fam, n))
+        report = build.kernel_report(rep) if rep else "built before this run"
+        waves = 50 * build.waves(1000, shape._replace(blocks_per_sm=blocks), sms)
+        log(f"  {label} ({study_spec(fam, n).tag()}): {report}; {blocks} blocks per SM "
+            f"of {shape.threads} threads, {shape.rows} trajectories and {shape.smem} bytes "
+            f"of shared memory a block; 50 x 1000 rows are {waves:.3f} waves of {sms} SMs")
+        if fam != "MF" and rep is not None and \
+                "0 bytes spill stores, 0 bytes spill loads" not in report:
+            failures.append(f"{label} spills: {report}")
     # Phase 12's builds: registers, spills and residency; no Langevin-family
     # build may spill.
     for kname, noise, cols, seg in feature_builds:
@@ -2344,11 +2670,19 @@ def main(cleanup):
 
     log(f"phase 13 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 13. sweeps, tuning, checkpoint / resume and a profiler trace
-    launched13 = sweep_phase(tuned_all, event_ms["DL"], counters, failures)
+    launched13, p13_stats, p13_winner = sweep_phase(tuned_all, event_ms["DL"], counters,
+                                                    failures)
     assert launched13 == only(**{k: launched13[k] for k in main_hp}), launched13
     for k in ("dl_solve", "mf_solve", "langevin_solve", "langevin_adam_solve",
               "pumped_langevin_solve"):
         assert launched13[k] > 0, launched13
+
+    log(f"phase 14 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 14. the entry-point scripts and the async sweep clock
+    launched14 = entry_point_phase(tuned_all, p13_stats, p13_winner, counters, failures)
+    study_kernels = ("dl_solve", "mf_solve", "langevin_solve", "pumped_langevin_solve")
+    assert launched14 == only(**{k: launched14[k] for k in study_kernels}), launched14
+    assert all(launched14[k] > 0 for k in study_kernels), launched14
 
     log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 11. bench_torch.py, in a child process that is waited for and killed
@@ -2383,7 +2717,7 @@ def main(cleanup):
             {"8": row["launches"]} if name_ in ("dl_v2", "dl_v3") else
             {"6": row["launches"], "10": launched_pp[name_],
              "11": launched_bench[name_], "12": launched12[name_],
-             "13": launched13[name_]})
+             "13": launched13[name_], "14": launched14[name_]})
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -5,6 +5,7 @@ with nvcc and never fall back (CPU)."""
 from __future__ import annotations
 
 import ast
+import functools
 import os
 import re
 import subprocess
@@ -42,6 +43,7 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import ccvm_tpu_torch.ccvmplotlib.utils.sampleTTSmetric;"
         "import ccvm_tpu_torch.parallel, ccvm_tpu_torch.parallel.sweep, ccvm_tpu_torch.tuning;"
         "import ccvm_tpu_torch.checkpoint, ccvm_tpu_torch.profiling;"
+        "import ccvm_tpu_torch.parallel.multihost, ccvm_tpu_torch.tools.tune_benchmark_set;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -54,6 +56,9 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
 
 PLOTTING = os.path.join(PKG, "ccvmplotlib")
 BENCH = os.path.join(REPO, "bench_torch.py")
+SCRIPTS = os.path.join(REPO, "examples", "torch_port")
+SCRIPT_NAMES = ("benchmarking_study", "ccvm_boxqp_dl", "ccvm_boxqp_mf", "langevin_boxqp",
+                "pumped_langevin_boxqp", "ccvm_boxqp_plot")
 
 
 def _port_python_sources():
@@ -108,6 +113,8 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
     offenders = []
     scanned = {os.path.relpath(p, PKG) for p in _port_python_sources()}
     assert {os.path.join("parallel", "__init__.py"), os.path.join("parallel", "sweep.py"),
+            os.path.join("parallel", "multihost.py"),
+            os.path.join("tools", "tune_benchmark_set.py"),
             "tuning.py", "checkpoint.py", "profiling.py"} <= scanned
     for path in _port_python_sources():
         with open(path) as f:
@@ -116,6 +123,105 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
         offenders += [f"{rel}:{line}:{name}" for name, line, _ in _imports(tree)
                       if _foreign(name, path)]
     assert not offenders, offenders
+
+
+def test_entry_point_scripts_import_neither_jax_nor_ccvm_tpu():
+    """examples/torch_port/ (the JAX examples' twins) names no jax or
+    ccvm_tpu module; they reach pandas and matplotlib, as the JAX scripts
+    do, only inside a function."""
+    assert sorted(f[:-3] for f in os.listdir(SCRIPTS) if f.endswith(".py")) == \
+        sorted(SCRIPT_NAMES)
+    offenders = []
+    for name in SCRIPT_NAMES:
+        path = os.path.join(SCRIPTS, f"{name}.py")
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for module, line, in_function in _imports(tree):
+            head = module.split(".")[0]
+            plotting = head in ("pandas", "matplotlib") or \
+                module.startswith("ccvm_tpu_torch.ccvmplotlib")
+            if head in ("jax", "jaxlib", "ccvm_tpu") or (plotting and not in_function):
+                offenders.append(f"{name}.py:{line}:{module}")
+    assert not offenders, offenders
+
+
+def _load_script(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"isolation_{name}", os.path.join(SCRIPTS, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Built(Exception):
+    """Raised by a stand-in solver class with the device it was given."""
+
+
+def _stand_in(device, **_):
+    raise _Built(device)
+
+
+def _entry_points():
+    """Each script's entry point with its default arguments, and a function
+    that puts the stand-in solver class where the script builds its
+    solver."""
+    from ccvm_tpu_torch.tools import tune_benchmark_set
+
+    def study():
+        mod = _load_script("benchmarking_study")
+        return (lambda: mod.run_sweep(mod.parse_args([])),
+                lambda mp: mp.setattr(mod, "SOLVER_CLASSES", dict.fromkeys(
+                    mod.SOLVER_CLASSES, _stand_in)))
+
+    def example(name, cls):
+        mod = _load_script(name)
+        return mod.main, lambda mp: mp.setattr(mod, cls, _stand_in)
+
+    return {
+        "benchmarking_study": study,
+        "ccvm_boxqp_dl": lambda: example("ccvm_boxqp_dl", "DLSolver"),
+        "ccvm_boxqp_mf": lambda: example("ccvm_boxqp_mf", "MFSolver"),
+        "langevin_boxqp": lambda: example("langevin_boxqp", "LangevinSolver"),
+        "pumped_langevin_boxqp": lambda: example("pumped_langevin_boxqp",
+                                                 "PumpedLangevinSolver"),
+        "ccvm_boxqp_plot": lambda: example("ccvm_boxqp_plot", "DLSolver"),
+        "tune_benchmark_set": lambda: (
+            functools.partial(tune_benchmark_set.main, out_path="tuned.json"),
+            lambda mp: mp.setattr(tune_benchmark_set, "CLASSES", dict.fromkeys(
+                tune_benchmark_set.CLASSES, _stand_in))),
+    }
+
+
+@pytest.mark.parametrize("name", SCRIPT_NAMES + ("tune_benchmark_set",))
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path,
+                                                                name):
+    """With no device given each entry point builds its solver on "cuda";
+    without a card it raises before it solves anything."""
+    monkeypatch.chdir(tmp_path)
+    run, stand_in = _entry_points()[name]()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        stand_in(mp)
+        with pytest.raises(_Built) as built:
+            run()
+        assert built.value.args == ("cuda",)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        run()
+
+
+@pytest.mark.parametrize("command", [["examples/torch_port/benchmarking_study.py"],
+                                     ["-m", "ccvm_tpu_torch.tools.tune_benchmark_set"]],
+                         ids=["study", "tuner"])
+def test_entry_point_commands_fail_without_a_card(tmp_path, command):
+    res = subprocess.run([sys.executable] + command[:-1] + [
+        command[-1] if command[0] == "-m" else os.path.join(REPO, command[-1])],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO))
+    assert res.returncode != 0 and "is_available" in res.stderr, res.stdout + res.stderr
+    assert os.listdir(tmp_path) == []
 
 
 def test_only_bench_torch_reaches_the_plotting_package_and_inside_a_function():

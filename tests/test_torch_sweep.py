@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -272,6 +273,53 @@ def test_solve_time_is_the_sweep_wall_over_every_trajectory(files):
     assert len({s.solve_time for s in swept}) == 1 and swept[0].solve_time > 0
     assert len({s.pp_time for s in swept}) == 1 and swept[0].pp_time > 0
     assert all(s.batch_size == BATCH and s.iterations == ITERS for s in swept)
+
+
+@pytest.mark.parametrize("timing", ["async", "sync"])
+def test_solve_clock_waits_for_the_solve_before_the_refinement(monkeypatch, files,
+                                                                timing):
+    """Under either timing the solve's output (after the change of
+    variables) is waited for before the solve clock stops and the
+    refinement starts, so ``pp_time`` holds the refinement alone.  The
+    kernel is made an asynchronous launch that takes SLOW seconds on a
+    stand-in clock that moves only then: the patched wrapper returns at
+    once, and the first wait on the device moves the clock by SLOW, as a
+    synchronise waits for a queued kernel."""
+    from ccvm_tpu_torch.ops import langevin_kernels
+    from ccvm_tpu_torch.parallel import sweep as sweep_mod
+
+    slow = 0.5
+    clock = [1000.0]
+    events, pending = [], []
+    launch = langevin_kernels.langevin_solve
+
+    def queued(*args, **kwargs):
+        events.append("launch")
+        pending.append(slow)
+        return launch(*args, **kwargs)
+
+    def synchronize(x):
+        events.append("wait")
+        if pending:
+            clock[0] += pending.pop()
+
+    refine = sweep_mod._refine
+
+    def recorded_refine(*args):
+        events.append("refine")
+        return refine(*args)
+
+    monkeypatch.setattr(langevin_kernels, "langevin_solve", queued)
+    monkeypatch.setattr(sweep_mod, "_synchronize", synchronize)
+    monkeypatch.setattr(sweep_mod, "_refine", recorded_refine)
+    monkeypatch.setattr(sweep_mod, "time", types.SimpleNamespace(time=lambda: clock[0]))
+    solver = LangevinSolver(device="cpu", batch_size=BATCH, timing=timing)
+    solver.parameter_key = {N: dict(PARAMS["langevin"])}
+    swept = sweep_solve(solver, _instances(files), seed=0, post_processor="grad-descent")
+    assert events == ["launch", "wait", "refine", "wait"]
+    trajectories = len(files) * BATCH
+    assert swept[0].solve_time * trajectories == pytest.approx(slow)
+    assert swept[0].pp_time == 0.0
 
 
 def test_cuda_without_a_card_raises(monkeypatch, files):
