@@ -91,7 +91,7 @@
 // loads Q once per warp), and a persistent schedule if the last wave's 12%
 // idle share comes to matter.
 //
-// Two build flags of the tensor-core design serve the façades' evolution
+// Three build flags of the tensor-core design serve the façades' evolution
 // sampling and per-variable S (the solvers never set them for a whole solve
 // with a scalar S, whose code they leave as it is):
 //   * CCVM_SEG 1, a segment launch (ccvm_common.cuh Segment): the state c, s
@@ -104,8 +104,22 @@
 //     > 1, where the drift's S_d = sqrt(pump-1) is a scalar), 2 also into
 //     the drift (pump <= 1, S_d = S_j): x of k-tile kt is z*span/S_k, the
 //     feedback of column j is scaled by 0.25*span/S_j and g3_j =
-//     V_j*span/(2 S_j), each per-column factor read from shared memory.
-// The CUDA-core design (MMA = 0, the race row) takes neither.
+//     V_j*span/(2 S_j), each per-column factor read from shared memory;
+//   * CCVM_ELEM 1 (with CCVM_COLS), a per-element S: cols is the wrapper's
+//     (2 + I, rows, NP) array on the card (rows the batch padded to whole
+//     blocks, columns to NP): S_ij and span/S_ij, which every instance of a
+//     stacked launch reads, then each instance's feedback offsets, which
+//     the kernel writes itself before its step loop (the per-column
+//     offset's expression, feedback_offset, with the element's S: a
+//     division an element that the step loop then does not take).  COLS 1
+//     reads S_ij in the final clamp only; COLS 2 also reads span/S_ij for
+//     x in the mma's A fragments (a float2 a k-tile), and again with the
+//     offsets in the element step, where 0.25 span/S_ij is 0.25 times it
+//     (exact), all from global memory (L2): the lane's 2 NT elements of
+//     the three would take 54 registers at N=70 beside the 36 of the
+//     accumulators, and DL-Adam's shared memory is full.  So equal rows give
+//     the per-column build's result bit for bit.
+// The CUDA-core design (MMA = 0, the race row) takes none of them.
 //
 // Philox, the Wiener transforms, the clip and the CUDA-core launch shape are
 // shared with the other kernels through ccvm_common.cuh.  Specialisations
@@ -262,7 +276,8 @@ __host__ __device__ constexpr int own_float4s(int nt, bool adam) {
 
 // Shared-memory floats of the tensor-core block: Q's fragments (hi, hi, lo,
 // lo per lane), the per-column offsets (and with a per-column S_d the
-// per-column x and feedback scales), and each lane's own float4s.
+// per-column x and feedback scales; with a per-element one, the columns'
+// (u+l) Q sums and V), and each lane's own float4s.
 __host__ __device__ constexpr long long mma_smem_floats(int nt, int warps,
                                                         bool adam, int cols) {
   return 4LL * nt * nt * 32 + 8LL * nt * (cols == 2 ? 3 : 1) +
@@ -279,11 +294,21 @@ __device__ __forceinline__ unsigned lane_row(unsigned& ln) {
   return bx * (blockDim.x / 4) + (tx >> 5) * 8 + (ln >> 2);
 }
 
+// The feedback's offset of a column (of an element, with a per-element S):
+// fbscale = 0.25 span/S_d times (u+l) times Q's column sum (midsum), plus
+// g3 = V span/(2 S_d).  Every build takes it by this expression, so that
+// equal S_d give equal offsets.
+__device__ __forceinline__ float feedback_offset(float fbscale, float midsum, float vj,
+                                                 float s_d, const DLScalars& p) {
+  return fbscale * midsum + vj * (p.hi - p.lo) / (2.0f * s_d);
+}
+
 // acc[j] = (x_c @ Q, x_s @ Q) at the lane's columns of n-tile j: k-tile kt's
 // A fragments are built from the lane's state z_of(kt) (its own
 // accumulator-layout tile), split into TF32 hi and lo; each Q fragment is one
 // 16-byte load (hi, hi, lo, lo).
-// With COLS == 2 the x scale is the column's, xsc[8kt+2t+h].
+// With COLS == 2 the x scale is the column's, xsc[8kt+2t+h] (with a
+// per-element S, xsc is the lane's row of span/S_ij in global memory).
 template <int NT, int COLS, class ZOf>
 __device__ __forceinline__ void matvec(float (&acc)[NT][4],
                                        const float4* __restrict__ qf, int lane,
@@ -315,17 +340,17 @@ __device__ __forceinline__ void matvec(float (&acc)[NT][4],
 }
 
 template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG,
-          int NT, int COLS, bool SEG>
+          int NT, int COLS, bool SEG, bool ELEM>
 __device__ __forceinline__ void dl_mma_body(
     const float* __restrict__ q, const float* __restrict__ v,
     const float4* __restrict__ steps, float* __restrict__ c_out,
     float* __restrict__ s_out, int batch, int n, int iterations,
-    unsigned long long seed, const DLScalars& p, const float* __restrict__ cols,
+    unsigned long long seed, const DLScalars& p, float* __restrict__ cols,
     const Segment& sg, float* smem) {
   constexpr int NP = 8 * NT;
   float4* qf = reinterpret_cast<float4*>(smem);  // (k-tile, n-tile, lane)
-  float* offs = smem + 4 * NT * NT * 32;         // (NP)
-  float* xsc = offs + NP;                        // COLS == 2: (NP) span/S_j
+  float* offs = smem + 4 * NT * NT * 32;         // (NP); ELEM: (u+l) colsum
+  float* xsc = offs + NP;                        // COLS == 2: (NP) span/S_j; ELEM: V
   float* fbs = xsc + NP;                         // COLS == 2: (NP) 0.25 span/S_j
   float4* own = reinterpret_cast<float4*>(offs + (COLS == 2 ? 3 : 1) * NP);
 
@@ -334,6 +359,10 @@ __device__ __forceinline__ void dl_mma_body(
   const int lane = tid & 31, warp = tid >> 5;
   const int odd = lane & 1;
   const int row0 = blockIdx.x * (blockDim.x / 4) + warp * 8;  // 8 per warp
+  // ELEM: the (rows, NP) arrays of cols, S_ij, span/S_ij, then the
+  // instances' offsets.
+  const size_t elem_rows = (size_t)gridDim.x * (blockDim.x / 4) * NP;
+  float* elem_off = cols + (2 + (size_t)inst) * elem_rows;
 
   // Q's B fragments with k permuted: slot t is row 8kt+2t, slot t+4 row
   // 8kt+2t+1; zero-padded to NP x NP.
@@ -355,11 +384,16 @@ __device__ __forceinline__ void dl_mma_body(
   for (int j = tid; j < NP; j += blockDim.x) {
     float colsum = 0.0f;
     for (int k = 0; k < n && j < n; ++k) colsum += qi[k * n + j];
+    const float midsum = p.mid * colsum;
+    const float vj = j < n ? v[(size_t)inst * n + j] : 0.0f;
+    if (ELEM && COLS == 2) {
+      offs[j] = j < n ? midsum : 0.0f;
+      xsc[j] = vj;
+      continue;
+    }
     const float s_d = COLS == 2 && j < n ? cols[j] : p.S_d;
     const float fbscale = COLS == 2 && j < n ? cols[2 * n + j] : p.fbscale;
-    offs[j] = j < n ? fbscale * (p.mid * colsum) +
-                          v[(size_t)inst * n + j] * (p.hi - p.lo) / (2.0f * s_d)
-                    : 0.0f;
+    offs[j] = j < n ? feedback_offset(fbscale, midsum, vj, s_d, p) : 0.0f;
     if (COLS == 2) {
       xsc[j] = j < n ? cols[n + j] : 0.0f;
       fbs[j] = fbscale;
@@ -367,6 +401,20 @@ __device__ __forceinline__ void dl_mma_body(
   }
   __syncthreads();  // the block's only barrier
   if (row0 >= batch) return;  // whole warps only: no later barrier
+  if (ELEM && COLS == 2) {
+    // The lane's offsets, at its row and columns 8j+2t+h, with S_d = S_ij
+    // and 0.25 span/S_ij; each lane reads back only its own.
+    const size_t e = (size_t)(row0 + (lane >> 2)) * NP + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 8 * j + 2 * (lane & 3) + h;
+        elem_off[e + 8 * j + h] =
+            feedback_offset(0.25f * __ldg(cols + elem_rows + e + 8 * j + h), offs[col],
+                            xsc[col], __ldg(cols + e + 8 * j + h), p);
+      }
+  }
 
   // The state of n-tile j, z = (c h=0, c h=1, s h=0, s h=1) at columns
   // 8j+2t+h: in registers (zr) for the first kReg n-tiles, else in shared
@@ -413,7 +461,13 @@ __device__ __forceinline__ void dl_mma_body(
 
   for (int i = 0; i < iterations; ++i) {
     float acc[NT][4];
-    matvec<NT, COLS>(acc, qf, lane, p, xsc, z_of);
+    if (ELEM && COLS == 2) {
+      unsigned lm;
+      const unsigned row_m = lane_row(lm);
+      matvec<NT, COLS>(acc, qf, lane, p, cols + elem_rows + (size_t)row_m * NP, z_of);
+    } else {
+      matvec<NT, COLS>(acc, qf, lane, p, xsc, z_of);
+    }
     const StepScalars st = step_scalars<ADAM>(steps, i);
 
     constexpr int NS = streams_of(RNG);
@@ -457,9 +511,17 @@ __device__ __forceinline__ void dl_mma_body(
           m4 = my[(kMom + j) * 32];
           if (!BETA2_ONE) v4 = my[(kMom + NT + j) * 32];
         }
-        const float2 off = *reinterpret_cast<const float2*>(offs + 8 * j + 2 * (ln & 3));
-        float2 fb = make_float2(p.fbscale, p.fbscale);
-        if (COLS == 2) fb = *reinterpret_cast<const float2*>(fbs + 8 * j + 2 * (ln & 3));
+        float2 off, fb = make_float2(p.fbscale, p.fbscale);
+        if (ELEM && COLS == 2) {
+          // The element's offset and 0.25 span/S_ij.
+          const size_t e = (size_t)row_i * NP + 8 * j + 2 * (ln & 3);
+          off = *reinterpret_cast<const float2*>(elem_off + e);
+          const float2 xs = __ldg(reinterpret_cast<const float2*>(cols + elem_rows + e));
+          fb = make_float2(0.25f * xs.x, 0.25f * xs.y);
+        } else {
+          off = *reinterpret_cast<const float2*>(offs + 8 * j + 2 * (ln & 3));
+          if (COLS == 2) fb = *reinterpret_cast<const float2*>(fbs + 8 * j + 2 * (ln & 3));
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float z1 = 0.0f, z2 = 0.0f;
@@ -502,7 +564,7 @@ __device__ __forceinline__ void dl_mma_body(
       const int col = 8 * j + 2 * (ln & 3) + h;
       if (col < n) {
         const float c = h ? z.y : z.x;
-        const float S = COLS ? cols[col] : p.S;
+        const float S = ELEM ? cols[(size_t)row * NP + col] : COLS ? cols[col] : p.S;
         if (SEG) {
           c_out[base + col] = c;
           if (sg.clamped != nullptr) sg.clamped[base + col] = clip(c, S);
@@ -663,18 +725,19 @@ __device__ __forceinline__ void dl_core_body(
 }
 
 template <bool MMA, int NT, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN,
-          bool NOISE, int RNG, int COLS, bool SEG>
+          bool NOISE, int RNG, int COLS, bool SEG, bool ELEM>
 __global__ void __launch_bounds__(Bounds<MMA, ADAM>::kThreads,
                                   Bounds<MMA, ADAM>::kBlocks)
 dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                 const float4* __restrict__ steps, float* __restrict__ c_out,
                 float* __restrict__ s_out, int batch, int n, int iterations,
-                unsigned long long seed, DLScalars p, const float* __restrict__ cols,
+                unsigned long long seed, DLScalars p, float* __restrict__ cols,
                 Segment sg) {
   extern __shared__ __align__(16) float smem[];
   static_assert(MMA || (COLS == 0 && !SEG), "the CUDA-core design takes neither flag");
+  static_assert(!ELEM || COLS, "a per-element S is a build of the per-column one");
   if constexpr (MMA)
-    dl_mma_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG, NT, COLS, SEG>(
+    dl_mma_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG, NT, COLS, SEG, ELEM>(
         q, v, steps, c_out, s_out, batch, n, iterations, seed, p, cols, sg, smem);
   else
     dl_core_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG>(
@@ -710,6 +773,9 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_SEG
 #define CCVM_SEG 0
 #endif
+#ifndef CCVM_ELEM
+#define CCVM_ELEM 0
+#endif
 
 namespace {
 
@@ -722,7 +788,7 @@ static_assert(CCVM_COLS >= 0 && CCVM_COLS <= 2, "COLS: 0, 1 or 2");
 auto const kKernel =
     &dl_solve_kernel<kMma, (kMma ? CCVM_NT : 1), kAdam, CCVM_BETA2_ONE != 0,
                      CCVM_ADD_ASSIGN != 0,
-                     CCVM_NOISE != 0, CCVM_RNG, CCVM_COLS, kSeg>;
+                     CCVM_NOISE != 0, CCVM_RNG, CCVM_COLS, kSeg, CCVM_ELEM != 0>;
 
 // Threads and shared-memory bytes of a launch (ops/build.py
 // dl_launch_shape states the same rule); non-zero when this build does not
@@ -743,7 +809,9 @@ extern "C" {
 // q (I, n, n), v (I, n), steps (total, 8), c_out / s_out (I, batch, n):
 // float32, contiguous, on the device.  scalars: 20 host floats in DLScalars
 // order.  cols: the (3, n) per-column S_j, span/S_j, 0.25 span/S_j of a
-// CCVM_COLS build (else unused).  seg: a host Segment of a CCVM_SEG build
+// CCVM_COLS build; the (2 + num_instances, rows, NP) array of a CCVM_ELEM
+// one (S_ij and span/S_ij in, the kernel's offsets after them; rows: the
+// batch padded to whole blocks); else unused.  seg: a host Segment of a CCVM_SEG build
 // (state in c, s, m_c, v_c, m_s, v_s; moments out m_c, v_c, m_s, v_s), else
 // nullptr.  Launches on `stream`, does not synchronise, and returns the
 // cudaError_t of the launch.
@@ -769,7 +837,7 @@ int ccvm_dl_solve(const float* q, const float* v, const float* steps,
   const dim3 grid((batch + rows_per_block - 1) / rows_per_block, num_instances);
   kKernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(
       q, v, reinterpret_cast<const float4*>(steps + 8 * (size_t)sg.start), c_out, s_out,
-      batch, n, iterations, seed, p, cols, sg);
+      batch, n, iterations, seed, p, const_cast<float*>(cols), sg);
   return (int)cudaGetLastError();
 }
 

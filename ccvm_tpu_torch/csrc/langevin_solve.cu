@@ -79,8 +79,8 @@
 //     words its columns take (three at N=70, where four threads share the
 //     call of a stripe's column; at N=20, where every column is a stripe
 //     column, one call an element); the grid is (ceil(batch/R), instances).
-// Two build flags serve the façades' evolution sampling and per-variable S
-// (a whole solve with a scalar S sets neither, and its code is as above):
+// Three build flags serve the façades' evolution sampling and per-variable
+// S (a whole solve with a scalar S sets none, and its code is as above):
 //   * CCVM_SEG 1, a segment launch (ccvm_common.cuh Segment): c and Adam's
 //     two moments are read at the start (the second into its shared-memory
 //     slots) and the moments written back; the Philox counter is the
@@ -89,7 +89,17 @@
 //     in x and in the drift (and pumped's V scale) and the clamp to +-S_j,
 //     S_j and scale_j read from shared memory (two more floats a column
 //     there, where 18 more registers a thread would not fit beside the
-//     tile).
+//     tile);
+//   * CCVM_ELEM 1 (with CCVM_COLS), a per-element S: the wrapper's (2, rows,
+//     NP) array of S_ij and scale_ij = (u-l)/(2 S_ij) on the card (rows the
+//     batch padded to whole blocks, columns to NP; every instance of a
+//     stacked launch reads the same), read from global memory (L2 holds
+//     both arrays, 36.7 MB at batch 65536, N=70) where each step takes them:
+//     a thread's tile is 72 elements (Adam 36), whose S and scale would take
+//     144 (72) registers beside the tile's c and sums (234 at N=20 already),
+//     so none is kept in registers or shared memory.  Pumped's V scale_ij
+//     is the product the per-column build takes once, taken each step, so
+//     equal rows give the per-column build's result bit for bit.
 // Specialisations are chosen at build time with -D flags by
 // ccvm_tpu_torch/ops/build.py (the pump schedule is in the table, so one
 // library serves both); each build exports ccvm_langevin_solve and
@@ -218,7 +228,7 @@ __host__ __device__ inline int lgv_launch_shape(int n, bool adam, bool per_col,
 }
 
 template <bool PUMPED, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG,
-          int NP, bool COLS, bool SEG>
+          int NP, bool COLS, bool SEG, bool ELEM>
 __global__ void __launch_bounds__(kThreads, 2)
 langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                       const float4* __restrict__ steps, float* __restrict__ c_out,
@@ -246,24 +256,34 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     const int k = e / NP, j = e % NP;
     qs[e] = (k < n && j < n) ? qi[k * n + j] : 0.0f;
   }
-  if (COLS)
+  if (COLS && !ELEM)
     for (int j = tid; j < NP; j += kThreads) {
       s_col[j] = j < n ? cols[j] : 1.0f;
       s_col[NP + j] = j < n ? cols[n + j] : 0.0f;
     }
-  // The column's S and scale: the solve's, or (COLS) its own.
-  const auto S_of = [&](int jj) { return COLS ? s_col[Cols::col(cg, jj)] : p.S; };
-  const auto scale_of = [&](int jj) {
-    return COLS ? s_col[NP + Cols::col(cg, jj)] : p.scale;
+  // The S and scale of row r's column jj: the solve's, (COLS) the column's,
+  // or (ELEM) the element's, from the (2, rows, NP) array.
+  const size_t elem_rows = (size_t)gridDim.x * R * NP;
+  const auto elem = [&](int a, int r, int jj) {
+    return __ldg(cols + a * elem_rows + (size_t)(grow0 + r * kRowGroups) * NP +
+                 Cols::col(cg, jj));
+  };
+  const auto S_of = [&](int r, int jj) {
+    return ELEM ? elem(0, r, jj) : COLS ? s_col[Cols::col(cg, jj)] : p.S;
+  };
+  const auto scale_of = [&](int r, int jj) {
+    return ELEM ? elem(1, r, jj) : COLS ? s_col[NP + Cols::col(cg, jj)] : p.scale;
   };
   // Langevin adds V to x@Q before scaling; pumped scales it on its own, as
-  // the plain version's V * scale.
+  // the plain version's V * scale (ELEM: each step, by the element's).
   float vt[TC];
 #pragma unroll
   for (int jj = 0; jj < TC; ++jj) {
     const int j = Cols::col(cg, jj);
     const float vj = j < n ? v[(size_t)inst * n + j] : 0.0f;
-    vt[jj] = PUMPED ? __fmul_rn(vj, COLS ? (j < n ? cols[n + j] : 0.0f) : p.scale) : vj;
+    vt[jj] = PUMPED && !ELEM
+                 ? __fmul_rn(vj, COLS ? (j < n ? cols[n + j] : 0.0f) : p.scale)
+                 : vj;
   }
   const uint2 key = seed_key(seed, inst);
 
@@ -302,7 +322,8 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   for (int r = 0; r < TR; ++r)
 #pragma unroll
     for (int jj = 0; jj < TC; ++jj)
-      xbuf[(rg + r * kRowGroups) * ks + Cols::col(cg, jj)] = x_of(c[r][jj], scale_of(jj), p);
+      xbuf[(rg + r * kRowGroups) * ks + Cols::col(cg, jj)] =
+          x_of(c[r][jj], scale_of(r, jj), p);
   __syncthreads();  // Q and the first x rows are in place
 
   for (int i = 0; i < iterations; ++i) {
@@ -380,11 +401,12 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
         }
         float unused = 0.0f, v2 = 0.0f;
         if (ADAM && !BETA2_ONE) v2 = m2(r, jj);
+        const float sc = scale_of(r, jj);
         c[r][jj] = element_step<PUMPED, ADAM, BETA2_ONE, ADD_ASSIGN, NOISE>(
-            c[r][jj], acc[r][jj], vt[jj], scale_of(jj), S_of(jj), w,
-            ADAM ? m1[ADAM ? r : 0][jj] : unused, v2, st, p);
+            c[r][jj], acc[r][jj], PUMPED && ELEM ? __fmul_rn(vt[jj], sc) : vt[jj], sc,
+            S_of(r, jj), w, ADAM ? m1[ADAM ? r : 0][jj] : unused, v2, st, p);
         if (ADAM && !BETA2_ONE) m2(r, jj) = v2;
-        xr[jj] = x_of(c[r][jj], scale_of(jj), p);
+        xr[jj] = x_of(c[r][jj], sc, p);
       }
       float* xw = xn + (rg + r * kRowGroups) * ks;
 #pragma unroll
@@ -446,18 +468,23 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_SEG
 #define CCVM_SEG 0
 #endif
+#ifndef CCVM_ELEM
+#define CCVM_ELEM 0
+#endif
 
 namespace {
 
 constexpr bool kAdam = CCVM_ADAM != 0;
 constexpr bool kCols = CCVM_COLS != 0;
 constexpr bool kSeg = CCVM_SEG != 0;
+constexpr bool kElem = CCVM_ELEM != 0;
+static_assert(!kElem || kCols, "a per-element S is a build of the per-column one");
 static_assert(CCVM_NP % kGroups == 0 && CCVM_NP >= kGroups && CCVM_NP <= kGroups * kMaxCols,
               "NP: N padded to a multiple of 8, at most 128");
 auto const kKernel =
     &langevin_solve_kernel<CCVM_PUMPED != 0, kAdam, CCVM_BETA2_ONE != 0,
                            CCVM_ADD_ASSIGN != 0, CCVM_NOISE != 0, CCVM_RNG, CCVM_NP,
-                           kCols, kSeg>;
+                           kCols, kSeg, kElem>;
 
 // lgv_launch_shape for this build's problem size class.
 int launch_shape(int n, int* threads, int* rows, long long* smem) {
@@ -471,8 +498,9 @@ extern "C" {
 
 // q (I, n, n), v (I, n), steps (total, 8), c_out (I, batch, n): float32,
 // contiguous, on the device.  scalars: 13 host floats in LangevinScalars
-// order.  cols: the (2, n) per-column S_j and scale_j of a CCVM_COLS build
-// (else unused).  seg: a host Segment of a CCVM_SEG build (state in c, m, v;
+// order.  cols: the (2, n) per-column S_j and scale_j of a CCVM_COLS build,
+// the (2, rows, NP) S_ij and scale_ij of a CCVM_ELEM one (rows: the batch
+// padded to whole blocks), else unused.  seg: a host Segment of a CCVM_SEG build (state in c, m, v;
 // moments out m, v), else nullptr.  Launches on `stream`, does not
 // synchronise, and returns the cudaError_t of the launch.
 int ccvm_langevin_solve(const float* q, const float* v, const float* steps,

@@ -81,18 +81,34 @@
 //   * noise: the Philox4x32-10 of ccvm_common.cuh, key = seed + instance,
 //     counter = (step, row, column/4, stream); the grid is
 //     (ceil(batch/R), instances).
-// Two build flags serve the façades' evolution sampling and per-variable S
-// (a whole solve with a scalar S sets neither, and its code is as above):
+// Three build flags serve the façades' evolution sampling and per-variable
+// S (a whole solve with a scalar S sets none, and its code is as above):
 //   * CCVM_SEG 1, a segment launch (ccvm_common.cuh Segment): mu, sigma and
 //     Adam's two moments are read at the start and the moments written
 //     back; the Philox counter is the absolute step, and mt_out is written
 //     by the solve's last step only (so by its last segment);
-//   * CCVM_COLS 1, a per-column S (an (n,) vector in shared memory): the
-//     clamp of mt, x = mt_c span / S_j + (u+l), the feedback's division by
-//     S_j and V span / (2 S_j) take the column's S.  Its divisions are the
-//     IEEE ones (__fdiv_rn), as the plain version's: div_rn is exact for a
-//     divisor known ahead with its reciprocal rounded to nearest, which the
-//     tests prove only for the scalar S's they emulate.
+//   * CCVM_COLS 1, a per-column S: S_j and its reciprocal inv_j = 1/S_j
+//     rounded to nearest (taken by the wrapper with the plain version's
+//     float32 division, a (2, n) array) in shared memory.  The clamp of mt
+//     takes S_j; x = mt_c span / S_j + (u+l), the feedback's division by S_j
+//     and V span / (2 S_j) are div_rn's, by S_j with inv_j (2 S_j with
+//     inv_j / 2, the same quotient's significand), as the scalar S's are.
+//     div_rn rounds as the IEEE division for every dividend where
+//     tests/test_torch_mf_redesign.py's emulation proves it per divisor
+//     (S_j of the per-variable tests and of chip_smoke.py's phases 12 and
+//     15, S = 20 and 130); for any other divisor the build is held against
+//     the plain version at chip_smoke.py's 1e-4.  (__fdiv_rn's slow-path
+//     call spills at 96 registers.);
+//   * CCVM_ELEM 1 (with CCVM_COLS), a per-element S: the wrapper's (2,
+//     rows, NP) array of S_ij and inv_ij on the card (rows the batch padded
+//     to whole blocks, columns to NP; every instance of a stacked launch
+//     reads the same), read from global memory (L2) where the step takes
+//     them, a float4 of each a row in each of the step's two phases: a
+//     thread's 16 elements of both would take 32 of its 96 registers.  The
+//     V term V_j span / (2 S_ij) is taken each step from V_j span (shared
+//     memory) by div_rn, as the per-column build takes it once.  Every
+//     division is div_rn, so equal rows give the per-column build's result
+//     bit for bit.
 // Specialisations are chosen at build time with -D flags by
 // ccvm_tpu_torch/ops/build.py; each build exports ccvm_mf_solve and
 // ccvm_mf_blocks_per_sm.
@@ -201,8 +217,9 @@ __host__ __device__ constexpr int x_buffers(bool adam) {
 
 // The launch rule (ops/build.py mf_launch_shape states the same): threads,
 // trajectories a block and shared-memory bytes; non-zero when N does not
-// fit.  Shared memory: Q (NP x NP), the per-column V term (and S_j), the x
-// buffers of R rows of stride NP + 4, and each thread's own float4s.
+// fit.  Shared memory: Q (NP x NP), the per-column V term (and S_j and
+// inv_j), the x buffers of R rows of stride NP + 4, and each thread's own
+// float4s.
 __host__ __device__ inline int mf_launch_shape(int n, bool adam, bool cols, int* threads,
                                                int* rows, long long* smem) {
   const int np = (n + TC - 1) / TC * TC;
@@ -211,14 +228,14 @@ __host__ __device__ inline int mf_launch_shape(int n, bool adam, bool cols, int*
                                         ? kThreads / groups : kMaxRowGroups) : 0;
   *threads = groups * rgroups;
   *rows = rgroups * TR;
-  *smem = 4LL * ((long long)np * np + (cols ? 2 : 1) * np +
+  *smem = 4LL * ((long long)np * np + (cols ? 3 : 1) * np +
                  (long long)x_buffers(adam) * *rows * (np + 4)) +
           16LL * own_slots(adam) * *threads;
   return (n >= 1 && rgroups >= 1 && *smem <= 232448) ? 0 : 1;
 }
 
 template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG, int NP,
-          bool COLS, bool SEG>
+          bool COLS, bool SEG, bool ELEM>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                 const float4* __restrict__ steps, float* __restrict__ mu_out,
@@ -232,9 +249,9 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   constexpr int kXBufs = x_buffers(ADAM);
   const int R = blockDim.x / groups * TR;
   float* qs = smem;            // (np, np), zero-padded
-  float* vterm = qs + np * np;  // (np): -V (u-l) / (2S)
-  float* scol = vterm + np;     // COLS: (np) S_j, 1 beyond n
-  float* xbuf = scol + (COLS ? np : 0);  // kXBufs (R, ks) buffers
+  float* vterm = qs + np * np;  // (np): -V (u-l) / (2S); ELEM: -V (u-l)
+  float* scol = vterm + np;     // COLS: (np) S_j, then (np) inv_j; 1 beyond n
+  float* xbuf = scol + (COLS ? 2 * np : 0);  // kXBufs (R, ks) buffers
   // Each thread's own float4s, (slot, thread): sigma of its four rows, then
   // Adam's first moments, second moments and mu of each row.
   float4* own = reinterpret_cast<float4*>(xbuf + kXBufs * R * ks);
@@ -253,14 +270,28 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     const int k = e / np, j = e % np;
     qs[e] = (k < n && j < n) ? qi[k * n + j] : 0.0f;
   }
-  // The plain version's -V * span / (2 S), one IEEE division per column.
+  // The plain version's -V * span / (2 S), one division per column: IEEE,
+  // or (COLS) div_rn by 2 S_j with inv_j / 2; ELEM keeps -V * span, the
+  // dividend of each element's.
   for (int j = tid; j < np; j += blockDim.x) {
-    const float S = COLS ? (j < n ? cols[j] : 1.0f) : p.S;
-    vterm[j] = j < n ? __fdiv_rn(__fmul_rn(-v[(size_t)inst * n + j], p.span),
-                                 __fmul_rn(2.0f, S))
-                     : 0.0f;
-    if (COLS) scol[j] = S;
+    const bool in = j < n;
+    const float vs = in ? __fmul_rn(-v[(size_t)inst * n + j], p.span) : 0.0f;
+    if (COLS && !ELEM) {
+      const float S = in ? cols[j] : 1.0f, inv = in ? cols[n + j] : 1.0f;
+      vterm[j] = div_rn(vs, __fmul_rn(2.0f, S), __fmul_rn(0.5f, inv));
+      scol[j] = S;
+      scol[np + j] = inv;
+    } else {
+      vterm[j] = ELEM ? vs : __fdiv_rn(vs, __fmul_rn(2.0f, p.S));
+    }
   }
+  // ELEM: row `row`'s S_ij and inv_ij at the tile's four columns, from the
+  // (2, rows, NP) array.
+  const size_t elem_rows = (size_t)gridDim.x * R * np;
+  const auto elem4 = [&](int a, int row) {
+    return __ldg(reinterpret_cast<const float4*>(cols + a * elem_rows + (size_t)row * np +
+                                                 col0));
+  };
 #pragma unroll
   for (int s = 0; s < own_slots(ADAM); ++s)
     own[s * bd + tid] = s < TR ? make_float4(0.5f, 0.5f, 0.5f, 0.5f)
@@ -311,10 +342,17 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 
     // The step's draws, mt and x rows (padding columns meet zero rows of Q).
     Draws<RNG> dr;
-    float4 s4 = make_float4(p.S, p.S, p.S, p.S);
-    if (COLS) s4 = *reinterpret_cast<const float4*>(scol + col0);
+    float4 s4 = make_float4(p.S, p.S, p.S, p.S), i4 = s4;
+    if (COLS && !ELEM) {
+      s4 = *reinterpret_cast<const float4*>(scol + col0);
+      i4 = *reinterpret_cast<const float4*>(scol + np + col0);
+    }
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
+      if (ELEM) {
+        s4 = elem4(0, grow0 + r);
+        i4 = elem4(1, grow0 + r);
+      }
       if (NOISE) {
         constexpr int NS = streams_one_of(RNG);
         uint4 wv[NS];
@@ -348,7 +386,7 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
           if (row < batch && j < n)
             mt_out[((size_t)inst * batch + row) * n + j] = mt_c;
         }
-        x[jj] = __fadd_rn(COLS ? __fdiv_rn(__fmul_rn(mt_c, p.span), comp(s4, jj))
+        x[jj] = __fadd_rn(COLS ? div_rn(__fmul_rn(mt_c, p.span), comp(s4, jj), comp(i4, jj))
                                : div_rn(__fmul_rn(mt_c, p.span), p.S, p.inv_S),
                           p.mid);
       }
@@ -389,9 +427,16 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
     float vt[TC];
 #pragma unroll
     for (int jj = 0; jj < TC; ++jj) vt[jj] = vterm[col0 + jj];
-    if (COLS) s4 = *reinterpret_cast<const float4*>(scol + col0);
+    if (COLS && !ELEM) {
+      s4 = *reinterpret_cast<const float4*>(scol + col0);
+      i4 = *reinterpret_cast<const float4*>(scol + np + col0);
+    }
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
+      if (ELEM) {
+        s4 = elem4(0, grow0 + r);
+        i4 = elem4(1, grow0 + r);
+      }
       float4 mu4 = mu_row(r), sg4 = own[r * bd + tid];
       float4 m4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v4 = m4;
       if (ADAM) {
@@ -406,10 +451,10 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
         const float mu_pow = __fmul_rn(m, m);
         // fb = (-0.25 qx) (u-l) / S + vterm; -0.25 qx and -0.25 (u-l) are
         // exact, so qx (-0.25 (u-l)) rounds as the plain version's product.
+        const float S = COLS ? comp(s4, jj) : p.S, inv = COLS ? comp(i4, jj) : p.inv_S;
         const float fb = __fadd_rn(
-            COLS ? __fdiv_rn(__fmul_rn(qx[r][jj], p.fbspan), comp(s4, jj))
-                 : div_rn(__fmul_rn(qx[r][jj], p.fbspan), p.S, p.inv_S),
-            vt[jj]);
+            div_rn(__fmul_rn(qx[r][jj], p.fbspan), S, inv),
+            ELEM ? div_rn(vt[jj], __fmul_rn(2.0f, S), __fmul_rn(0.5f, inv)) : vt[jj]);
         const float sd = __fsub_rn(sg, 0.5f);
         const float mu_term1 =
             __fmul_rn(__fsub_rn(st.k1, __fmul_rn(p.g_sq, mu_pow)), m);
@@ -506,15 +551,21 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_SEG
 #define CCVM_SEG 0
 #endif
+#ifndef CCVM_ELEM
+#define CCVM_ELEM 0
+#endif
 
 namespace {
 
 constexpr bool kAdam = CCVM_ADAM != 0;
 constexpr bool kCols = CCVM_COLS != 0;
 constexpr bool kSeg = CCVM_SEG != 0;
+constexpr bool kElem = CCVM_ELEM != 0;
 static_assert(CCVM_NP % TC == 0 && CCVM_NP >= TC, "NP: N padded to a multiple of 4");
+static_assert(!kElem || kCols, "a per-element S is a build of the per-column one");
 auto const kKernel = &mf_solve_kernel<kAdam, CCVM_BETA2_ONE != 0, CCVM_ADD_ASSIGN != 0,
-                                      CCVM_NOISE != 0, CCVM_RNG, CCVM_NP, kCols, kSeg>;
+                                      CCVM_NOISE != 0, CCVM_RNG, CCVM_NP, kCols, kSeg,
+                                      kElem>;
 
 // mf_launch_shape for this build's problem size class.
 int launch_shape(int n, int* threads, int* rows, long long* smem) {
@@ -530,7 +581,9 @@ extern "C" {
 // (I, batch, n): float32, contiguous, on the device; mt_out is written by
 // the solve's last step only (left as it is when iterations is 0, or by a
 // segment that ends earlier).  scalars: 24 host floats in MFScalars order.
-// cols: the (n,) S of a CCVM_COLS build (else unused).  seg: a host Segment
+// cols: the (2, n) S_j and inv_j of a CCVM_COLS build, the (2, rows, NP)
+// S_ij and inv_ij of a CCVM_ELEM one (rows: the batch padded to whole
+// blocks), else unused.  seg: a host Segment
 // of a CCVM_SEG build (state in mu, sigma, m, v; moments out m, v), else
 // nullptr.  Launches on `stream`, does not synchronise, and returns the
 // cudaError_t of the launch.

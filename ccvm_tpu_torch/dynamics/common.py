@@ -60,15 +60,15 @@ def adam_moment_update(grads, m, v, i, hp: AdamHyperparameters):
 
 def float32_scalars(p, device):
     """A parameter tuple with each field as a float32 tensor on ``device``:
-    0-dim, or (n,) for a per-column ``S`` (a tuple of floats, or an
-    array); an unset
-    (None) field stays None.  So the plain solves round their scalar
-    arithmetic as the CUDA kernels do."""
+    0-dim, or for ``S`` (n,) one a column (a tuple of floats, or an array)
+    or (batch, n) one an element (a tensor or an array); an unset (None)
+    field stays None.  So the plain solves round their scalar arithmetic as
+    the CUDA kernels do."""
     def f32(x):
         if x is None:
             return None
-        if np.ndim(x) == 1:
-            return torch.tensor(np.asarray(x, np.float32), device=device)
+        if np.ndim(x) >= 1:
+            return saturation_tensor(x, device)
         return torch.tensor(float(x), dtype=torch.float32, device=device)
 
     return type(p)(*(f32(x) for x in p))
@@ -76,12 +76,24 @@ def float32_scalars(p, device):
 
 def saturation(S):
     """A parameter tuple's ``S`` field from a scalar or a per-variable S: a
-    float holding a float32 value, or a tuple of them (one per column).
-    The JAX façades broadcast a 1-D S to (batch, n) with equal rows, so a
-    per-variable S is one value a column."""
+    float holding a float32 value; one value a column, a tuple of them
+    (the JAX façades broadcast a 1-D S to (batch, n) with equal rows); or a
+    (batch, n) S, a float32 tensor (on the device it was given on; an array
+    goes to the CPU), never a tuple of batch x n floats."""
     if isinstance(S, tuple) or np.ndim(S) == 1:
+        if isinstance(S, torch.Tensor):
+            S = S.cpu().numpy()
         return tuple(float(x) for x in np.asarray(S, np.float32))
+    if np.ndim(S) == 2:
+        return saturation_tensor(S, S.device if isinstance(S, torch.Tensor) else "cpu")
     return float(np.float32(S))
+
+
+def saturation_tensor(S, device):
+    """``S`` (a scalar, a tuple, an array or a tensor) as a contiguous
+    float32 tensor on ``device``: 0-dim, (n,) or (batch, n); a float32
+    tensor already there is returned as it is."""
+    return torch.as_tensor(S, dtype=torch.float32, device=device).contiguous()
 
 
 def dense_matvec(x, q_matrix):

@@ -16,8 +16,8 @@ Two-quadrature pump-saturated SDE (reference ``dl_solver.py:117-172``,
     s          += dt*s_drift + diff * sqrt(dt)/nr_i * w_s
 Final c is clamped to the *original* +-S only after the loop (``:567``).
 
-``S`` is a scalar or one value a column (the JAX façades' 1-D S, broadcast
-over the batch); the pump ramp generalises to rate(i) = min((i+1)/T /
+``S`` is a scalar, one value a column (the JAX façades' 1-D S, broadcast
+over the batch) or a (batch, n) tensor, one an element; the pump ramp generalises to rate(i) = min((i+1)/T /
 fraction, 1)^power (the JAX ``pump_ramp``, ``ccvm_tpu/dynamics/dl.py``).
 
 All scalar arithmetic runs on float32 0-dim tensors on the state's device,
@@ -39,7 +39,7 @@ from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 class DLParams(NamedTuple):
     """Per-solve parameters (``dl_solver.py:96-115`` + call args), each a
     Python float holding a float32 value; ``S`` may be a tuple of them, one
-    a column.  ``ramp_power`` / ``ramp_fraction`` (both None: the
+    a column, or a (batch, n) float32 tensor.  ``ramp_power`` / ``ramp_fraction`` (both None: the
     reference's linear ramp) are the JAX ``DLParams``' generalised ramp."""
 
     pump: float

@@ -16,8 +16,9 @@ The operation order is the fused kernel's (``pallas_kernels.py:508-514``),
 the two differ by float32 round-off only.  All scalar arithmetic runs on
 float32 0-dim tensors on the state's device, so the plain solve rounds as
 the CUDA kernel does.  The step functions take the standard-normal draw
-``w`` as an argument.  ``S`` is a scalar or one value a column (the JAX
-façades' 1-D S, broadcast over the batch).
+``w`` as an argument.  ``S`` is a scalar, one value a column (the JAX
+façades' 1-D S, broadcast over the batch) or a (batch, n) tensor, one an
+element.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 class LangevinParams(NamedTuple):
     """Per-solve parameters (reference parameter_key keys
     ``langevin_solver.py:96-115`` plus the box bounds), each a Python float
-    holding a float32 value; ``S`` may be a tuple of them, one a column."""
+    holding a float32 value; ``S`` may be a tuple of them, one a column, or
+    a (batch, n) float32 tensor."""
 
     S: float
     dt: float

@@ -21,15 +21,15 @@ one iteration, and the readout is the mu_tilde of the **last** iteration
 
 All scalar arithmetic runs on float32 0-dim tensors on the state's device,
 so the plain solve rounds as the CUDA kernel does.  The step functions take
-the standard-normal draw ``w`` as an argument.  ``S`` is a scalar or one
-value a column (the JAX façades' 1-D S, broadcast over the batch).
+the standard-normal draw ``w`` as an argument.  ``S`` is a scalar, one
+value a column (the JAX façades' 1-D S, broadcast over the batch) or a
+(batch, n) tensor, one an element (broadcast over a stack's instances).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ccvm_tpu_torch.dynamics import common
@@ -44,7 +44,7 @@ MF_SAFETY_BOUND = 1.0e5
 class MFParams(NamedTuple):
     """Per-solve parameters (``mf_solver.py:120-139`` + call args), each a
     Python float holding a float32 value; ``S`` may be a tuple of them, one
-    a column."""
+    a column, or a (batch, n) float32 tensor."""
 
     pump: float
     S: float
@@ -205,8 +205,9 @@ def advance(q_matrix, v_vector, params: MFParams, state, start, num, *,
 
 
 def clamp_readout(mu_tilde, params: MFParams):
-    """The readout mu_tilde clamped to +-S (one S a column, or the one)."""
-    S = torch.as_tensor(np.asarray(params.S, np.float32), device=mu_tilde.device)
+    """The readout mu_tilde clamped to +-S (the one, one a column or one an
+    element)."""
+    S = common.saturation_tensor(params.S, mu_tilde.device)
     return torch.clamp(mu_tilde, -S, S)
 
 

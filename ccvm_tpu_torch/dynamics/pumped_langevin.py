@@ -33,7 +33,7 @@ from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
 class PumpedLangevinParams(NamedTuple):
     """Per-solve parameters (``pumped_langevin_solver.py:74-93``), each a
     Python float holding a float32 value; ``S`` may be a tuple of them, one
-    a column."""
+    a column, or a (batch, n) float32 tensor."""
 
     pump: float
     S: float

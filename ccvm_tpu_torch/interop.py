@@ -6,9 +6,10 @@ Tests build both frameworks' objects from the same numbers: a JAX
 ``MFParams``, ``LangevinParams``, ``PumpedLangevinParams`` or
 ``AdamHyperparameters`` become the port's counterparts, for the three solver
 families ported (DL, MF, and Langevin with pumped Langevin): S a scalar, an
-(n,) vector or the JAX façades' (batch, n) S with equal rows, and DL's
-generalised pump ramp.  This module takes NumPy arrays and plain values
-only and imports nothing of the JAX package.
+(n,) vector or a (batch, n) S (equal rows, as the JAX façades make a 1-D S,
+or rows that differ), and DL's generalised pump ramp.  This module takes
+NumPy arrays and plain values only and imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -47,14 +48,13 @@ def instance_from_numpy(q64, v64, meta, scaled_by=1.0, solution_bounds=(0.0, 1.0
 
 def _saturation(S):
     """A JAX parameter tuple's S as the port's: a scalar, an (n,) S, or a
-    (batch, n) S with equal rows (the JAX façades' ``np.outer(ones(batch),
-    S)``), which is its row; rows that differ are refused."""
-    S = np.asarray(S, np.float32)
-    if S.ndim == 2:
-        if not (S == S[:1]).all():
-            raise ValueError("a (batch, n) S must have equal rows in this port")
+    (batch, n) S: with equal rows (the JAX façades' ``np.outer(ones(batch),
+    S)``) its row, as the port's façades take it; with rows that differ a
+    float32 tensor on the CPU (``dynamics/common.saturation``)."""
+    S = np.array(S, np.float32)
+    if S.ndim == 2 and (S == S[:1]).all():
         S = S[0]
-    if S.ndim > 1:
+    if S.ndim > 2:
         raise ValueError(f"S must be a scalar, (n,) or (batch, n), got {S.shape}")
     return saturation(S)
 

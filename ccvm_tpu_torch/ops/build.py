@@ -40,9 +40,9 @@ _MAX_ROW_GROUPS = 16  # at most 64 trajectories per block
 
 
 # Fields of the solve kernels' specs that select a build for a feature (a
-# per-column S, a segment launch): left out of the flags and the tag when 0,
-# so a whole solve with a scalar S is built as before them.
-_FEATURES = ("cols", "seg")
+# per-column S, a segment launch, a per-element S): left out of the flags and
+# the tag when 0, so a whole solve with a scalar S is built as before them.
+_FEATURES = ("cols", "seg", "elem")
 
 
 def _defines(spec):
@@ -59,7 +59,8 @@ def _tag(spec):
 _F32P = ctypes.POINTER(ctypes.c_float)
 # (q, v, outputs..., instances, batch, n, iterations, seed, scalars,
 # rows_per_block, stream) of the exported launch functions; the solve
-# kernels' take the per-column S and a Segment after them (_SOLVE_TAIL).
+# kernels' take the per-column (or per-element) S and a Segment after them
+# (_SOLVE_TAIL).
 _HEAD = [ctypes.c_void_p, ctypes.c_void_p]
 _TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_ulonglong, _F32P, ctypes.c_int, ctypes.c_void_p]
@@ -105,6 +106,7 @@ class DLSpec(NamedTuple):
     nt: int = 9  # n-tiles of 8 columns, ceil(N / 8) (0 for the CUDA-core matvec)
     cols: int = 0  # per-column S: 1 in the final clamp only, 2 in the drift too
     seg: bool = False  # a segment launch
+    elem: bool = False  # with cols, S one an element of a (batch, n) array
 
     source = "dl_solve.cu"
     symbol = "ccvm_dl_solve"
@@ -124,6 +126,7 @@ class MFSpec(NamedTuple):
     np: int = 72  # N padded to a multiple of 4 (the matvec's bound, unrolled)
     cols: bool = False  # a per-column S
     seg: bool = False  # a segment launch
+    elem: bool = False  # with cols, S one an element of a (batch, n) array
 
     source = "mf_solve.cu"
     symbol = "ccvm_mf_solve"
@@ -146,6 +149,7 @@ class LangevinSpec(NamedTuple):
     np: int  # N padded to a multiple of 8 (the matvec's bound, unrolled)
     cols: bool = False  # a per-column S
     seg: bool = False  # a segment launch
+    elem: bool = False  # with cols, S one an element of a (batch, n) array
 
     source = "langevin_solve.cu"
     symbol = "ccvm_langevin_solve"
@@ -264,7 +268,8 @@ def mf_launch_shape(n: int, adam: bool, cols: bool = False) -> LaunchShape:
     A thread owns a 4 x 4 tile of trajectories and columns (N padded to a
     multiple of 4); a block is at most 16 row groups (64 trajectories) and
     288 threads (two blocks per SM, 18 warps, at N=70), and holds Q (4 NP^2
-    bytes), the per-column V term (4 NP; ``cols``: S_j too), two x buffers of its rows at
+    bytes), the per-column V term (4 NP; ``cols``: S_j and its reciprocal
+    too, 8 NP more), two x buffers of its rows at
     stride NP + 4 (Adam: one), and each thread's own float4s: sigma of its
     four rows (64 bytes), and for Adam their two moments and mu (192 bytes
     more).  The blocks per SM are those that shared memory and 96 registers
@@ -275,7 +280,7 @@ def mf_launch_shape(n: int, adam: bool, cols: bool = False) -> LaunchShape:
     row_groups = min(_MF_MAX_ROW_GROUPS, _MF_THREADS // groups)
     threads = groups * row_groups
     rows = _TILE * row_groups
-    smem = (4 * (np_ * np_ + (2 if cols else 1) * np_
+    smem = (4 * (np_ * np_ + (3 if cols else 1) * np_
                  + (1 if adam else 2) * rows * (np_ + 4))
             + (256 if adam else 64) * threads)
     if row_groups < 1 or smem > SMEM_LIMIT:

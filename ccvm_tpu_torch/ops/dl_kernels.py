@@ -5,9 +5,9 @@
 the PRNG key.  For CUDA tensors it launches ``csrc/dl_solve.cu`` (the
 counterpart of ``_dl_kernel``, or of ``_dl_adam_kernel`` when ``hp`` is
 given); for CPU tensors it runs :func:`dl_solve_reference`.  There is no
-fallback from the kernel to the plain version.  ``params.S`` is a scalar or
-one value a column (a tuple), and ``params`` may carry the generalised pump
-ramp; both go to the kernel.
+fallback from the kernel to the plain version.  ``params.S`` is a scalar,
+one value a column (a tuple) or one an element (a (batch, n) tensor), and
+``params`` may carry the generalised pump ramp; all go to the kernel.
 
 :func:`dl_solve_segment` advances a given state from a given absolute step
 (the JAX ``dynamics/dl.py`` ``solve_segment``), with the Adam moments in the
@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import dl as dyn
 from ccvm_tpu_torch.ops import build, philox
 from ccvm_tpu_torch.runtime import fp32_matmul
@@ -51,14 +52,30 @@ def launch_shape(n: int, adam: bool = False, mma: bool = True):
 
 def columns_kind(S, pump_is_gt_one):
     """The kernel's per-column S build (csrc/dl_solve.cu CCVM_COLS): 0 for a
-    scalar S; for one a column, 1 where it enters the final clamp only (pump
-    > 1, the drift's S_d = sqrt(pump - 1)), else 2."""
+    scalar S; for one a column or one an element (CCVM_ELEM), 1 where it
+    enters the final clamp only (pump > 1, the drift's S_d = sqrt(pump -
+    1)), else 2."""
     if np.ndim(S) == 0:
         return 0
     return 1 if pump_is_gt_one else 2
 
 
-def _spec(n, hp, noise_scale, rng, mma, cols=0, seg=False):
+def per_element(values, fills, rows, np_, extra=0):
+    """The per-element builds' array on the values' device: each (batch, n)
+    tensor of ``values`` as a (rows', NP) slice, its padding (the batch to
+    ``rows'``, a multiple of the launch's ``rows`` a block; the columns to
+    ``np_``) filled with its ``fills`` value, then ``extra`` slices left for
+    the kernel to write."""
+    batch, n = values[0].shape
+    out = torch.empty((len(values) + extra, -(-batch // rows) * rows, np_),
+                      dtype=torch.float32, device=values[0].device)
+    for k, (x, fill) in enumerate(zip(values, fills)):
+        out[k].fill_(fill)
+        out[k, :batch, :n] = x
+    return out
+
+
+def _spec(n, hp, noise_scale, rng, mma, cols=0, seg=False, elem=False):
     noise = float(noise_scale) != 0.0
     return build.DLSpec(
         adam=hp is not None,
@@ -70,17 +87,18 @@ def _spec(n, hp, noise_scale, rng, mma, cols=0, seg=False):
         nt=build.dl_launch_shape(n, hp is not None, mma).np // 8 if mma else 0,
         cols=int(cols),
         seg=bool(seg),
+        elem=bool(elem),
     )
 
 
 def blocks_per_sm(n, *, noise_scale=1.0, rng="popcount16", hp=None, mma=True,
-                  cols=0, seg=False):
+                  cols=0, seg=False, elem=False):
     """Blocks of the specialisation that :func:`dl_solve` launches with these
     arguments (``mma`` False: the CUDA-core matvec of the race harness;
-    ``cols``, ``seg``: the per-column S and segment builds) that the card
-    keeps resident per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
-    builds it first."""
-    spec = _spec(n, hp, noise_scale, rng, mma, cols, seg)
+    ``cols``, ``seg``, ``elem``: the per-column S, segment and per-element S
+    builds) that the card keeps resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
+    spec = _spec(n, hp, noise_scale, rng, mma, cols, seg, elem)
     rows = build.dl_launch_shape(n, hp is not None, mma, cols).rows
     fn = build.load(spec, "ccvm_dl_blocks_per_sm",
                     [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
@@ -94,8 +112,8 @@ def blocks_per_sm(n, *, noise_scale=1.0, rng="popcount16", hp=None, mma=True,
 def _scalars(params, hp, noise_scale, pump_is_gt_one):
     """The kernel's 20 float32 scalars (csrc/dl_solve.cu DLScalars): the
     solve's, then its per-solve constants in float32 arithmetic, as the
-    device would round them.  With one S a column, S reads 1 here (the
-    kernel takes the columns' from :func:`_columns`)."""
+    device would round them.  With one S a column or an element, S reads 1
+    here (the kernel takes them from :func:`_columns`)."""
     alpha = beta1 = beta2 = 0.0
     if hp is not None:
         alpha, beta1, beta2 = hp.alpha, hp.beta1, hp.beta2
@@ -116,16 +134,21 @@ def _scalars(params, hp, noise_scale, pump_is_gt_one):
     return (ctypes.c_float * 20)(*vals.tolist())
 
 
-def _columns(params, device):
-    """The per-column S build's (3, n) float32 columns on ``device``: S_j,
-    span / S_j and 0.25 span / S_j, rounded as :func:`_scalars` rounds the
-    scalar S's (None for a scalar S)."""
+def _columns(params, device, rows, np_, instances):
+    """S's array for the kernel on ``device``, by float32 operations on the
+    device that round as :func:`_scalars`'s on the host (None for a scalar
+    S): the per-column build's (3, n) S_j, span / S_j and 0.25 span / S_j;
+    the per-element build's (2 + ``instances``, rows', ``np_``) S_ij and
+    span / S_ij (:func:`per_element`; padding S 1), then room for each
+    instance's feedback offsets, which the kernel writes."""
     if np.ndim(params.S) == 0:
         return None
-    f = np.float32
-    S = np.asarray(params.S, np.float32)
-    span = f(params.upper_limit) - f(params.lower_limit)
-    return torch.from_numpy(np.stack([S, span / S, f(0.25) * span / S])).to(device)
+    S = common.saturation_tensor(params.S, device)
+    span = (torch.tensor(float(params.upper_limit), dtype=torch.float32, device=device)
+            - float(params.lower_limit))
+    if S.ndim == 2:
+        return per_element([S, span / S], (1.0, 0.0), rows, np_, extra=instances)
+    return torch.stack([S, span / S, 0.25 * span / S])
 
 
 def _step_table(params, hp, noise_scale, iterations, pump_rate_flag, device):
@@ -171,17 +194,18 @@ def check_problem(q_matrix, v_vector, kernel="dl_solve"):
         raise ValueError("Q and V must lie on the same device")
 
 
-def check_saturation(S, n, kernel):
-    """Raise unless S is a scalar or one value a column of an n-variable
-    problem."""
-    if np.ndim(S) > 1 or (np.ndim(S) == 1 and len(S) != n):
-        raise ValueError(f"{kernel} takes a scalar S or one a column ({n}), "
-                         f"got shape {np.shape(S)}")
+def check_saturation(S, n, kernel, batch_size):
+    """Raise unless S is a scalar, one value a column of an n-variable
+    problem, or one an element of a (batch_size, n) solve's."""
+    shape = tuple(np.shape(S))
+    if shape not in ((), (n,), (int(batch_size), n)):
+        raise ValueError(f"{kernel} takes a scalar S, one a column ({n},) or one an "
+                         f"element ({batch_size}, {n}), got shape {shape}")
 
 
-def _check(q_matrix, v_vector, params):
+def _check(q_matrix, v_vector, params, batch_size):
     check_problem(q_matrix, v_vector)
-    check_saturation(params.S, q_matrix.shape[-1], "the DL kernel")
+    check_saturation(params.S, q_matrix.shape[-1], "the DL kernel", batch_size)
 
 
 def check_segment(state, start, num, iterations, names, q_matrix, batch_size):
@@ -212,13 +236,15 @@ def _launch(mma, seed, q_matrix, v_vector, params, *, iterations, batch_size,
     cols = columns_kind(params.S, pump_is_gt_one)
     if cols and not mma:
         raise ValueError("the CUDA-core DL matvec takes a scalar S")
-    rows = build.dl_launch_shape(n, hp is not None, mma, cols).rows
-    launch = build.load(_spec(n, hp, noise_scale, rng, mma, cols, segment is not None))
+    shape_ = build.dl_launch_shape(n, hp is not None, mma, cols)
+    rows = shape_.rows
+    launch = build.load(_spec(n, hp, noise_scale, rng, mma, cols, segment is not None,
+                              np.ndim(params.S) == 2))
     steps = None if segment is None else segment[3]
     if steps is None:
         steps = _step_table(params, hp, noise_scale, iterations, pump_rate_flag,
                             q.device)
-    col_values = _columns(params, q.device)
+    col_values = _columns(params, q.device, rows, shape_.np, num_instances)
     shape = (num_instances, int(batch_size), n)
     c = torch.empty(shape, dtype=torch.float32, device=q.device)
     s = torch.empty_like(c)
@@ -265,7 +291,7 @@ def solve_with(mma, seed, q_matrix, v_vector, params, *, iterations,
     each caller counts its own."""
     if rng not in philox.RNG_NAMES:
         raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
-    _check(q_matrix, v_vector, params)
+    _check(q_matrix, v_vector, params, batch_size)
     kwargs = dict(
         iterations=iterations, batch_size=batch_size,
         pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
@@ -313,7 +339,7 @@ def dl_solve_segment(
     table (:func:`_step_table`), to build it once for many segments."""
     if rng not in philox.RNG_NAMES:
         raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
-    _check(q_matrix, v_vector, params)
+    _check(q_matrix, v_vector, params, batch_size)
     check_segment(state, start, num, iterations,
                   ("c", "s") + (("m_c", "v_c", "m_s", "v_s") if hp is not None else ()),
                   q_matrix, batch_size)
@@ -370,11 +396,6 @@ def dl_solve_sampled_reference(seed, q_matrix, v_vector, params, segments, *,
                     segments, kwargs)
 
 
-def _saturation(params, device):
-    """S as a float32 tensor on ``device``: 0-dim, or (n,)."""
-    return torch.as_tensor(np.asarray(params.S, np.float32), device=device)
-
-
 def dl_solve_segment_reference(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
     batch_size, pump_rate_flag, pump_is_gt_one, noise_scale=1.0,
@@ -417,7 +438,7 @@ def dl_solve_segment_reference(
                      state[1].clamp(-bound, bound)) + tuple(state[2:])
     c_final = None
     if int(start) + int(num) == int(iterations):
-        S = _saturation(params, device)
+        S = common.saturation_tensor(params.S, device)
         c_final = torch.clamp(state[0], -S, S)
     unstack = (lambda x: x) if stacked else (lambda x: x[0])
     return (tuple(unstack(x) for x in state),

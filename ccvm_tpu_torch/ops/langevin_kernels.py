@@ -11,8 +11,9 @@ given); for CPU tensors they run :func:`langevin_solve_reference` and
 kernel to the plain version.  The wrappers hand the kernel its per-step
 scalars as a table (:func:`_step_table`) and its per-solve constants
 (:func:`_scalars`), both by the plain version's own float32 operations.
-``params.S`` is a scalar or one value a column (a tuple), which the
-kernel's per-column build takes.
+``params.S`` is a scalar, one value a column (a tuple) or one an element (a
+(batch, n) tensor), which the kernel's per-column and per-element builds
+take (:func:`_columns`).
 
 :func:`langevin_solve_segment` and :func:`pumped_langevin_solve_segment`
 advance a given state (c and Adam's moments) from a given absolute step (the
@@ -42,7 +43,7 @@ from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import langevin as lgv
 from ccvm_tpu_torch.dynamics import pumped_langevin as plgv
 from ccvm_tpu_torch.ops import build, philox
-from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment
+from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment, per_element
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 
@@ -53,7 +54,7 @@ def launch_shape(n: int, adam: bool = False):
     return tuple(build.langevin_launch_shape(n, adam)[:3])
 
 
-def _spec(n, hp, noise_scale, rng, *, pumped, cols=False, seg=False):
+def _spec(n, hp, noise_scale, rng, *, pumped, cols=False, seg=False, elem=False):
     """The kernel specialisation a launch with these arguments takes."""
     noise = float(noise_scale) != 0.0
     return build.LangevinSpec(
@@ -66,16 +67,18 @@ def _spec(n, hp, noise_scale, rng, *, pumped, cols=False, seg=False):
         np=build.langevin_launch_shape(n, hp is not None).np,
         cols=bool(cols),
         seg=bool(seg),
+        elem=bool(elem),
     )
 
 
 def blocks_per_sm(n, *, pumped=False, noise_scale=1.0, rng="popcount32", hp=None,
-                  cols=False, seg=False):
+                  cols=False, seg=False, elem=False):
     """Blocks of the specialisation that the wrappers launch with these
-    arguments (``cols``, ``seg``: the per-column S and segment builds) that
-    the card keeps resident per SM
+    arguments (``cols``, ``seg``, ``elem``: the per-column S, segment and
+    per-element S builds) that the card keeps resident per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
-    fn = build.load(_spec(n, hp, noise_scale, rng, pumped=pumped, cols=cols, seg=seg),
+    fn = build.load(_spec(n, hp, noise_scale, rng, pumped=pumped, cols=cols, seg=seg,
+                          elem=elem),
                     "ccvm_langevin_blocks_per_sm",
                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
     blocks = ctypes.c_int(0)
@@ -108,16 +111,22 @@ def _scalars(params, hp, noise_scale):
     return (ctypes.c_float * 13)(*vals.tolist())
 
 
-def _columns(params, device):
-    """The per-column build's (2, n) float32 columns on ``device``: S_j and
-    scale_j = (u - l) / (2 S_j), rounded as :func:`_scalars` rounds the
-    scalar S's (None for a scalar S)."""
+def _columns(params, device, rows, np_):
+    """S's array for the kernel on ``device``, by float32 operations on the
+    device that round as :func:`_scalars`'s on the host (None for a scalar
+    S): S and scale = (u - l) / (2 S), the per-column build's (2, n), the
+    per-element build's (2, rows', ``np_``)
+    (:func:`ccvm_tpu_torch.ops.dl_kernels.per_element`; padding S 1, scale
+    0)."""
     if np.ndim(params.S) == 0:
         return None
-    f = np.float32
-    S = np.asarray(params.S, np.float32)
-    scale = (f(params.upper_limit) - f(params.lower_limit)) / (f(2) * S)
-    return torch.from_numpy(np.stack([S, scale])).to(device)
+    S = common.saturation_tensor(params.S, device)
+    span = (torch.tensor(float(params.upper_limit), dtype=torch.float32, device=device)
+            - float(params.lower_limit))
+    scale = span / (2.0 * S)
+    if S.ndim == 2:
+        return per_element([S, scale], (1.0, 0.0), rows, np_)
+    return torch.stack([S, scale])
 
 
 def _step_table(params, hp, iterations, pump_rate_flag, device):
@@ -148,7 +157,7 @@ def _step_table(params, hp, iterations, pump_rate_flag, device):
     return torch.stack(cols, dim=1).contiguous()
 
 
-def _check(q_matrix, v_vector, params, rng):
+def _check(q_matrix, v_vector, params, rng, batch_size):
     if rng not in philox.RNG_NAMES:
         raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
     if q_matrix.dtype != torch.float32 or v_vector.dtype != torch.float32:
@@ -161,7 +170,7 @@ def _check(q_matrix, v_vector, params, rng):
         )
     if v_vector.device != q_matrix.device:
         raise ValueError("Q and V must lie on the same device")
-    check_saturation(params.S, q_matrix.shape[-1], "the Langevin kernels")
+    check_saturation(params.S, q_matrix.shape[-1], "the Langevin kernels", batch_size)
 
 
 def _run(launch, seed, q, v, params, *, iterations, batch_size, noise_scale, hp,
@@ -174,11 +183,12 @@ def _run(launch, seed, q, v, params, *, iterations, batch_size, noise_scale, hp,
     ``tools/breakdown.py`` times probe builds through it."""
     num_instances, n = q.shape[0], q.shape[-1]
     cols = np.ndim(params.S) != 0
-    rows = build.langevin_launch_shape(n, hp is not None, cols).rows
+    shape_ = build.langevin_launch_shape(n, hp is not None, cols)
+    rows = shape_.rows
     steps = None if segment is None else segment[3]
     if steps is None:
         steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
-    col_values = _columns(params, q.device)
+    col_values = _columns(params, q.device, rows, shape_.np)
     shape = (num_instances, int(batch_size), n)
     c = torch.zeros(shape, dtype=torch.float32,
                     device=q.device)  # the result of a solve of 0 iterations
@@ -210,7 +220,8 @@ def _launch(seed, q_matrix, v_vector, params, *, pumped, iterations,
     q = (q_matrix if stacked else q_matrix[None]).contiguous()
     v = (v_vector if stacked else v_vector[None]).contiguous()
     spec = _spec(q.shape[-1], hp, noise_scale, rng, pumped=pumped,
-                 cols=np.ndim(params.S) != 0, seg=segment is not None)
+                 cols=np.ndim(params.S) != 0, seg=segment is not None,
+                 elem=np.ndim(params.S) == 2)
     c, moments, err = _run(build.load(spec), seed, q, v, params,
                            iterations=iterations, batch_size=batch_size,
                            noise_scale=noise_scale, hp=hp,
@@ -235,7 +246,7 @@ def langevin_solve(
     """Fused Langevin solve; ``hp`` selects the Adam variant.  Returns c
     shaped ``(batch, n)``, or ``(I, batch, n)`` for a stacked ``(I, n, n)``
     Q, where instance ``i`` draws the noise of a solve with ``seed + i``."""
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     kwargs = dict(iterations=iterations, batch_size=batch_size,
                   noise_scale=noise_scale, rng=rng, hp=hp)
     if q_matrix.device.type == "cpu":
@@ -250,7 +261,7 @@ def pumped_langevin_solve(
 ):
     """Fused pumped-Langevin solve; ``hp`` selects the Adam variant.  Same
     shapes and seeding as :func:`langevin_solve`."""
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     kwargs = dict(iterations=iterations, batch_size=batch_size,
                   pump_rate_flag=pump_rate_flag, noise_scale=noise_scale,
                   rng=rng, hp=hp)
@@ -285,7 +296,7 @@ def _segment(pumped, seed, q_matrix, v_vector, params, state, start, num, *,
                 pump_rate_flag=pump_rate_flag, **kwargs)
         return langevin_solve_segment_reference(seed, q_matrix, v_vector, params, state,
                                                 start, num, **kwargs)
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     _check_segment(state, start, num, iterations, hp, q_matrix, batch_size)
     arrays = None if state is None else ((state,) if hp is None else tuple(state))
     return _launch(seed, q_matrix, v_vector, params, pumped=pumped,
@@ -395,7 +406,7 @@ def _reference(solve, seed, q_matrix, v_vector, params, *, iterations,
     """A plain solve (``segment`` (state, start, num): a plain segment with
     ``solve`` the dynamics' ``advance``) on the tensors' own device, with
     the kernel's noise."""
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     stacked = q_matrix.ndim == 3
     q = q_matrix if stacked else q_matrix[None]
     v = (v_vector if stacked else v_vector[None])[:, None, :]

@@ -8,9 +8,10 @@ given); for CPU tensors it runs :func:`mf_solve_reference`.  There is no
 fallback from the kernel to the plain version.  The wrapper hands the
 kernel its per-step scalars as a table (:func:`_step_table`) and its
 per-solve constants (:func:`_scalars`), both by the plain version's own
-float32 operations.  ``params.S`` is a scalar or one value a column (a
-tuple), which the kernel's per-column build takes (its divisions by S_j
-the IEEE ones).
+float32 operations.  ``params.S`` is a scalar, one value a column (a
+tuple) or one an element (a (batch, n) tensor), which the kernel's
+per-column and per-element builds take with their reciprocals
+(:func:`_columns`), dividing by each as by the scalar S.
 
 :func:`mf_solve_segment` advances a given state (mu, sigma and Adam's
 moments) from a given absolute step (the JAX ``dynamics/mf.py``
@@ -38,7 +39,7 @@ import torch
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import mf as dyn
 from ccvm_tpu_torch.ops import build, philox
-from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment
+from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment, per_element
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 def launch_shape(n: int, adam: bool = False):
@@ -48,7 +49,7 @@ def launch_shape(n: int, adam: bool = False):
     return tuple(build.mf_launch_shape(n, adam)[:3])
 
 
-def _spec(n, hp, noise_scale, rng, cols=False, seg=False):
+def _spec(n, hp, noise_scale, rng, cols=False, seg=False, elem=False):
     noise = float(noise_scale) != 0.0
     return build.MFSpec(
         adam=hp is not None,
@@ -59,16 +60,18 @@ def _spec(n, hp, noise_scale, rng, cols=False, seg=False):
         np=build.mf_launch_shape(n, hp is not None).np,
         cols=bool(cols),
         seg=bool(seg),
+        elem=bool(elem),
     )
 
 
 def blocks_per_sm(n, *, noise_scale=1.0, rng="popcount32", hp=None, cols=False,
-                  seg=False):
+                  seg=False, elem=False):
     """Blocks of the specialisation that :func:`mf_solve` launches with these
-    arguments (``cols``, ``seg``: the per-column S and segment builds) that
-    the card keeps resident per SM
+    arguments (``cols``, ``seg``, ``elem``: the per-column S, segment and
+    per-element S builds) that the card keeps resident per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); builds it first."""
-    fn = build.load(_spec(n, hp, noise_scale, rng, cols, seg), "ccvm_mf_blocks_per_sm",
+    fn = build.load(_spec(n, hp, noise_scale, rng, cols, seg, elem),
+                    "ccvm_mf_blocks_per_sm",
                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
     blocks = ctypes.c_int(0)
     err = fn(int(n), ctypes.byref(blocks))
@@ -82,7 +85,8 @@ def _scalars(params, hp, noise_scale):
     solve's, then its per-solve constants in float32 arithmetic as the plain
     version rounds them (1/S and 1/sqrt(dt) rounded to nearest; 2 (3 g^2)
     and -0.25 (u - l) are exact multiples of the plain version's).  With
-    one S a column, S reads 1 here (the kernel takes the columns')."""
+    one S a column or an element, S reads 1 here (the kernel takes
+    :func:`_columns`)."""
     alpha = beta1 = beta2 = 0.0
     if hp is not None:
         alpha, beta1, beta2 = hp.alpha, hp.beta1, hp.beta2
@@ -101,6 +105,21 @@ def _scalars(params, hp, noise_scale):
         np.float32,
     )
     return (ctypes.c_float * 24)(*vals.tolist())
+
+
+def _columns(params, device, rows, np_):
+    """S's array for the kernel on ``device`` (None for a scalar S): S and
+    its reciprocal 1/S rounded to nearest, by a float32 division on the
+    device, as :func:`_scalars` takes 1/S on the host; the per-column
+    build's (2, n), the per-element build's (2, rows', ``np_``)
+    (:func:`ccvm_tpu_torch.ops.dl_kernels.per_element`; padding 1)."""
+    if np.ndim(params.S) == 0:
+        return None
+    S = common.saturation_tensor(params.S, device)
+    inv = torch.ones_like(S) / S
+    if S.ndim == 2:
+        return per_element([S, inv], (1.0, 1.0), rows, np_)
+    return torch.stack([S, inv])
 
 
 def _step_table(params, hp, iterations, pump_rate_flag, device):
@@ -129,7 +148,7 @@ def _step_table(params, hp, iterations, pump_rate_flag, device):
     return torch.stack(cols, dim=1).contiguous()
 
 
-def _check(q_matrix, v_vector, params, rng):
+def _check(q_matrix, v_vector, params, rng, batch_size):
     if rng not in philox.RNG_NAMES:
         raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
     if q_matrix.dtype != torch.float32 or v_vector.dtype != torch.float32:
@@ -142,7 +161,7 @@ def _check(q_matrix, v_vector, params, rng):
         )
     if v_vector.device != q_matrix.device:
         raise ValueError("Q and V must lie on the same device")
-    check_saturation(params.S, q_matrix.shape[-1], "the MF kernel")
+    check_saturation(params.S, q_matrix.shape[-1], "the MF kernel", batch_size)
 
 
 def _launch(seed, q_matrix, v_vector, params, *, iterations, batch_size,
@@ -158,13 +177,14 @@ def _launch(seed, q_matrix, v_vector, params, *, iterations, batch_size,
     v = (v_vector if stacked else v_vector[None]).contiguous()
     num_instances, n = q.shape[0], q.shape[-1]
     cols = np.ndim(params.S) != 0
-    rows = build.mf_launch_shape(n, hp is not None, cols).rows
-    launch = build.load(_spec(n, hp, noise_scale, rng, cols, segment is not None))
+    shape_ = build.mf_launch_shape(n, hp is not None, cols)
+    rows = shape_.rows
+    launch = build.load(_spec(n, hp, noise_scale, rng, cols, segment is not None,
+                              np.ndim(params.S) == 2))
     steps = None if segment is None else segment[3]
     if steps is None:
         steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
-    col_values = (torch.tensor(params.S, dtype=torch.float32, device=q.device)
-                  if cols else None)
+    col_values = _columns(params, q.device, rows, shape_.np)
     shape = (num_instances, int(batch_size), n)
     mu = torch.empty(shape, dtype=torch.float32, device=q.device)
     mt = torch.zeros_like(mu)  # the readout of a solve of 0 iterations
@@ -207,7 +227,7 @@ def mf_solve(
     a stacked ``(I, n, n)`` Q, where instance ``i`` draws the noise of a
     solve with ``seed + i``; ``mu_tilde`` is the last step's, clamped to
     +-S."""
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     kwargs = dict(
         iterations=iterations, batch_size=batch_size,
         pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng, hp=hp,
@@ -235,7 +255,7 @@ def mf_solve_segment(
     ends the solve, its readout (the last step's mu_tilde clamped to +-S, as
     :func:`mf_solve` returns it), else None.  ``steps``: the solve's step
     table (:func:`_step_table`), to build it once for many segments."""
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     check_segment(state, start, num, iterations,
                   ("mu", "sigma") + (("m", "v") if hp is not None else ()), q_matrix,
                   batch_size)
@@ -308,7 +328,7 @@ def mf_solve_segment_reference(
 ):
     """Plain PyTorch version of :func:`mf_solve_segment` (same arguments,
     same result), on the tensors' own device."""
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     stacked = q_matrix.ndim == 3
     q = q_matrix if stacked else q_matrix[None]
     v = (v_vector if stacked else v_vector[None])[:, None, :]
@@ -334,7 +354,7 @@ def mf_solve_reference(
 ):
     """Plain PyTorch version of :func:`mf_solve` (same arguments, same
     result), on the tensors' own device."""
-    _check(q_matrix, v_vector, params, rng)
+    _check(q_matrix, v_vector, params, rng, batch_size)
     stacked = q_matrix.ndim == 3
     q = q_matrix if stacked else q_matrix[None]
     v = (v_vector if stacked else v_vector[None])[:, None, :]

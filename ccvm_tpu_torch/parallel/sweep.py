@@ -159,14 +159,18 @@ def sweep_solve(
     seed = int(seed)
     kw = dict(iterations=iterations, batch_size=batch_size, rng=solver.kernel_rng, hp=hp)
 
+    # A (batch, n) S is shared by every instance, as the JAX sweep's vmap
+    # broadcasts it.
+    sat = per_variable_saturation(solver.S if cls == "DLSolver" else pk["S"], size,
+                                  batch_size, qs.device)
+
     t0 = time.time()
     extra_vars = {}
     needs_final_cv = False
     if cls == "DLSolver":
         params = solver._make_params(
-            pk["pump"], per_variable_saturation(solver.S, size, batch_size), pk["dt"],
-            pk["noise_ratio"], pk["feedback_scale"], 0.05 if g is None else g,
-            iterations,
+            pk["pump"], sat, pk["dt"], pk["noise_ratio"], pk["feedback_scale"],
+            0.05 if g is None else g, iterations,
         )
         raw, s = dl_kernels.dl_solve(seed, qs, vs, params, pump_rate_flag=pump_rate_flag,
                                      pump_is_gt_one=bool(pk["pump"] > 1), **kw)
@@ -176,22 +180,18 @@ def sweep_solve(
         extra_vars = {"s": s}
     elif cls == "MFSolver":
         params = solver._make_params(
-            pk["pump"], per_variable_saturation(pk["S"], size, batch_size), pk["dt"],
-            pk["j"], pk["feedback_scale"], 0.01 if g is None else g, iterations,
+            pk["pump"], sat, pk["dt"], pk["j"], pk["feedback_scale"],
+            0.01 if g is None else g, iterations,
         )
         mu, raw, sigma = mf_kernels.mf_solve(seed, qs, vs, params,
                                              pump_rate_flag=pump_rate_flag, **kw)
         extra_vars = {"mu": mu, "sigma": sigma}
     elif cls == "LangevinSolver":
-        params = solver._make_params(
-            per_variable_saturation(pk["S"], size, batch_size), pk["dt"], pk["sigma"],
-            pk["feedback_scale"],
-        )
+        params = solver._make_params(sat, pk["dt"], pk["sigma"], pk["feedback_scale"])
         raw = langevin_kernels.langevin_solve(seed, qs, vs, params, **kw)
     else:
         params = solver._make_params(
-            pk["pump"], per_variable_saturation(pk["S"], size, batch_size), pk["dt"],
-            pk["sigma"], pk["feedback_scale"], iterations,
+            pk["pump"], sat, pk["dt"], pk["sigma"], pk["feedback_scale"], iterations,
         )
         raw = langevin_kernels.pumped_langevin_solve(
             seed, qs, vs, params, pump_rate_flag=pump_rate_flag, **kw)

@@ -31,39 +31,41 @@ def not_ported(feature, item):
     )
 
 
-def per_variable_saturation(S, problem_size, batch_size):
-    """A façade's S as its solve takes it: a scalar, or one value a column
-    (a tuple of float32 values, ``dynamics/common.saturation``).
+def per_variable_saturation(S, problem_size, batch_size, device):
+    """A façade's S as its solve takes it: a scalar, one value a column (a
+    tuple of float32 values, ``dynamics/common.saturation``), or one an
+    element (a (batch, n) float32 tensor on ``device``).
 
     A 1-D S of the problem's size is per column, as the JAX façades'
     ``np.outer(ones(batch), S)`` makes it (``ccvm_tpu/solvers/dl.py:378-383``);
     another size raises their ``ValueError``.  A (batch, n) S whose rows are
-    equal is its row; rows that differ are not ported (ROADMAP item 14) and
-    raise, taking no other path."""
+    equal is its row (the per-column build); rows that differ are one S an
+    element (the per-element build), as the JAX façades' lax path takes a
+    (batch, n) S."""
     if np.ndim(S) == 0:
         return float(np.float32(S))
-    S = np.asarray(S, np.float32)
-    if S.ndim == 1:
-        if S.shape[0] != problem_size:
+    if np.ndim(S) == 1:
+        if np.shape(S)[0] != problem_size:
             raise ValueError("Tensor S size should be equal to problem size.")
         return common.saturation(S)
-    if S.ndim != 2 or S.shape != (batch_size, problem_size):
+    if tuple(np.shape(S)) != (batch_size, problem_size):
         raise ValueError(
             f"S must be a scalar, ({problem_size},) or ({batch_size}, "
-            f"{problem_size}), got shape {S.shape}")
-    if not (S == S[:1]).all():
-        raise not_ported("a per-variable S whose rows differ", "queue 1 item 14")
-    return common.saturation(S[0])
+            f"{problem_size}), got shape {tuple(np.shape(S))}")
+    S = common.saturation_tensor(S, device)
+    if bool((S == S[:1]).all()):
+        return common.saturation(S[0])
+    return S
 
 
 def saturation_of(params, device):
     """A parameter tuple's S for the readout's change of variables, as a
-    float32 tensor on ``device``: 0-dim, or (n,) for one a column, which
-    broadcasts over the batch as the JAX façades' (batch, n) S does.  A
-    tensor in both cases, so that both divide alike (PyTorch multiplies a
-    CUDA tensor by the rounded reciprocal of a Python float divisor) and S
-    as a constant vector reads out as the scalar does."""
-    return torch.tensor(params.S, dtype=torch.float32, device=device)
+    float32 tensor on ``device``: 0-dim, (n,) for one a column, which
+    broadcasts over the batch as the JAX façades' (batch, n) S does, or
+    (batch, n).  A tensor in every case, so that all divide alike (PyTorch
+    multiplies a CUDA tensor by the rounded reciprocal of a Python float
+    divisor) and S as a constant vector reads out as the scalar does."""
+    return common.saturation_tensor(params.S, device)
 
 
 class MachineType:

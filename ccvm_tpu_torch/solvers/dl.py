@@ -330,7 +330,8 @@ class DLSolver(CCVMSolver):
             raise KeyError(
                 f"The parameter '{e.args[0]}' for the given instance size is not defined."
             ) from e
-        S = per_variable_saturation(self.S, problem_size, batch_size)
+        S = per_variable_saturation(self.S, problem_size, batch_size,
+                                    self.torch_device)
         self.c_sample = None
         self.s_sample = None
         evolution_file = self._evolution_file(instance, evolution_step_size,

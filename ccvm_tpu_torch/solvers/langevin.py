@@ -84,7 +84,8 @@ def langevin_family_call(solver, instance, parameter_names, make_params, solve,
         raise KeyError(
             f"The parameter '{e.args[0]}' for the given instance size is not defined."
         ) from e
-    values["S"] = per_variable_saturation(values["S"], problem_size, batch_size)
+    values["S"] = per_variable_saturation(values["S"], problem_size, batch_size,
+                                          solver.torch_device)
     solver.c_sample = None
     evolution_file = solver._evolution_file(instance, evolution_step_size,
                                             evolution_file)

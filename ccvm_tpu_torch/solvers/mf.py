@@ -306,7 +306,7 @@ class MFSolver(CCVMSolver):
                 f"The parameter '{e.args[0]}' for the given instance size is not"
                 " defined."
             ) from e
-        S = per_variable_saturation(S, problem_size, batch_size)
+        S = per_variable_saturation(S, problem_size, batch_size, self.torch_device)
         self.mu_sample = None
         self.sigma_sample = None
         evolution_file = self._evolution_file(instance, evolution_step_size,

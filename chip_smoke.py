@@ -178,7 +178,22 @@ exits non-zero without printing a result:
    time and ``pp_time`` under ASYNC_PP_SHARE of it; phase 2 builds and
    reports every specialisation the study launches; the kernels line gains
    each kernel's phase-14 launches;
-15. the last line: {"ok": true, "device": {...}}.
+15. a (batch, n) S whose rows differ (run after phase 14), with the launch
+   counts zeroed before and read after: (a) each production kernel's
+   per-element build (DL also at pump 0.9, S in its drift) against its
+   plain version at PARITY_TOL, batch 1024, P15_STEPS steps (the DL family
+   at pump 0.9 over P12_DL_HOLD_STEPS'), noise off and on, and at the main
+   shape the scalar-S, per-column and per-element whole launches timed by
+   CUDA events in P15_ROUNDS alternating rounds; (b) equal rows through the
+   per-element build against the per-column build, bit for bit; (c) MF's
+   per-column build, which divides by S_j with its reciprocal, against its
+   plain version bit for bit (phase 12's S); (d) the four façades at the
+   main shape with such an S (DL with ``pump_ramp`` (2.0, 0.5), the others
+   with grad-descent): wall, kernel time against phase 6's scalar-S kernel,
+   P(0.1%), P(1%), every objective value finite; phase 2 builds these
+   specialisations and prints their registers, spills and residency; the
+   kernels line gains each kernel's phase-15 launches;
+16. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -382,6 +397,15 @@ P14_TUNE_BATCH = 256
 ASYNC_PP_SHARE = 0.1
 # The optimality gaps (%) of Solution's statistics.
 GAP_THRESHOLDS = (0.1, 1.0, 2.0, 3.0, 4.0, 5.0, 10.0)
+# Phase 15: a (batch, n) S whose rows differ on every production kernel, its
+# holds at batch 1024 over this many steps (the DL family at pump 0.9 over
+# P12_DL_HOLD_STEPS'), and the main shape's launches of the scalar-S,
+# per-column and per-element builds timed in this many rounds, the order
+# reversed every other round.
+P15_BATCH, P15_STEPS, P15_ROUNDS = 1024, 300, 2
+P15_LABELS = ("dl_solve", "dl_adam_solve", "mf_solve", "mf_adam_solve", "langevin_solve",
+              "langevin_adam_solve", "pumped_langevin_solve", "pumped_langevin_adam_solve",
+              "dl_solve pump 0.9", "dl_adam_solve pump 0.9")
 # Phase 11 waits this long for bench_torch.py.
 BENCH_TIMEOUT_S = 400
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device_amortised_rate")
@@ -389,6 +413,24 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device_amortised_rate")
 
 def log(msg):
     print(msg, flush=True)
+
+
+def scalar_saturations(tuned_all):
+    """Each family's scalar S at N=70: DL's 1, the others' tuned."""
+    return {"dl": 1.0, "mf": tuned_all["mf"][str(N)]["S"],
+            "langevin": tuned_all["langevin"][str(N)]["S"],
+            "pumped": tuned_all["pumped"][str(N)]["S"]}
+
+
+def phase12_saturations(tuned_all):
+    """Phase 12's per-column S of each family: drawn from seed 12 in [0.5 S,
+    1.5 S] around its scalar S (tests/test_torch_mf_redesign.py proves MF's
+    divisions by them)."""
+    import numpy as np
+
+    draw = np.random.RandomState(12)
+    return {f: (s0 * draw.uniform(0.5, 1.5, N)).astype(np.float32)
+            for f, s0 in scalar_saturations(tuned_all).items()}
 
 
 def first_instance(n):
@@ -1192,6 +1234,212 @@ def entry_point_phase(tuned_all, p13_stats, p13_winner, counters, failures):
     return launched
 
 
+def element_saturation(row, batch, seed):
+    """A (batch, n) S whose rows differ: ``row`` scaled over [1, 1.5] a row
+    and by a factor in [0.9, 1.1] an element, drawn from ``seed``."""
+    import numpy as np
+
+    draw = np.random.RandomState(seed)
+    scale = np.outer(np.linspace(1.0, 1.5, batch), np.asarray(row, np.float64))
+    return (scale * draw.uniform(0.9, 1.1, scale.shape)).astype(np.float32)
+
+
+def per_element_phase(tuned_all, main_ms, counters, failures):
+    """Phase 15: a (batch, n) S whose rows differ, one S an element, on every
+    production kernel (its per-element build) and on the four façades;
+    ``main_ms`` is each family's scalar-S kernel time of phase 6 (CUDA
+    events).  Returns the launch counts of the phase (zeroed before it) and
+    each label's main-shape times (scalar S, per-column, per-element)."""
+    import numpy as np
+    import torch
+
+    from ccvm_tpu_torch import (AdamParameters, DLSolver, LangevinSolver, MFSolver,
+                                ProblemInstance, PumpedLangevinSolver)
+    from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
+    from ccvm_tpu_torch.tools.tc_model import PARITY_TOL
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t15 = time.perf_counter()
+    col_S = phase12_saturations(tuned_all)
+    tuned = {f: tuned_all[f][str(N)] for f in ("dl", "mf", "langevin", "pumped")}
+    classes = {"dl": DLSolver, "mf": MFSolver, "langevin": LangevinSolver,
+               "pumped": PumpedLangevinSolver}
+    modules = {"dl": (dl_kernels, "dl_solve"), "mf": (mf_kernels, "mf_solve"),
+               "langevin": (langevin_kernels, "langevin_solve"),
+               "pumped": (langevin_kernels, "pumped_langevin_solve")}
+    insts, solvers = {}, {}
+    for f, cls in classes.items():
+        insts[f] = ProblemInstance(device="cuda", instance_type="tuning", file_path=INSTANCE)
+        solvers[f] = cls(device="cuda", batch_size=MAIN_BATCH)
+        insts[f].scale_coefs(solvers[f].get_scaling_factor(insts[f].q_matrix))
+        solvers[f].solution_bounds = insts[f].solution_bounds
+    adam = {"dl_adam_solve": AdamParameters(beta2=0.999),
+            "mf_adam_solve": AdamParameters(beta2=0.999),
+            "langevin_adam_solve": AdamParameters(**tuned_all["adam"]["langevin"][str(N)]),
+            "pumped_langevin_adam_solve":
+                AdamParameters(**tuned_all["adam"]["pumped"][str(N)])}
+
+    def case(label, S, iterations, batch, noise):
+        """(kernel wrapper, plain version, q, v, params, kwargs) of a label
+        (a kernel name, or "<kernel> pump 0.9" for DL below pump 1) with S
+        (None: the tuned scalar; an array of two dimensions goes to the card
+        first, as a façade puts it there)."""
+        kname, _, pump = label.partition(" pump ")
+        family = kname.split("_")[0]
+        t, solver = tuned[family], solvers[family]
+        if S is None:
+            S = 1.0 if family == "dl" else t["S"]
+        elif np.ndim(S) == 2:
+            S = torch.from_numpy(S).cuda()
+        module, function = modules[family]
+        kernel, plain = getattr(module, function), getattr(module, f"{function}_reference")
+        if family == "dl":
+            pump = float(pump) if pump else t["pump"]
+            p = solver._make_params(pump, S, t["dt"], t["noise_ratio"], t["feedback_scale"],
+                                    G, iterations)
+            kw = dict(pump_rate_flag=True, pump_is_gt_one=pump > 1, rng="popcount16")
+        elif family == "mf":
+            p = solver._make_params(t["pump"], S, t["dt"], t["j"], t["feedback_scale"],
+                                    MF_G, iterations)
+            kw = dict(pump_rate_flag=True, rng="popcount32")
+        elif family == "langevin":
+            p = solver._make_params(S, t["dt"], t["sigma"], t["feedback_scale"])
+            kw = dict(rng="popcount32")
+        else:
+            p = solver._make_params(t["pump"], S, t["dt"], t["sigma"], t["feedback_scale"],
+                                    iterations)
+            kw = dict(rng="popcount32", pump_rate_flag=True)
+        hp = adam[kname].to_hyperparameters() if kname in adam else None
+        kw.update(iterations=iterations, batch_size=batch, noise_scale=noise, hp=hp)
+        return kernel, plain, insts[family].q_matrix, insts[family].v_vector, p, kw
+
+    # (a) Each per-element build against its plain version, noise off and
+    # on (the same Philox words), at PARITY_TOL.
+    for label in P15_LABELS:
+        family = label.split("_")[0]
+        S = element_saturation(col_S[family], P15_BATCH, 15)
+        depth = min(P15_STEPS, P12_DL_HOLD_STEPS.get(label, P15_STEPS))
+        for noise in (0.0, 1.0):
+            kernel, plain, q, v, p, kw = case(label, S, depth, P15_BATCH, noise)
+            out = flat(kernel(6, q, v, p, **kw))
+            assert all(torch.isfinite(x).all() for x in out), label
+            err = max_diff(tuple(out), tuple(flat(plain(6, q, v, p, **kw))))
+            log(f"phase 15 (a) per-element S, batch {P15_BATCH}, {depth} steps, noise "
+                f"{'on' if noise else 'off'}, {label}: max |kernel - plain| = {err:.3e} "
+                f"(tol {PARITY_TOL})")
+            if err > PARITY_TOL:
+                failures.append(f"phase 15 (a) {label} noise {noise}: {err} > {PARITY_TOL}")
+
+    # (b) Equal rows through the per-element build against the per-column
+    # build, bit for bit (noise on).
+    for label in P15_LABELS:
+        family = label.split("_")[0]
+        runs = []
+        for S in (np.tile(col_S[family], (P15_BATCH, 1)), col_S[family]):
+            kernel, _, q, v, p, kw = case(label, S, P15_STEPS, P15_BATCH, 1.0)
+            runs.append(flat(kernel(6, q, v, p, **kw)))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log(f"phase 15 (b) {label}: equal rows through the per-element build "
+            f"{'equal' if same else 'DIFFER from'} the per-column build bit for bit "
+            f"(batch {P15_BATCH}, {P15_STEPS} steps, noise on)")
+        if not same:
+            failures.append(f"phase 15 (b) {label}: equal rows differ from the per-column "
+                            f"build")
+
+    # (c) MF's per-column build, dividing by S_j with its reciprocal, against
+    # its plain version bit for bit (phase 12's S, whose divisions
+    # tests/test_torch_mf_redesign.py proves exact).
+    for noise in (0.0, 1.0):
+        kernel, plain, q, v, p, kw = case("mf_solve", col_S["mf"], P15_STEPS, P15_BATCH,
+                                          noise)
+        out, ref = flat(kernel(6, q, v, p, **kw)), flat(plain(6, q, v, p, **kw))
+        same = all(torch.equal(a, b) for a, b in zip(out, ref))
+        log(f"phase 15 (c) mf_solve per-column S by reciprocals, batch {P15_BATCH}, "
+            f"{P15_STEPS} steps, noise {'on' if noise else 'off'}: "
+            f"{'equal to' if same else 'DIFFERS from'} the plain version bit for bit "
+            f"(max {max_diff(tuple(out), tuple(ref)):.3e})")
+        if not same:
+            failures.append(f"phase 15 (c) mf_solve noise {noise}: the per-column build "
+                            f"differs from its plain version")
+
+    # (a, c) The main shape: the scalar-S, per-column and per-element builds of
+    # each kernel, whole launches timed by CUDA events in alternating order.
+    def timed(run):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        out = run()
+        events[1].record()
+        torch.cuda.synchronize()
+        return out, events[0].elapsed_time(events[1])
+
+    main_times = {}
+    for label in P15_LABELS:
+        family = label.split("_")[0]
+        builds = {"scalar": None, "per-column": col_S[family],
+                  "per-element": element_saturation(col_S[family], MAIN_BATCH, 16)}
+        runs = {name: case(label, S, ITERATIONS, MAIN_BATCH, 1.0)
+                for name, S in builds.items()}
+        times = {name: [] for name in builds}
+        for r in range(P15_ROUNDS):
+            for name in (list(builds) if r % 2 == 0 else list(builds)[::-1]):
+                kernel, _, q, v, p, kw = runs[name]
+                out, ms = timed(lambda: kernel(100, q, v, p, **kw))
+                assert all(torch.isfinite(x).all() for x in flat(out)), (label, name)
+                times[name].append(ms)
+                del out
+        main_times[label] = {name: min(t) for name, t in times.items()}
+        best = main_times[label]
+        log(f"phase 15 (a) {label} at batch {MAIN_BATCH}, N={N}, {ITERATIONS} steps, "
+            f"noise on (CUDA events, best of {P15_ROUNDS}): scalar S {best['scalar']:.1f} "
+            f"ms, per-column {best['per-column']:.1f} "
+            f"({best['per-column'] / best['scalar'] - 1:+.2%}), per-element "
+            f"{best['per-element']:.1f} ({best['per-element'] / best['scalar'] - 1:+.2%}); "
+            f"rounds {times}")
+        del runs
+
+    # (d) The four façades at the main shape with a (batch, n) S whose rows
+    # differ (DL with a generalised ramp): the per-element build on the
+    # card, its kernel timed by CUDA events against phase 6's scalar-S
+    # kernel.
+    facades = (("DL", "dl", {"pump_ramp": (2.0, 0.5)}),
+               ("MF", "mf", {"g": MF_G, "post_processor": "grad-descent"}),
+               ("Langevin", "langevin", {"post_processor": "grad-descent"}),
+               ("pumped", "pumped", {"post_processor": "grad-descent"}))
+    for label, family, call in facades:
+        S = element_saturation(col_S[family], MAIN_BATCH, 17)
+        if family == "dl":
+            fac = DLSolver(device="cuda", batch_size=MAIN_BATCH, S=S)
+            fac.parameter_key = {N: {**tuned["dl"], "iterations": ITERATIONS}}
+        else:
+            fac = classes[family](device="cuda", batch_size=MAIN_BATCH)
+            fac.parameter_key = {N: {**tuned[family], "S": S, "iterations": ITERATIONS}}
+        module, function = modules[family]
+        with mock.patch.object(module, function,
+                               Recorded(getattr(module, function), keep=False)) as rec:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sol = fac(insts[family], seed=1, **call)
+            wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        _, start, end = rec.calls[-1]
+        kernel_ms = start.elapsed_time(end)
+        perf = sol.solution_performance
+        log(f"phase 15 (d) {label} façade, a (batch, n) S whose rows differ"
+            f"{', pump_ramp (2.0, 0.5)' if family == 'dl' else ''}, batch "
+            f"{MAIN_BATCH}, N={N}, {ITERATIONS} steps: wall {wall:.3f} s, kernel (CUDA "
+            f"events) {kernel_ms:.1f} ms against phase 6's scalar-S {main_ms[family]:.1f} "
+            f"ms ({kernel_ms / main_ms[family] - 1:+.2%}); P(0.1%)={perf['optimal']:.4f} "
+            f"P(1%)={perf['one_percent']:.4f}")
+        if len(rec.calls) != 1 or not np.all(np.isfinite(sol.objective_values)):
+            failures.append(f"phase 15 (d) {label}: {len(rec.calls)} launches, objective "
+                            f"values finite: {np.all(np.isfinite(sol.objective_values))}")
+        del sol, fac
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s; launches {launched}")
+    return launched, main_times
+
+
 def main(cleanup):
     """Every phase; ``cleanup`` (a contextlib.ExitStack) stops the worker
     processes when the run ends or fails."""
@@ -1311,18 +1559,18 @@ def main(cleanup):
                "pumped_langevin_solve": None,
                "pumped_langevin_adam_solve": lgv_adam["pumped"].to_hyperparameters()}
 
-    def feature_spec(kname, noise, cols, seg):
-        """The build of a kernel that phase 12 launches: ``cols`` its
+    def feature_spec(kname, noise, cols, seg, elem=False):
+        """The build of a kernel that phases 12 and 15 launch: ``cols`` its
         per-column S (DL: 1 at pump > 1, 2 at pump <= 1), ``seg`` a segment
-        launch."""
+        launch, ``elem`` (with ``cols``) its per-element S."""
         hp, ns = main_hp[kname], 1.0 if noise else 0.0
         family = kname.split("_")[0]
         if family == "dl":
-            return dl_kernels._spec(N, hp, ns, "popcount16", True, cols, seg)
+            return dl_kernels._spec(N, hp, ns, "popcount16", True, cols, seg, elem)
         if family == "mf":
-            return mf_kernels._spec(N, hp, ns, "popcount32", bool(cols), seg)
+            return mf_kernels._spec(N, hp, ns, "popcount32", bool(cols), seg, elem)
         return langevin_kernels._spec(N, hp, ns, "popcount32", pumped=family == "pumped",
-                                      cols=bool(cols), seg=seg)
+                                      cols=bool(cols), seg=seg, elem=elem)
 
     # Phase 12's builds, (kernel, noise, cols, seg): segments with the noise
     # on (a, b), a per-column S with the noise off and on (c; DL also at
@@ -1333,6 +1581,13 @@ def main(cleanup):
                                  (True, 1, True))
     } | {(k, noise, 2, False) for k in ("dl_solve", "dl_adam_solve")
          for noise in (False, True)})
+    # Phase 15's per-element builds, (kernel, noise, cols, seg, elem): noise
+    # off and on, DL also at pump 0.9 (cols 2); its per-column and scalar
+    # ones are phase 12's and 7's.
+    feature_builds += sorted(
+        {(k, noise, 1, False, True) for k in main_hp for noise in (False, True)}
+        | {(k, noise, 2, False, True) for k in ("dl_solve", "dl_adam_solve")
+           for noise in (False, True)})
     specs += [feature_spec(*case) for case in feature_builds]
     # The race harness's variants: (v3, fuse, unroll, rng name) of phase 8's
     # noise-off holds (rng unused), its noise-on holds and its race rows.
@@ -1455,30 +1710,33 @@ def main(cleanup):
         if fam != "MF" and rep is not None and \
                 "0 bytes spill stores, 0 bytes spill loads" not in report:
             failures.append(f"{label} spills: {report}")
-    # Phase 12's builds: registers, spills and residency; no Langevin-family
-    # build may spill.
-    for kname, noise, cols, seg in feature_builds:
-        fs = feature_spec(kname, noise, cols, seg)
+    # Phase 12's and 15's builds: registers, spills and residency; no
+    # Langevin-family build of phase 12 may spill (the per-element builds
+    # read S from global memory and are reported: speed is later work).
+    for kname, noise, cols, seg, *elem in feature_builds:
+        elem = bool(elem and elem[0])
+        fs = feature_spec(kname, noise, cols, seg, elem)
         family, hp = kname.split("_")[0], main_hp[kname]
         ns = 1.0 if noise else 0.0
         if family == "dl":
-            blocks = dl_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=cols, seg=seg)
+            blocks = dl_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=cols, seg=seg,
+                                              elem=elem)
             shape = build.dl_launch_shape(N, hp is not None, True, cols)
         elif family == "mf":
             blocks = mf_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=bool(cols),
-                                              seg=seg)
+                                              seg=seg, elem=elem)
             shape = build.mf_launch_shape(N, hp is not None, bool(cols))
         else:
             blocks = langevin_kernels.blocks_per_sm(
                 N, pumped=family == "pumped", noise_scale=ns, hp=hp, cols=bool(cols),
-                seg=seg)
+                seg=seg, elem=elem)
             shape = build.langevin_launch_shape(N, hp is not None, bool(cols))
         rep = reports.get(fs)
         report = build.kernel_report(rep) if rep else "built before this run"
-        log(f"  {kname} noise {int(noise)} cols {cols} seg {int(seg)} ({fs.tag()}): "
-            f"{report}; {blocks} blocks per SM of {shape.threads} threads, "
+        log(f"  {kname} noise {int(noise)} cols {cols} seg {int(seg)} elem {int(elem)} "
+            f"({fs.tag()}): {report}; {blocks} blocks per SM of {shape.threads} threads, "
             f"{shape.smem} bytes of shared memory a block")
-        if family in ("langevin", "pumped") and rep is not None and \
+        if family in ("langevin", "pumped") and not elem and rep is not None and \
                 "0 bytes spill stores, 0 bytes spill loads" not in report:
             failures.append(f"{kname} (cols {cols}, seg {int(seg)}) spills: {report}")
     # Scaled instances on the card, through the user-facing entry points.
@@ -1659,11 +1917,8 @@ def main(cleanup):
     # in [0.5 S, 1.5 S], noise off and on (DL also at pump 0.9, with its
     # scalar-S kernel's plain version beside it); (d) DL's generalised ramps.
     p12_plan = DLSolver._evolution_sample_plan(P12_STEPS, P12_STEP)[1]
-    draw = np.random.RandomState(12)
-    scalar_S = {"dl": 1.0, "mf": mf_tuned["S"], "langevin": lgv_tuned["langevin"]["S"],
-                "pumped": lgv_tuned["pumped"]["S"]}
-    p12_S = {f: (s0 * draw.uniform(0.5, 1.5, N)).astype(np.float32)
-             for f, s0 in scalar_S.items()}
+    scalar_S = scalar_saturations(tuned_all)
+    p12_S = phase12_saturations(tuned_all)
     p12_fns = {  # family: (module, whole solve, sampled solve)
         "dl": (dl_kernels, "dl_solve", "dl_solve_sampled"),
         "mf": (mf_kernels, "mf_solve", "mf_solve_sampled"),
@@ -2684,6 +2939,16 @@ def main(cleanup):
     assert launched14 == only(**{k: launched14[k] for k in study_kernels}), launched14
     assert all(launched14[k] > 0 for k in study_kernels), launched14
 
+    log(f"phase 15 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 15. a (batch, n) S whose rows differ on every production kernel and
+    # the four façades
+    main_ms = {f: float(np.median(event_ms[label])) for f, label in (
+        ("dl", "DL"), ("mf", "MF (grad-descent)"), ("langevin", "langevin (grad-descent)"),
+        ("pumped", "pumped (grad-descent)"))}
+    launched15, _ = per_element_phase(tuned_all, main_ms, counters, failures)
+    assert launched15 == only(**{k: launched15[k] for k in main_hp}), launched15
+    assert all(launched15[k] > 0 for k in main_hp), launched15
+
     log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 11. bench_torch.py, in a child process that is waited for and killed
     # if the run fails
@@ -2717,7 +2982,8 @@ def main(cleanup):
             {"8": row["launches"]} if name_ in ("dl_v2", "dl_v3") else
             {"6": row["launches"], "10": launched_pp[name_],
              "11": launched_bench[name_], "12": launched12[name_],
-             "13": launched13[name_], "14": launched14[name_]})
+             "13": launched13[name_], "14": launched14[name_],
+             "15": launched15[name_]})
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

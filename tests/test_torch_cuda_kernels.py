@@ -722,6 +722,139 @@ def test_constant_s_vector_equals_the_scalar_kernel(kname):
                zip(_as_tuple(whole(4, q, v, p, **kw)), _as_tuple(whole(4, q, v, pc, **kw))))
 
 
+# A per-element S (the per-element builds, csrc/*.cu CCVM_ELEM) and MF's
+# per-column S by its reciprocals.
+_FEATURE_BATCH = 100  # _feature_case's batch
+
+
+def _element_s(kname, n, seed=15):
+    """A (batch, n) S whose rows differ around the family's scalar S: rows
+    scaled over [0.75, 1.25], each element by a factor in [0.9, 1.1],
+    drawn from ``seed``."""
+    family = kname.split("_")[0]
+    scalar_s = {"dl": 1.0, "mf": 20.0, "langevin": 0.5, "pumped": 0.5}[family]
+    rng = np.random.default_rng(seed)
+    rows = np.linspace(0.75, 1.25, _FEATURE_BATCH)[:, None] * rng.uniform(0.9, 1.1, n)
+    return (scalar_s * rows * rng.uniform(0.9, 1.1, (_FEATURE_BATCH, n))).astype(np.float32)
+
+
+_PER_ELEMENT_CASES = [
+    (k, n) for n in (20, 70)
+    for k in sorted(_FEATURE_KERNELS) + ["dl_solve pump 0.9", "dl_adam_solve pump 0.9"]
+]
+# DL at pump 0.9 is chaotic (chip_smoke.py holds it over 50 steps in phases
+# 12 and 15): with this per-element S its kernel read 2.46e-4 from the plain
+# version after 120 steps at N=70, noise off (an NVIDIA H100 80GB HBM3 at
+# 700 W), so it is held over 50.
+_PER_ELEMENT_STEPS = {"dl_solve pump 0.9": 50}
+
+
+def _element_case(kname, n, S):
+    name, _, pump = kname.partition(" pump ")
+    return (name,) + _feature_case(name, n, pump=float(pump) if pump else None,
+                                   s_values=S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("kname,n", _PER_ELEMENT_CASES)
+def test_per_element_s_kernel_matches_plain(kname, n, noise_scale):
+    """The per-element build against its plain version on the card, its S
+    one an element with rows that differ (DL at pump 8, S in the final
+    clamp only, and at 0.9, S_d = S_ij in the drift too), at TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    name, q, v, p, kw = _element_case(kname, n, _element_s(kname, n))
+    assert tuple(p.S.shape) == (_FEATURE_BATCH, n)
+    whole, _, plain, _, _ = _FEATURE_KERNELS[name]
+    kw = dict(kw, iterations=_PER_ELEMENT_STEPS.get(kname, _FEATURE_ITERS),
+              noise_scale=noise_scale)
+    out = _as_tuple(whole(4, q, v, p, **kw))
+    ref = _as_tuple(plain(4, q, v, p, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in out)
+    assert max((a - b).abs().max().item() for a, b in zip(out, ref)) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kname", sorted(_FEATURE_KERNELS) + ["dl_solve pump 0.9",
+                                                              "dl_adam_solve pump 0.9"])
+def test_per_element_s_with_equal_rows_equals_the_per_column_kernel(kname):
+    """A (batch, n) S with equal rows run through the per-element build (the
+    façades take such an S to its row) gives the per-column build's result
+    bit for bit, whole and as segments; and the per-element segments end
+    where its whole launch ends, bit for bit (noise on)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    row = _element_s(kname, 70)[0]
+    name, q, v, pc, kw = _element_case(kname, 70, row)
+    pe = pc._replace(S=torch.from_numpy(np.tile(row, (_FEATURE_BATCH, 1))).cuda())
+    whole, sampled, _, _, _ = _FEATURE_KERNELS[name]
+    segments = DLSolver._evolution_sample_plan(_FEATURE_ITERS, 25)[1]
+    want = _as_tuple(whole(4, q, v, pc, iterations=_FEATURE_ITERS, **kw))
+    got = _as_tuple(whole(4, q, v, pe, iterations=_FEATURE_ITERS, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    (seg, _), (seg_c, _) = (sampled(4, q, v, p_, segments, **kw) for p_ in (pe, pc))
+    assert all(torch.equal(a, b) for a, b in zip(_as_tuple(seg), want))
+    assert all(torch.equal(a, b) for a, b in zip(_as_tuple(seg_c), want))
+    # Rows that differ: the segments against the whole per-element launch.
+    _, q, v, p, kw = _element_case(kname, 70, _element_s(kname, 70))
+    want = _as_tuple(whole(4, q, v, p, iterations=_FEATURE_ITERS, **kw))
+    seg, _ = sampled(4, q, v, p, segments, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(_as_tuple(seg), want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+def test_mf_per_column_kernel_by_reciprocals_equals_plain(noise_scale):
+    """MF's per-column build divides by S_j with div_rn and the reciprocals
+    of its wrapper; with chip_smoke.py phase 12's S (whose divisions
+    tests/test_torch_mf_redesign.py proves exact) it equals the plain
+    version bit for bit at N=70, batch 1024 (a shape where cuBLAS sums the
+    plain matmul over k in order), with the tuned parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    from test_torch_mf_redesign import _phase12_saturation
+
+    with open(os.path.join(REPO, "examples", "tuned_parameters.json")) as f:
+        t = json.load(f)["mf"]["70"]
+    solver = MFSolver(device="cuda")
+    inst = ProblemInstance(device="cuda", instance_type="tuning", file_path=os.path.join(
+        REPO, "examples", "benchmarking_instances", "Size70", "tuningH070-100-0.in"))
+    inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+    solver.solution_bounds = inst.solution_bounds
+    p = solver._make_params(t["pump"], _phase12_saturation(), t["dt"], t["j"],
+                            t["feedback_scale"], 0.01, 300)
+    kw = dict(iterations=300, batch_size=1024, pump_rate_flag=True, rng="popcount32",
+              noise_scale=noise_scale)
+    out = mf_kernels.mf_solve(4, inst.q_matrix, inst.v_vector, p, **kw)
+    ref = mf_kernels.mf_solve_reference(4, inst.q_matrix, inst.v_vector, p, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.cuda
+def test_the_derived_arrays_on_the_card_equal_the_hosts():
+    """The wrappers take S's derived arrays on the card (MF's 1/S, DL's
+    span / S, the Langevin family's span / (2 S)): each equals the IEEE
+    division on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    S = _element_s("mf_solve", 70) * np.float32(3.7)
+    f = np.float32
+    p = MFSolver(device="cuda")
+    p.solution_bounds = (0.0, 1.0)
+    params = p._make_params(0.5, torch.from_numpy(S).cuda(), 0.0025, 5.0, 4000.0, 0.01, 10)
+    arrays = {
+        "mf": (mf_kernels._columns(params, "cuda", 64, 72), f(1) / S),
+        "dl": (dl_kernels._columns(params, "cuda", 64, 72, 1), f(1) / S),
+        "langevin": (langevin_kernels._columns(params, "cuda", 128, 72),
+                     f(1) / (f(2) * S)),
+    }
+    for family, (arr, want) in arrays.items():
+        got = arr[1, :_FEATURE_BATCH, :70].cpu().numpy()
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), family
+
+
 # Sweeps and checkpoints on the card: the stacked launch at the Size70
 # instances' shape (batch 1000 leaves each instance's last block partial)
 # and the segment build of DL-Adam behind checkpointed_solve.

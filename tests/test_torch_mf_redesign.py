@@ -191,29 +191,65 @@ def test_per_solve_constants_round_as_the_plain_version():
 def div_rn_emulated(a32, b, inv):
     """csrc/ccvm_common.cuh ``div_rn(a, b, inv)`` on float32 ``a``, each of
     its three roundings (a product, then two FMAs) taken exactly: products
-    of two float32 are exact in float64, and the last sum is rounded once
-    (float64's rounding of it is corrected where it lands on a float32
-    tie)."""
+    of two float32 are exact in float64, and so is the residual a - q b;
+    the last sum is rounded once (float64's rounding of it is corrected
+    where it lands on a float32 tie: only there can rounding twice differ
+    from rounding once)."""
     a = a32.astype(np.float64)
     q = (a * np.float64(inv)).astype(np.float32).astype(np.float64)
     r = (a - q * np.float64(b)).astype(np.float32).astype(np.float64)
     prod = r * np.float64(inv)
     s = q + prod
-    bb = s - q
-    err = (q - (s - bb)) + (prod - bb)  # q + prod == s + err exactly
     f = s.astype(np.float32)
-    fd = f.astype(np.float64)
-    other = np.where(fd > s, np.nextafter(f, np.float32(-np.inf)),
-                     np.nextafter(f, np.float32(np.inf))).astype(np.float64)
-    tie = (s != fd) & (np.abs(s - fd) == np.abs(other - s)) & (err != 0)
-    return np.where(tie & (np.sign(other - s) == np.sign(err)),
-                    other.astype(np.float32), f)
+    # float64 values of normal float32 magnitude on a float32 tie: the 29
+    # bits below float32's precision are 1 then zeros.
+    at = np.flatnonzero((s.view(np.uint64) & np.uint64(0x1FFFFFFF)) ==
+                        np.uint64(0x10000000))
+    if at.size:
+        qt, pt, st = q[at], prod[at], s[at]
+        bb = st - qt
+        err = (qt - (st - bb)) + (pt - bb)  # q + prod == s + err exactly
+        ft = f[at]
+        fd = ft.astype(np.float64)
+        other = np.where(fd > st, np.nextafter(ft, np.float32(-np.inf)),
+                         np.nextafter(ft, np.float32(np.inf)))
+        fix = (err != 0) & (np.sign(other.astype(np.float64) - st) == np.sign(err))
+        f[at[fix]] = other[fix]
+    return f
+
+
+def _phase12_saturation():
+    """chip_smoke.py phase 12's per-column S of MF (the script loaded by
+    path; it imports no more at its top than the standard library)."""
+    import importlib.util
+    import json
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with open(os.path.join(repo, "examples", "tuned_parameters.json")) as f:
+        return smoke.phase12_saturations(json.load(f))["mf"]
 
 
 def _divisors(case):
     """(divisor, its reciprocal) pairs of the kernel, as its wrapper hands
-    them over: S and sqrt(dt) of the N=70 and N=20 parameters, and Adam's
-    bias corrections 1 - beta^(i+1) at some steps of a 15,000-step solve."""
+    them over: S and sqrt(dt) of the N=70 and N=20 parameters; Adam's bias
+    corrections 1 - beta^(i+1) at some steps of a 15,000-step solve; and the
+    per-column S_j of tests/test_torch_per_variable_s.py and chip_smoke.py
+    phase 12 with the reciprocals of the per-column build's array."""
+    if case == "S_j":
+        from test_torch_per_variable_s import S_VECTORS
+
+        pairs = []
+        for S in (S_VECTORS["mf"], _phase12_saturation()):
+            cols = mf_kernels._columns(_PARAMS._replace(S=common.saturation(S)), "cpu",
+                                       None, None).numpy()
+            assert np.array_equal(cols[0], S)
+            pairs += list(zip(cols[0], cols[1]))
+        return pairs
     if case in ("S", "sqrt_dt"):
         pairs = []
         for S in (130.0, 20.0):  # examples/tuned_parameters.json, tools/tpu_validate.py
@@ -228,12 +264,14 @@ def _divisors(case):
     return [(table[i, col], table[i, col + 1]) for i in (0, 1, 2, 9, 99, 999, 14999)]
 
 
-@pytest.mark.parametrize("case", ["S", "sqrt_dt", "beta1", "beta2"])
+@pytest.mark.parametrize("case", ["S", "sqrt_dt", "beta1", "beta2", "S_j"])
 def test_division_by_a_known_divisor_rounds_as_ieee(case):
-    """The kernel divides by S, sqrt(dt) and Adam's bias corrections as
-    ``div_rn``: the product by the rounded reciprocal and Markstein's one
-    FMA correction.  Over every float32 significand of a (the quotient's
-    significand depends on no more), it rounds as the IEEE division."""
+    """The kernel divides by S, sqrt(dt) and Adam's bias corrections, and
+    the per-column build by each S_j, as ``div_rn``: the product by the
+    rounded reciprocal and Markstein's one FMA correction.  Over every
+    float32 significand of a (the quotient's significand depends on no
+    more), it rounds as the IEEE division.  (The V term's division by 2 S_j
+    with inv_j / 2 scales every step by 2, exactly: it rounds as S_j's.)"""
     sig = (np.arange(2 ** 23, dtype=np.uint32) | np.uint32(0x3F800000)).view(np.float32)
     for b, inv in _divisors(case):
         assert inv == np.float32(1.0) / b

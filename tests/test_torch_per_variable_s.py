@@ -97,9 +97,10 @@ def test_wrong_length_s_raises_the_jax_error(family):
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_two_dimensional_s(tmp_path, family):
-    """A (batch, n) S with equal rows is its row; rows that differ are not
-    ported and raise naming their ROADMAP item, taking no other path."""
+def test_two_dimensional_s(noise_off, tmp_path, family):  # noqa: F811
+    """A (batch, n) S with equal rows is its row; rows that differ are one S
+    an element and give the JAX façade's objective values and statistics
+    (tests/test_torch_per_element_s.py holds the rest of that build)."""
     from ccvm_tpu_torch import ProblemInstance
 
     S = S_VECTORS[family]
@@ -114,10 +115,11 @@ def test_two_dimensional_s(tmp_path, family):
     assert np.array_equal(results[0], results[1])
     rows = np.outer(np.linspace(1.0, 1.5, 8, dtype=np.float32), S)
     kwargs, pkey = _with_s(family, rows)
-    solver = tcls(device="cpu", batch_size=8, **kwargs)
-    solver.parameter_key = pkey
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 14"):
-        solver(inst, seed=1, **base)
+    (_, jsol), (_, tsol) = solve_pair(family, tmp_path, batch=8, solver_kwargs=kwargs,
+                                      params=pkey)
+    np.testing.assert_allclose(np.asarray(tsol.objective_values),
+                               np.asarray(jsol.objective_values), rtol=1e-4)
+    assert tsol.solution_performance == jsol.solution_performance
 
 
 def test_interop_carries_a_ramp_and_a_vector_s():
@@ -146,5 +148,6 @@ def test_interop_carries_a_ramp_and_a_vector_s():
                                                noise_scale=0.0, **kw)
         np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
-    with pytest.raises(ValueError, match="equal rows"):
-        interop.dl_params_from_numpy(*jp._replace(S=np.outer(np.arange(16), S)))
+    rows = np.outer(np.arange(1, 17, dtype=np.float32), S)
+    carried = interop.dl_params_from_numpy(*jp._replace(S=rows))
+    assert isinstance(carried.S, torch.Tensor) and np.array_equal(carried.S.numpy(), rows)
