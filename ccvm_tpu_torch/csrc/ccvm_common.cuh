@@ -30,7 +30,18 @@ enum Rng { kPopcount32 = 0, kPopcount16 = 1, kPopcount = 2, kBoxMuller = 3 };
 // step loop itself counts from 0, as a whole solve's does (an absolute loop
 // index cost pumped Langevin a spill).  The host passes the same layout
 // (ops/build.py Segment); the kernel takes it by value, in the constant
-// bank.
+// bank.  Every launch carries one (a whole solve's is zero but for
+// `total` and `first_block`).
+//
+// A data-parallel rank's launch (ccvm_tpu_torch/parallel) holds the rows
+// row_base .. row_base + batch - 1 of a wider solve: its entry point starts
+// the grid row_base / rows_per_block blocks early (row_base is a multiple of
+// the block's rows), those blocks return at once (`first_block`), and the
+// output and state pointers are shifted back by row_base rows.  Every other
+// block computes its rows' global ids from blockIdx as a launch of the whole
+// batch does, so its Philox counters are the single launch's, and the step
+// loop is not touched (a row offset added in it spilled the DL-Adam and MF
+// builds).
 struct Segment {
   const float* in[6];  // the state at step `start`, in the kernel's order;
                        // in[0] nullptr: the solve's initial state
@@ -38,7 +49,17 @@ struct Segment {
   float* clamped;      // DL: c clamped to +-S at the end (nullptr: none)
   int start;           // absolute step of the launch's first step
   int total;           // the whole solve's steps (rows of the step table)
+  int first_block;     // blocks below it hold no row of the launch
 };
+
+// `p` shifted back by `rows` rows of `n` floats (a data-parallel launch's
+// outputs and state, indexed by global row); nullptr stays nullptr.
+template <class T>
+inline T* shifted(T* p, int rows, int n) {
+  return p == nullptr ? p
+                      : reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) -
+                                             (uintptr_t)rows * (uintptr_t)n * sizeof(float));
+}
 
 // Philox streams (counter word 3) a pair transform consumes per element.
 __host__ __device__ constexpr int streams_of(int rng) {
@@ -77,6 +98,22 @@ __device__ __forceinline__ unsigned word_of(const uint4& v, int j) {
 
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// The Philox words of one element of a one-step launch (the CCVM_EXT
+// builds of each template, for a tensor-parallel solve), at its global row
+// and column: the counter is (step, row, column / 4, stream) and the word
+// column % 4, as every whole-solve launch draws them.
+template <int NS>
+__device__ __forceinline__ void element_words(unsigned* w, int step, int row, int col,
+                                              unsigned long long seed) {
+  const uint2 key = seed_key(seed, 0);
+#pragma unroll
+  for (int st = 0; st < NS; ++st)
+    w[st] = word_of(philox4x32_10(make_uint4((unsigned)step, (unsigned)row,
+                                             (unsigned)col >> 2, (unsigned)st),
+                                  key),
+                    col & 3);
 }
 
 // The four Wiener transforms of pallas_kernels.py:152-254 on Philox words

@@ -121,6 +121,16 @@
 //     the per-column build's result bit for bit.
 // The CUDA-core design (MMA = 0, the race row) takes none of them.
 //
+// For a mesh (ccvm_tpu_torch/parallel): every launch takes a row base, the
+// global row of its trajectory 0; its grid starts that many rows early and
+// the blocks below return at once (ccvm_common.cuh Segment), so a
+// data-parallel rank's rows draw what those rows of one launch draw; and CCVM_EXT 1
+// builds one step of a tensor-parallel solve instead of the whole-solve
+// kernel (dl_step_kernel, ccvm_dl_step): the matvec comes from a buffer,
+// reduce-scattered by the engine, and the step is element_step at the
+// element's global row and column; what bounds it is bytes (the state, the
+// matvec and the next input, once each).
+//
 // Philox, the Wiener transforms, the clip and the CUDA-core launch shape are
 // shared with the other kernels through ccvm_common.cuh.  Specialisations
 // (the template parameters) are chosen at build time with -D flags by
@@ -735,6 +745,7 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                 Segment sg) {
   extern __shared__ __align__(16) float smem[];
   static_assert(MMA || (COLS == 0 && !SEG), "the CUDA-core design takes neither flag");
+  if ((int)blockIdx.x < sg.first_block) return;  // rows below the launch's
   static_assert(!ELEM || COLS, "a per-element S is a build of the per-column one");
   if constexpr (MMA)
     dl_mma_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG, NT, COLS, SEG, ELEM>(
@@ -742,6 +753,64 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   else
     dl_core_body<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE, RNG>(
         q, v, steps, c_out, s_out, batch, n, iterations, seed, p, smem);
+}
+
+// ------------------------------------------------------------- CCVM_EXT
+
+// One step of a tensor-parallel DL solve (ccvm_tpu_torch/parallel/tp.py) on
+// a rank's (batch, nl) shard of the state, one thread an element.  The
+// matvec is not computed here: mv holds the reduce-scattered (x_c @ Q,
+// x_s @ Q) at the shard's rows and columns, (2, batch, nl), which the
+// engine's matmul and collective made from x.  The step is element_step,
+// the whole solve's arithmetic, with the feedback fbscale mv + V span /
+// (2 S_d) (the whole solve adds the box midpoint's share by Q's column
+// sums; here it is inside mv, whose x is not centred), and the draws of the
+// element's global row and column.  It writes the next step's matvec input
+// x = z span/S_d + (u+l) of c and s into x_out (2, batch, nl); step < 0
+// writes only that, for the engine's first matvec.  state is (c, s[, m_c,
+// v_c, m_s, v_s]), each (batch, nl), updated in place.
+template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG>
+__global__ void __launch_bounds__(256)
+dl_step_kernel(const float* __restrict__ mv, const float* __restrict__ v,
+               const float4* __restrict__ steps, float* __restrict__ state,
+               float* __restrict__ x_out, int batch, int nl, int col_base,
+               int row_base, int step, unsigned long long seed, DLScalars p) {
+  const size_t count = (size_t)batch * nl;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  const int j = (int)(e % nl);
+  float c = state[e], s = state[count + e];
+  if (step >= 0) {
+    const StepScalars st = step_scalars<ADAM>(steps, step);
+    float z1 = 0.0f, z2 = 0.0f;
+    if (NOISE) {
+      constexpr int NS = streams_of(RNG);
+      unsigned w[NS];
+      element_words<NS>(w, step, row_base + (int)(e / nl), col_base + j, seed);
+      normal_pair<RNG>(w, z1, z2);
+    }
+    const float g3 = v[j] * (p.hi - p.lo) / (2.0f * p.S_d);
+    float mc = 0.0f, vc = 0.0f, ms = 0.0f, vs = 0.0f;
+    if (ADAM) {
+      mc = state[2 * count + e];
+      vc = state[3 * count + e];
+      ms = state[4 * count + e];
+      vs = state[5 * count + e];
+    }
+    element_step<ADAM, BETA2_ONE, ADD_ASSIGN, NOISE>(
+        c, s, fmaf(mv[e], p.fbscale, g3), fmaf(mv[count + e], p.fbscale, g3), z1, z2,
+        mc, vc, ms, vs, st, p);
+    state[e] = c;
+    state[count + e] = s;
+    if (ADAM) {
+      state[2 * count + e] = mc;
+      state[3 * count + e] = vc;
+      state[4 * count + e] = ms;
+      state[5 * count + e] = vs;
+    }
+  }
+  x_out[e] = c * p.xscale + p.mid;
+  x_out[count + e] = s * p.xscale + p.mid;
 }
 
 }  // namespace
@@ -776,6 +845,46 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_ELEM
 #define CCVM_ELEM 0
 #endif
+#ifndef CCVM_EXT
+#define CCVM_EXT 0
+#endif
+
+#if CCVM_EXT
+
+namespace {
+
+auto const kStep = &dl_step_kernel<CCVM_ADAM != 0, CCVM_BETA2_ONE != 0,
+                                   CCVM_ADD_ASSIGN != 0, CCVM_NOISE != 0, CCVM_RNG>;
+
+}  // namespace
+
+extern "C" {
+
+// One step of a tensor-parallel solve (dl_step_kernel): mv (2, batch, nl)
+// (unread when step < 0), v (nl) the shard's V, steps the whole solve's
+// (total, 8) table, state (2 or 6, batch, nl) updated in place, x_out
+// (2, batch, nl): float32, contiguous, on the device.  The shard's row 0
+// and column 0 are the global row_base and col_base.  scalars: 20 host
+// floats in DLScalars order.  Launches on `stream`, does not synchronise,
+// and returns the cudaError_t of the launch.
+int ccvm_dl_step(const float* mv, const float* v, const float* steps, float* state,
+                 float* x_out, int batch, int nl, int col_base, int row_base, int step,
+                 int total, unsigned long long seed, const float* scalars,
+                 void* stream) {
+  DLScalars p;
+  memcpy(&p, scalars, sizeof(DLScalars));
+  if (batch < 1 || nl < 1 || step >= total || (step >= 0 && mv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t count = (size_t)batch * nl;
+  kStep<<<(unsigned)((count + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      mv, v, reinterpret_cast<const float4*>(steps), state, x_out, batch, nl, col_base,
+      row_base, step, seed, p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+#else
 
 namespace {
 
@@ -813,14 +922,18 @@ extern "C" {
 // one (S_ij and span/S_ij in, the kernel's offsets after them; rows: the
 // batch padded to whole blocks); else unused.  seg: a host Segment of a CCVM_SEG build
 // (state in c, s, m_c, v_c, m_s, v_s; moments out m_c, v_c, m_s, v_s), else
-// nullptr.  Launches on `stream`, does not synchronise, and returns the
+// nullptr.  row_base: the global row of trajectory 0 (a data-parallel
+// rank's first row; a multiple of rows_per_block, and one instance): c_out,
+// s_out and seg's arrays hold its rows only, and a CCVM_ELEM cols array has
+// row_base leading rows (ccvm_common.cuh Segment).  Launches on `stream`,
+// does not synchronise, and returns the
 // cudaError_t of the launch.
 int ccvm_dl_solve(const float* q, const float* v, const float* steps,
                   float* c_out, float* s_out, int num_instances, int batch,
                   int n, int iterations,
                   unsigned long long seed, const float* scalars,
                   int rows_per_block, void* stream, const float* cols,
-                  const void* seg) {
+                  const void* seg, int row_base) {
   DLScalars p;
   memcpy(&p, scalars, sizeof(DLScalars));
   Segment sg = {};
@@ -829,8 +942,20 @@ int ccvm_dl_solve(const float* q, const float* v, const float* steps,
   int threads;
   long long smem;
   if ((seg != nullptr) != kSeg || (CCVM_COLS != 0 && cols == nullptr) ||
-      dl_launch_shape(n, rows_per_block, &threads, &smem))
+      dl_launch_shape(n, rows_per_block, &threads, &smem) || row_base < 0 ||
+      row_base % rows_per_block != 0 || (row_base != 0 && num_instances != 1))
     return (int)cudaErrorInvalidConfiguration;
+  // Rows indexed globally (ccvm_common.cuh Segment): the grid starts
+  // row_base / rows_per_block blocks early and the arrays are shifted back.
+  sg.first_block = row_base / rows_per_block;
+  for (int a = 0; a < 6; ++a) {
+    sg.in[a] = shifted(sg.in[a], row_base, n);
+    sg.out[a] = shifted(sg.out[a], row_base, n);
+  }
+  sg.clamped = shifted(sg.clamped, row_base, n);
+  c_out = shifted(c_out, row_base, n);
+  s_out = shifted(s_out, row_base, n);
+  batch += row_base;
   cudaError_t err = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -857,3 +982,5 @@ int ccvm_dl_blocks_per_sm(int n, int rows_per_block, int* blocks) {
 }
 
 }  // extern "C"
+
+#endif  // CCVM_EXT

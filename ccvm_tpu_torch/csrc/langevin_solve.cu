@@ -100,6 +100,16 @@
 //     so none is kept in registers or shared memory.  Pumped's V scale_ij
 //     is the product the per-column build takes once, taken each step, so
 //     equal rows give the per-column build's result bit for bit.
+// For a mesh (ccvm_tpu_torch/parallel): every launch takes a row base, the
+// global row of its trajectory 0; its grid starts that many rows early and
+// the blocks below return at once (ccvm_common.cuh Segment), so a
+// data-parallel rank's rows draw what those rows of one launch draw; and
+// CCVM_EXT 1 builds one step of a tensor-parallel
+// solve instead of the whole-solve kernel (langevin_step_kernel, ccvm_langevin_step):
+// the matvec comes from a buffer, reduce-scattered by the engine, and the
+// step takes the whole solve's arithmetic at the element's global row and
+// column; what bounds it is bytes (the state, the matvec and the next
+// input, once each).
 // Specialisations are chosen at build time with -D flags by
 // ccvm_tpu_torch/ops/build.py (the pump schedule is in the table, so one
 // library serves both); each build exports ccvm_langevin_solve and
@@ -235,6 +245,7 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                       int batch, int n, int iterations, unsigned long long seed,
                       LangevinScalars p, const float* __restrict__ cols, Segment sg) {
   extern __shared__ __align__(16) float smem[];
+  if ((int)blockIdx.x < sg.first_block) return;  // rows below the launch's
   constexpr int TC = NP / kGroups;
   constexpr int TR = rows_per_thread(ADAM, TC);
   constexpr int R = kRowGroups * TR;
@@ -439,6 +450,48 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   }
 }
 
+// One step of a tensor-parallel Langevin or pumped-Langevin solve
+// (ccvm_tpu_torch/parallel/tp.py) on a rank's (batch, nl) shard of the
+// state, one thread an element.  The matvec is not computed here: mv
+// (batch, nl) holds the reduce-scattered x @ Q at the shard's rows and
+// columns, which the engine's matmul and collective made from x.  The step
+// is element_step, the whole solve's arithmetic (scalar S), at the draw of
+// the element's global row and column; it writes the next step's matvec
+// input x = c scale + (u+l)/2 into x_out (batch, nl).  step < 0 writes only
+// that, for the engine's first matvec.  state is (c[, m, v]), each
+// (batch, nl), updated in place.
+template <bool PUMPED, bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG>
+__global__ void __launch_bounds__(256)
+langevin_step_kernel(const float* __restrict__ mv, const float* __restrict__ v,
+                     const float4* __restrict__ steps, float* __restrict__ state,
+                     float* __restrict__ x_out, int batch, int nl, int col_base,
+                     int row_base, int step, unsigned long long seed, LangevinScalars p) {
+  const size_t count = (size_t)batch * nl;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  const int j = (int)(e % nl);
+  float c = state[e];
+  if (step >= 0) {
+    const StepScalars st = step_scalars<ADAM, BETA2_ONE>(steps, step);
+    float w = 0.0f;
+    if (NOISE) {
+      constexpr int NS = streams_one_of(RNG);
+      unsigned words[NS];
+      element_words<NS>(words, step, row_base + (int)(e / nl), col_base + j, seed);
+      w = __fmul_rn(normal_one<RNG>(words), p.noise_scale);
+    }
+    float m = ADAM ? state[count + e] : 0.0f, v2 = ADAM ? state[2 * count + e] : 0.0f;
+    c = element_step<PUMPED, ADAM, BETA2_ONE, ADD_ASSIGN, NOISE>(
+        c, mv[e], PUMPED ? __fmul_rn(v[j], p.scale) : v[j], p.scale, p.S, w, m, v2, st, p);
+    state[e] = c;
+    if (ADAM) {
+      state[count + e] = m;
+      state[2 * count + e] = v2;
+    }
+  }
+  x_out[e] = x_of(c, p.scale, p);
+}
+
 }  // namespace
 
 #ifndef CCVM_PUMPED
@@ -471,6 +524,47 @@ langevin_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_ELEM
 #define CCVM_ELEM 0
 #endif
+#ifndef CCVM_EXT
+#define CCVM_EXT 0
+#endif
+
+#if CCVM_EXT
+
+namespace {
+
+auto const kStep =
+    &langevin_step_kernel<CCVM_PUMPED != 0, CCVM_ADAM != 0, CCVM_BETA2_ONE != 0,
+                          CCVM_ADD_ASSIGN != 0, CCVM_NOISE != 0, CCVM_RNG>;
+
+}  // namespace
+
+extern "C" {
+
+// One step of a tensor-parallel solve (langevin_step_kernel): mv
+// (batch, nl) (unread when step < 0), v (nl) the shard's V, steps the whole
+// solve's (total, 8) table, state (1 or 3, batch, nl) updated in place,
+// x_out (batch, nl): float32, contiguous, on the device.  The shard's row 0
+// and column 0 are the global row_base and col_base.  scalars: 13 host
+// floats in LangevinScalars order.  Launches on `stream`, does not
+// synchronise, and returns the cudaError_t of the launch.
+int ccvm_langevin_step(const float* mv, const float* v, const float* steps, float* state,
+                       float* x_out, int batch, int nl, int col_base, int row_base,
+                       int step, int total, unsigned long long seed,
+                       const float* scalars, void* stream) {
+  LangevinScalars p;
+  memcpy(&p, scalars, sizeof(LangevinScalars));
+  if (batch < 1 || nl < 1 || step >= total || (step >= 0 && mv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t count = (size_t)batch * nl;
+  kStep<<<(unsigned)((count + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      mv, v, reinterpret_cast<const float4*>(steps), state, x_out, batch, nl, col_base,
+      row_base, step, seed, p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+#else
 
 namespace {
 
@@ -501,13 +595,17 @@ extern "C" {
 // order.  cols: the (2, n) per-column S_j and scale_j of a CCVM_COLS build,
 // the (2, rows, NP) S_ij and scale_ij of a CCVM_ELEM one (rows: the batch
 // padded to whole blocks), else unused.  seg: a host Segment of a CCVM_SEG build (state in c, m, v;
-// moments out m, v), else nullptr.  Launches on `stream`, does not
-// synchronise, and returns the cudaError_t of the launch.
+// moments out m, v), else nullptr.  row_base: the global row of trajectory
+// 0 (a data-parallel rank's first row; a multiple of the block's rows, and
+// one instance): c_out and seg's arrays hold its rows only, and a
+// CCVM_ELEM cols array has row_base leading rows (ccvm_common.cuh
+// Segment).  Launches on `stream`, does not synchronise, and returns the
+// cudaError_t of the launch.
 int ccvm_langevin_solve(const float* q, const float* v, const float* steps,
                         float* c_out, int num_instances, int batch, int n,
                         int iterations, unsigned long long seed,
                         const float* scalars, int rows_per_block, void* stream,
-                        const float* cols, const void* seg) {
+                        const float* cols, const void* seg, int row_base) {
   LangevinScalars p;
   memcpy(&p, scalars, sizeof(LangevinScalars));
   Segment sg = {};
@@ -516,8 +614,18 @@ int ccvm_langevin_solve(const float* q, const float* v, const float* steps,
   int threads, rows;
   long long smem;
   if ((seg != nullptr) != kSeg || (kCols && cols == nullptr) ||
-      launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
+      launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block || row_base < 0 ||
+      row_base % rows != 0 || (row_base != 0 && num_instances != 1))
     return (int)cudaErrorInvalidConfiguration;
+  // Rows indexed globally (ccvm_common.cuh Segment): the grid starts
+  // row_base / rows blocks early and the arrays are shifted back.
+  sg.first_block = row_base / rows;
+  for (int a = 0; a < 6; ++a) {
+    sg.in[a] = shifted(sg.in[a], row_base, n);
+    sg.out[a] = shifted(sg.out[a], row_base, n);
+  }
+  c_out = shifted(c_out, row_base, n);
+  batch += row_base;
   cudaError_t err = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -544,3 +652,5 @@ int ccvm_langevin_blocks_per_sm(int n, int* blocks) {
 }
 
 }  // extern "C"
+
+#endif  // CCVM_EXT

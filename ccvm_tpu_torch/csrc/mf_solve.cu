@@ -109,6 +109,16 @@
 //     memory) by div_rn, as the per-column build takes it once.  Every
 //     division is div_rn, so equal rows give the per-column build's result
 //     bit for bit.
+// For a mesh (ccvm_tpu_torch/parallel): every launch takes a row base, the
+// global row of its trajectory 0; its grid starts that many rows early and
+// the blocks below return at once (ccvm_common.cuh Segment), so a
+// data-parallel rank's rows draw what those rows of one launch draw; and
+// CCVM_EXT 1 builds one step of a tensor-parallel
+// solve instead of the whole-solve kernel (mf_step_kernel, ccvm_mf_step):
+// the matvec comes from a buffer, reduce-scattered by the engine, and the
+// step takes the whole solve's arithmetic at the element's global row and
+// column; what bounds it is bytes (the state, the matvec and the next
+// input, once each).
 // Specialisations are chosen at build time with -D flags by
 // ccvm_tpu_torch/ops/build.py; each build exports ccvm_mf_solve and
 // ccvm_mf_blocks_per_sm.
@@ -243,6 +253,7 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                 int batch, int n, int iterations, unsigned long long seed,
                 MFScalars p, const float* __restrict__ cols, Segment sg) {
   extern __shared__ __align__(16) float smem[];
+  if ((int)blockIdx.x < sg.first_block) return;  // rows below the launch's
   constexpr int np = NP;
   constexpr int ks = np + 4;  // x row stride: spreads two row groups over banks
   constexpr int groups = np / TC;
@@ -525,6 +536,84 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
   }
 }
 
+// One step of a tensor-parallel MF solve (ccvm_tpu_torch/parallel/tp.py) on
+// a rank's (batch, nl) shard of the state, one thread an element.  The
+// matvec is not computed here: mv (batch, nl) holds the reduce-scattered
+// x @ Q at the shard's rows and columns, which the engine's matmul and
+// collective made from x.  The step takes mf_solve_kernel's element update
+// (the same operations in the same order, scalar S), at the draws of the
+// element's global row and column, stores the step's measured mu_tilde (the
+// readout of the last step), then measures the next step (its own draw, its
+// sqrt(1/(4 j))) and writes its matvec input x = mu_tilde_c span/S + (u+l)
+// into x_out (batch, nl), the change of variables that depends on the next
+// step's draw.  step < 0 writes only step 0's x, for the engine's first
+// matvec.  state is (mu, sigma, mu_tilde[, m, v]), each (batch, nl),
+// updated in place.
+template <bool ADAM, bool BETA2_ONE, bool ADD_ASSIGN, bool NOISE, int RNG>
+__global__ void __launch_bounds__(256)
+mf_step_kernel(const float* __restrict__ mv, const float* __restrict__ v,
+               const float4* __restrict__ steps, float* __restrict__ state,
+               float* __restrict__ x_out, int batch, int nl, int col_base,
+               int row_base, int step, int total, unsigned long long seed,
+               MFScalars p) {
+  const size_t count = (size_t)batch * nl;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  const int j = (int)(e % nl);
+  const int row = row_base + (int)(e / nl), col = col_base + j;
+  // Step i's w / sqrt(dt) and measured field of mu.
+  const auto w_inc = [&](int i) -> float {
+    if (!NOISE) return 0.0f;
+    constexpr int NS = streams_one_of(RNG);
+    unsigned w[NS];
+    element_words<NS>(w, i, row, col, seed);
+    return div_rn(__fmul_rn(normal_one<RNG>(w), p.noise_scale), p.sqrt_dt, p.inv_sqrt_dt);
+  };
+  const auto measured = [&](float m, int i, float wi) -> float {
+    return NOISE ? __fadd_rn(m, __fmul_rn(__ldg(steps + 3 * i).x, wi)) : m;
+  };
+  float mu = state[e], sg = state[count + e];
+  if (step >= 0) {
+    const float wi = w_inc(step);
+    state[2 * count + e] = measured(mu, step, wi);
+    const StepScalars st = step_scalars<ADAM, BETA2_ONE>(steps, step);
+    const float vt = __fdiv_rn(__fmul_rn(-v[j], p.span), __fmul_rn(2.0f, p.S));
+    const float m = mu;
+    const float mu_pow = __fmul_rn(m, m);
+    const float fb = __fadd_rn(div_rn(__fmul_rn(mv[e], p.fbspan), p.S, p.inv_S), vt);
+    const float sd = __fsub_rn(sg, 0.5f);
+    const float mu_term1 = __fmul_rn(__fsub_rn(st.k1, __fmul_rn(p.g_sq, mu_pow)), m);
+    const float drift_sigma = __fadd_rn(
+        __fadd_rn(
+            __fmul_rn(__fsub_rn(__fmul_rn(2.0f, st.k1), __fmul_rn(p.g_sq6, mu_pow)), sg),
+            __fmul_rn(st.two_j, __fmul_rn(sd, sd))),
+        __fadd_rn(st.one_j, __fmul_rn(p.g_sq2, mu_pow)));
+    const float grad = __fmul_rn(p.fs, fb);
+    const float diffusion = __fmul_rn(__fmul_rn(st.sqrt_j, sd), wi);
+    float drift;
+    if (ADAM) {
+      float mm = state[3 * count + e], vv = state[4 * count + e];
+      const float eff =
+          adam<BETA2_ONE, ADD_ASSIGN>(grad, mm, vv, st.b1i, st.inv_b1i, st.b2i, st.inv_b2i, p);
+      drift = __fadd_rn(eff, NOISE ? __fadd_rn(mu_term1, diffusion) : mu_term1);
+      state[3 * count + e] = mm;
+      state[4 * count + e] = vv;
+    } else {
+      drift = __fadd_rn(mu_term1, grad);
+      if (NOISE) drift = __fadd_rn(drift, diffusion);
+    }
+    mu = clip(__fadd_rn(m, __fmul_rn(p.dt, drift)), kSafetyBound);
+    sg = __fadd_rn(sg, __fmul_rn(p.dt, drift_sigma));
+    state[e] = mu;
+    state[count + e] = sg;
+  }
+  const int next = step + 1;
+  if (next < total) {
+    const float mt_c = clip(measured(mu, next, w_inc(next)), p.S);
+    x_out[e] = __fadd_rn(div_rn(__fmul_rn(mt_c, p.span), p.S, p.inv_S), p.mid);
+  }
+}
+
 }  // namespace
 
 #ifndef CCVM_ADAM
@@ -554,6 +643,46 @@ mf_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
 #ifndef CCVM_ELEM
 #define CCVM_ELEM 0
 #endif
+#ifndef CCVM_EXT
+#define CCVM_EXT 0
+#endif
+
+#if CCVM_EXT
+
+namespace {
+
+auto const kStep = &mf_step_kernel<CCVM_ADAM != 0, CCVM_BETA2_ONE != 0,
+                                   CCVM_ADD_ASSIGN != 0, CCVM_NOISE != 0, CCVM_RNG>;
+
+}  // namespace
+
+extern "C" {
+
+// One step of a tensor-parallel solve (mf_step_kernel): mv (batch, nl)
+// (unread when step < 0), v (nl) the shard's V, steps the whole solve's
+// (total, 12) table, state (3 or 5, batch, nl) updated in place, x_out
+// (batch, nl) (unwritten by the last step): float32, contiguous, on the
+// device.  The shard's row 0 and column 0 are the global row_base and
+// col_base.  scalars: 24 host floats in MFScalars order.  Launches on
+// `stream`, does not synchronise, and returns the cudaError_t of the launch.
+int ccvm_mf_step(const float* mv, const float* v, const float* steps, float* state,
+                 float* x_out, int batch, int nl, int col_base, int row_base, int step,
+                 int total, unsigned long long seed, const float* scalars,
+                 void* stream) {
+  MFScalars p;
+  memcpy(&p, scalars, sizeof(MFScalars));
+  if (batch < 1 || nl < 1 || step >= total || (step >= 0 && mv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t count = (size_t)batch * nl;
+  kStep<<<(unsigned)((count + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      mv, v, reinterpret_cast<const float4*>(steps), state, x_out, batch, nl, col_base,
+      row_base, step, total, seed, p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
+
+#else
 
 namespace {
 
@@ -585,14 +714,18 @@ extern "C" {
 // S_ij and inv_ij of a CCVM_ELEM one (rows: the batch padded to whole
 // blocks), else unused.  seg: a host Segment
 // of a CCVM_SEG build (state in mu, sigma, m, v; moments out m, v), else
-// nullptr.  Launches on `stream`, does not synchronise, and returns the
+// nullptr.  row_base: the global row of trajectory 0 (a data-parallel
+// rank's first row; a multiple of the block's rows, and one instance): the
+// outputs and seg's arrays hold its rows only, and a CCVM_ELEM cols array
+// has row_base leading rows (ccvm_common.cuh Segment).  Launches on
+// `stream`, does not synchronise, and returns the
 // cudaError_t of the launch.
 int ccvm_mf_solve(const float* q, const float* v, const float* steps,
                   float* mu_out, float* mt_out, float* sigma_out,
                   int num_instances, int batch, int n, int iterations,
                   unsigned long long seed, const float* scalars,
                   int rows_per_block, void* stream, const float* cols,
-                  const void* seg) {
+                  const void* seg, int row_base) {
   MFScalars p;
   memcpy(&p, scalars, sizeof(MFScalars));
   Segment sg = {};
@@ -601,8 +734,20 @@ int ccvm_mf_solve(const float* q, const float* v, const float* steps,
   int threads, rows;
   long long smem;
   if ((seg != nullptr) != kSeg || (kCols && cols == nullptr) ||
-      launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block)
+      launch_shape(n, &threads, &rows, &smem) || rows != rows_per_block || row_base < 0 ||
+      row_base % rows != 0 || (row_base != 0 && num_instances != 1))
     return (int)cudaErrorInvalidConfiguration;
+  // Rows indexed globally (ccvm_common.cuh Segment): the grid starts
+  // row_base / rows blocks early and the arrays are shifted back.
+  sg.first_block = row_base / rows;
+  for (int a = 0; a < 6; ++a) {
+    sg.in[a] = shifted(sg.in[a], row_base, n);
+    sg.out[a] = shifted(sg.out[a], row_base, n);
+  }
+  mu_out = shifted(mu_out, row_base, n);
+  mt_out = shifted(mt_out, row_base, n);
+  sigma_out = shifted(sigma_out, row_base, n);
+  batch += row_base;
   cudaError_t err = cudaFuncSetAttribute(
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -629,3 +774,5 @@ int ccvm_mf_blocks_per_sm(int n, int* blocks) {
 }
 
 }  // extern "C"
+
+#endif  // CCVM_EXT

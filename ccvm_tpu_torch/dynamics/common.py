@@ -103,6 +103,30 @@ def dense_matvec(x, q_matrix):
     return torch.matmul(x, q_matrix)
 
 
+def tp_matvec(group):
+    """Tensor-parallel matvec over the process group ``group`` (a mesh's
+    "model" axis; the twin of ``ccvm_tpu/dynamics/common.py:68-86``).
+
+    ``x`` holds the local feature shard (rows, n_local) and ``q_rows`` the
+    matching row block (n_local, n) of Q: rows shard the contraction, so
+    each rank computes a full-width partial sum, and one reduce-scatter over
+    the feature dimension returns its columns of the full ``x @ Q``, as
+    ``psum_scatter(..., scatter_dimension=1, tiled=True)`` does.  The list
+    form of the collective scatters contiguous column chunks (the tensor
+    form scatters dim 0, and gloo takes no other)."""
+    import torch.distributed as dist
+
+    def matvec(x, q_rows):
+        partial = torch.matmul(x, q_rows)
+        world = dist.get_world_size(group)
+        chunks = [c.contiguous() for c in partial.chunk(world, dim=-1)]
+        out = torch.empty_like(chunks[dist.get_rank(group)])
+        dist.reduce_scatter(out, chunks, group=group)
+        return out
+
+    return matvec
+
+
 def change_variables_boxqp(problem_variables, lower_limit=0, upper_limit=1, S=1):
     """Map solver amplitudes into the box (reference ``dl_solver.py:219-235``;
     identical in all four solvers)."""

@@ -70,14 +70,21 @@ def drift_saturation(p, pump_is_gt_one: bool):
     return p.S
 
 
-def grads_boxqp(c, s, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1):
+def matvec_input(z, S, lower_limit, upper_limit):
+    """x = z (u - l) / S + (u + l) of a quadrature z, the matvec's input
+    (``S`` the drift's S_d)."""
+    return z * (upper_limit - lower_limit) / S + (upper_limit + lower_limit)
+
+
+def grads_boxqp(c, s, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1,
+                matvec=None):
     """Feedback-only gradients (``dl_solver.py:174-217``)."""
+    matvec = matvec or common.dense_matvec
     span = upper_limit - lower_limit
-    mid = upper_limit + lower_limit
 
     def one(z):
-        x = z * span / S + mid
-        return 0.25 * common.dense_matvec(x, q_matrix) * span / S
+        x = matvec_input(z, S, lower_limit, upper_limit)
+        return 0.25 * matvec(x, q_matrix) * span / S
 
     g3 = v_vector * span / (2 * S)
     return -one(c) - g3, -one(s) - g3
@@ -85,20 +92,25 @@ def grads_boxqp(c, s, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1):
 
 def drift_boxqp(
     c, s, q_matrix, v_vector, pump, rate, feedback_scale=100,
-    lower_limit=0, upper_limit=1, S=1,
+    lower_limit=0, upper_limit=1, S=1, matvec=None,
 ):
     """Full drift for both quadratures (``dl_solver.py:117-172``).
 
-    ``S`` here must already be the drift-internal S_d.
+    ``S`` here must already be the drift-internal S_d.  ``matvec`` selects
+    the x @ Q implementation: dense by default,
+    :func:`ccvm_tpu_torch.dynamics.common.tp_matvec` for a model-sharded
+    solve (``ccvm_tpu_torch.parallel.tp``); None is
+    :func:`ccvm_tpu_torch.dynamics.common.dense_matvec`, looked up at the
+    call (``tools/tc_model.py`` patches it).
     """
+    matvec = matvec or common.dense_matvec
     span = upper_limit - lower_limit
-    mid = upper_limit + lower_limit
     c_pow = torch.square(c)
     s_pow = torch.square(s)
 
     def feedback(z):
-        x = z * span / S + mid
-        return 0.25 * common.dense_matvec(x, q_matrix) * span / S
+        x = matvec_input(z, S, lower_limit, upper_limit)
+        return 0.25 * matvec(x, q_matrix) * span / S
 
     g3 = v_vector * span / (2 * S)
     fs_dyn = feedback_scale * (0.5 + rate)
@@ -148,9 +160,11 @@ def pump_rate_schedule(p, i, pump_rate_flag: bool):
 
 def make_step(
     q_matrix, v_vector, p: DLParams, pump_rate_flag: bool, pump_is_gt_one: bool,
+    matvec=None,
 ):
     """``step((c, s), i, w_c, w_s) -> (c, s)``; ``w_c``, ``w_s`` are
-    standard-normal draws shaped like the state."""
+    standard-normal draws shaped like the state; ``matvec`` as
+    :func:`drift_boxqp`'s."""
     p = _scalars(p, q_matrix.device)
     sqrt_dt = torch.sqrt(p.dt)
     s_drift_sat = drift_saturation(p, pump_is_gt_one)
@@ -161,7 +175,7 @@ def make_step(
         nr_i = noise_ratio_schedule(p, i)
         c_drift, s_drift = drift_boxqp(
             c, s, q_matrix, v_vector, p.pump, rate, p.feedback_scale,
-            p.lower_limit, p.upper_limit, s_drift_sat,
+            p.lower_limit, p.upper_limit, s_drift_sat, matvec,
         )
         w_c = w_c * sqrt_dt * nr_i
         w_s = w_s * sqrt_dt / nr_i
@@ -180,6 +194,7 @@ def make_adam_step(
     pump_rate_flag: bool,
     pump_is_gt_one: bool,
     hp: AdamHyperparameters,
+    matvec=None,
 ):
     """Adam variant (``dl_solver.py:571-769``): the feedback gradients are
     Adam-filtered; the pump drift uses pump_rate = pump*(i+1)/T and
@@ -195,6 +210,7 @@ def make_adam_step(
         nr_i = noise_ratio_schedule(p, i)
         c_grads, s_grads = grads_boxqp(
             c, s, q_matrix, v_vector, p.lower_limit, p.upper_limit, s_grad_sat,
+            matvec,
         )
         c_grads, m_c, v_c = common.adam_moment_update(c_grads, m_c, v_c, i, hp)
         s_grads, m_s, v_s = common.adam_moment_update(s_grads, m_s, v_s, i, hp)

@@ -45,34 +45,47 @@ class LangevinParams(NamedTuple):
     upper_limit: float
 
 
-def drift_boxqp(c, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1):
+def matvec_input(c, S, lower_limit, upper_limit):
+    """x = c (u - l) / (2 S) + (u + l) / 2, the matvec's input (pumped
+    Langevin's too)."""
+    return c * ((upper_limit - lower_limit) / (2 * S)) + (upper_limit + lower_limit) / 2
+
+
+def drift_boxqp(c, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1,
+                matvec=None):
     """Langevin drift, which is also its gradient
-    (``langevin_solver.py:117-166``)."""
+    (``langevin_solver.py:117-166``).  ``matvec`` selects the x @ Q
+    implementation: dense by default,
+    :func:`ccvm_tpu_torch.dynamics.common.tp_matvec` for a model-sharded
+    solve; None: ``dense_matvec``, looked up at the call, where
+    ``tools/tc_model.py`` patches it."""
+    matvec = matvec or common.dense_matvec
     scale = (upper_limit - lower_limit) / (2 * S)
-    x = c * scale + (upper_limit + lower_limit) / 2
-    qx = common.dense_matvec(x, q_matrix)
+    qx = matvec(matvec_input(c, S, lower_limit, upper_limit), q_matrix)
     return -(qx + v_vector) * scale
 
 
-def _drift(p, q_matrix, v_vector, c):
-    return drift_boxqp(c, q_matrix, v_vector, p.lower_limit, p.upper_limit, p.S)
+def _drift(p, q_matrix, v_vector, c, matvec):
+    return drift_boxqp(c, q_matrix, v_vector, p.lower_limit, p.upper_limit, p.S,
+                       matvec)
 
 
-def make_step(q_matrix, v_vector, p: LangevinParams):
+def make_step(q_matrix, v_vector, p: LangevinParams, matvec=None):
     """``step(c, i, w) -> c``; ``w`` is a standard-normal draw shaped like
-    ``c``."""
+    ``c``; ``matvec`` as :func:`drift_boxqp`'s."""
     p = common.float32_scalars(p, q_matrix.device)
     dt_fs = p.dt * p.feedback_scale
     diffusion = p.sigma * torch.sqrt(p.dt)
 
     def step(c, i, w):
-        c = c + dt_fs * _drift(p, q_matrix, v_vector, c) + diffusion * w
+        c = c + dt_fs * _drift(p, q_matrix, v_vector, c, matvec) + diffusion * w
         return torch.clamp(c, -p.S, p.S)
 
     return step
 
 
-def make_adam_step(q_matrix, v_vector, p: LangevinParams, hp: AdamHyperparameters):
+def make_adam_step(q_matrix, v_vector, p: LangevinParams, hp: AdamHyperparameters,
+                   matvec=None):
     """Adam-filtered step; ``step((c, m, v), i, w) -> (c, m, v)``
     (``langevin_solver.py:437-561``)."""
     p = common.float32_scalars(p, q_matrix.device)
@@ -81,7 +94,7 @@ def make_adam_step(q_matrix, v_vector, p: LangevinParams, hp: AdamHyperparameter
 
     def step(state, i, w):
         c, m, v = state
-        grads = _drift(p, q_matrix, v_vector, c)
+        grads = _drift(p, q_matrix, v_vector, c, matvec)
         grads, m, v = common.adam_moment_update(grads, m, v, i, hp)
         c = c + dt_fs * grads + diffusion * w
         return (torch.clamp(c, -p.S, p.S), m, v)

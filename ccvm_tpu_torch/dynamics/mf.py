@@ -57,12 +57,20 @@ class MFParams(NamedTuple):
     iterations: float
 
 
-def feedback_terms(mu_tilde_c, q_matrix, v_vector, S, lower_limit, upper_limit):
-    """fs-independent feedback terms (``mf_solver.py:176-189``)."""
+def matvec_input(mu_tilde_c, S, lower_limit, upper_limit):
+    """x = mu_tilde_c (u - l) / S + (u + l), the matvec's input."""
+    return mu_tilde_c * (upper_limit - lower_limit) / S + (upper_limit + lower_limit)
+
+
+def feedback_terms(mu_tilde_c, q_matrix, v_vector, S, lower_limit, upper_limit,
+                   matvec=None):
+    """fs-independent feedback terms (``mf_solver.py:176-189``); ``matvec``
+    selects the x @ Q implementation (dense, or
+    :func:`ccvm_tpu_torch.dynamics.common.tp_matvec`; None: ``dense_matvec``,
+    looked up at the call, where ``tools/tc_model.py`` patches it)."""
+    matvec = matvec or common.dense_matvec
     span = upper_limit - lower_limit
-    mid = upper_limit + lower_limit
-    x = mu_tilde_c * span / S + mid
-    qx = common.dense_matvec(x, q_matrix)
+    qx = matvec(matvec_input(mu_tilde_c, S, lower_limit, upper_limit), q_matrix)
     term2_1 = -0.25 * qx * span / S
     term2_2 = -v_vector * span / (2 * S)
     return term2_1 + term2_2
@@ -81,20 +89,21 @@ def _physical_drift(mu, sigma, pump, j, g):
 
 def drift_boxqp(
     mu, mu_tilde, sigma, pump, j, g, S, fs, q_matrix, v_vector,
-    lower_limit=0, upper_limit=1,
+    lower_limit=0, upper_limit=1, matvec=None,
 ):
     """Drift of mu and sigma (``mf_solver.py:141-198``).  ``pump`` here is
     the instantaneous pump."""
     mu_term1, drift_sigma = _physical_drift(mu, sigma, pump, j, g)
-    fb = feedback_terms(mu_tilde, q_matrix, v_vector, S, lower_limit, upper_limit)
+    fb = feedback_terms(mu_tilde, q_matrix, v_vector, S, lower_limit, upper_limit,
+                        matvec)
     return mu_term1 + fs * fb, drift_sigma
 
 
 def grads_boxqp(mu_tilde, S, fs, q_matrix, v_vector, lower_limit=0,
-                upper_limit=1):
+                upper_limit=1, matvec=None):
     """Feedback-only gradient for the Adam path (``mf_solver.py:200-233``)."""
     return fs * feedback_terms(
-        mu_tilde, q_matrix, v_vector, S, lower_limit, upper_limit
+        mu_tilde, q_matrix, v_vector, S, lower_limit, upper_limit, matvec
     )
 
 
@@ -125,9 +134,11 @@ def _measure(p, i, mu, w, sqrt_dt, pump_rate_flag):
     return j_i, w_inc, mu_tilde, mu_tilde_c, pump_inst
 
 
-def make_step(q_matrix, v_vector, p: MFParams, pump_rate_flag: bool):
+def make_step(q_matrix, v_vector, p: MFParams, pump_rate_flag: bool,
+              matvec=None):
     """``step((mu, sigma, mu_tilde), i, w) -> (mu, sigma, mu_tilde)``; ``w``
-    is a standard-normal draw shaped like the state."""
+    is a standard-normal draw shaped like the state; ``matvec`` as
+    :func:`feedback_terms`'."""
     p = common.float32_scalars(p, q_matrix.device)
     sqrt_dt = torch.sqrt(p.dt)
 
@@ -138,7 +149,7 @@ def make_step(q_matrix, v_vector, p: MFParams, pump_rate_flag: bool):
         )
         drift_mu, drift_sigma = drift_boxqp(
             mu, mu_tilde_c, sigma, pump_inst, j_i, p.g, p.S, p.feedback_scale,
-            q_matrix, v_vector, p.lower_limit, p.upper_limit,
+            q_matrix, v_vector, p.lower_limit, p.upper_limit, matvec,
         )
         mu_diffusion = torch.sqrt(j_i) * (sigma - 0.5) * w_inc
         mu = mu + p.dt * (drift_mu + mu_diffusion)
@@ -150,6 +161,7 @@ def make_step(q_matrix, v_vector, p: MFParams, pump_rate_flag: bool):
 
 def make_adam_step(
     q_matrix, v_vector, p: MFParams, pump_rate_flag: bool, hp: AdamHyperparameters,
+    matvec=None,
 ):
     """Adam variant (``mf_solver.py:595-764``): Adam filters the fs-scaled
     feedback only.  State is ``(mu, sigma, mu_tilde, m_mu, v_mu)``."""
@@ -163,7 +175,7 @@ def make_adam_step(
         )
         grads_mu = grads_boxqp(
             mu_tilde_c, p.S, p.feedback_scale, q_matrix, v_vector,
-            p.lower_limit, p.upper_limit,
+            p.lower_limit, p.upper_limit, matvec,
         )
         grads_mu, m_mu, v_mu = common.adam_moment_update(grads_mu, m_mu, v_mu, i, hp)
         mu_drift, sigma_drift = _physical_drift(mu, sigma, pump_inst, j_i, p.g)

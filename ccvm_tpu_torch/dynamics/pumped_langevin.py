@@ -28,6 +28,7 @@ import torch
 
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics.common import AdamHyperparameters
+from ccvm_tpu_torch.dynamics.langevin import matvec_input
 
 
 class PumpedLangevinParams(NamedTuple):
@@ -45,11 +46,15 @@ class PumpedLangevinParams(NamedTuple):
     iterations: float  # total T, used by the pump schedule
 
 
-def grads_boxqp(c, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1):
-    """Feedback gradient (``pumped_langevin_solver.py:118-147``)."""
+def grads_boxqp(c, q_matrix, v_vector, lower_limit=0, upper_limit=1, S=1,
+                matvec=None):
+    """Feedback gradient (``pumped_langevin_solver.py:118-147``); ``matvec``
+    selects the x @ Q implementation (dense, or
+    :func:`ccvm_tpu_torch.dynamics.common.tp_matvec`; None: ``dense_matvec``,
+    looked up at the call, where ``tools/tc_model.py`` patches it)."""
+    matvec = matvec or common.dense_matvec
     scale = (upper_limit - lower_limit) / (2 * S)
-    x = c * scale + (upper_limit + lower_limit) / 2
-    qx = common.dense_matvec(x, q_matrix)
+    qx = matvec(matvec_input(c, S, lower_limit, upper_limit), q_matrix)
     return -qx * scale - v_vector * scale
 
 
@@ -64,8 +69,9 @@ def pump_field(p: PumpedLangevinParams, i, pump_rate_flag: bool):
     return p.pump * fi1 / p.iterations
 
 
-def _grads(p, q_matrix, v_vector, c):
-    return grads_boxqp(c, q_matrix, v_vector, p.lower_limit, p.upper_limit, p.S)
+def _grads(p, q_matrix, v_vector, c, matvec):
+    return grads_boxqp(c, q_matrix, v_vector, p.lower_limit, p.upper_limit, p.S,
+                       matvec)
 
 
 def _pump_drift(p, i, pump_rate_flag, c):
@@ -73,15 +79,16 @@ def _pump_drift(p, i, pump_rate_flag, c):
     return (-1.0 + pump_field(p, i, pump_rate_flag) - torch.square(c)) * c
 
 
-def make_step(q_matrix, v_vector, p: PumpedLangevinParams, pump_rate_flag: bool):
+def make_step(q_matrix, v_vector, p: PumpedLangevinParams, pump_rate_flag: bool,
+              matvec=None):
     """``step(c, i, w) -> c``; ``w`` is a standard-normal draw shaped like
-    ``c``."""
+    ``c``; ``matvec`` as :func:`grads_boxqp`'s."""
     p = common.float32_scalars(p, q_matrix.device)
     diffusion = p.sigma * torch.sqrt(p.dt)
 
     def step(c, i, w):
         drift = (_pump_drift(p, i, pump_rate_flag, c)
-                 + p.feedback_scale * _grads(p, q_matrix, v_vector, c))
+                 + p.feedback_scale * _grads(p, q_matrix, v_vector, c, matvec))
         c = c + p.dt * drift + diffusion * w
         return torch.clamp(c, -p.S, p.S)
 
@@ -89,7 +96,8 @@ def make_step(q_matrix, v_vector, p: PumpedLangevinParams, pump_rate_flag: bool)
 
 
 def make_adam_step(q_matrix, v_vector, p: PumpedLangevinParams,
-                   pump_rate_flag: bool, hp: AdamHyperparameters):
+                   pump_rate_flag: bool, hp: AdamHyperparameters,
+                   matvec=None):
     """Adam variant (``pumped_langevin_solver.py:311-449``):
     ``step((c, m, v), i, w) -> (c, m, v)``."""
     p = common.float32_scalars(p, q_matrix.device)
@@ -98,7 +106,7 @@ def make_adam_step(q_matrix, v_vector, p: PumpedLangevinParams,
     def step(state, i, w):
         c, m, v = state
         grads, m, v = common.adam_moment_update(
-            _grads(p, q_matrix, v_vector, c), m, v, i, hp)
+            _grads(p, q_matrix, v_vector, c, matvec), m, v, i, hp)
         c_pump = _pump_drift(p, i, pump_rate_flag, c)
         c = c + p.dt * (c_pump + p.feedback_scale * grads) + diffusion * w
         return (torch.clamp(c, -p.S, p.S), m, v)

@@ -40,9 +40,10 @@ _MAX_ROW_GROUPS = 16  # at most 64 trajectories per block
 
 
 # Fields of the solve kernels' specs that select a build for a feature (a
-# per-column S, a segment launch, a per-element S): left out of the flags and
-# the tag when 0, so a whole solve with a scalar S is built as before them.
-_FEATURES = ("cols", "seg", "elem")
+# per-column S, a segment launch, a per-element S, a tensor-parallel solve's
+# one step): left out of the flags and the tag when 0, so a whole solve with
+# a scalar S is built as before them.
+_FEATURES = ("cols", "seg", "elem", "ext")
 
 
 def _defines(spec):
@@ -59,8 +60,8 @@ def _tag(spec):
 _F32P = ctypes.POINTER(ctypes.c_float)
 # (q, v, outputs..., instances, batch, n, iterations, seed, scalars,
 # rows_per_block, stream) of the exported launch functions; the solve
-# kernels' take the per-column (or per-element) S and a Segment after them
-# (_SOLVE_TAIL).
+# kernels' take the per-column (or per-element) S, a Segment and the row
+# base after them (_SOLVE_TAIL).
 _HEAD = [ctypes.c_void_p, ctypes.c_void_p]
 _TAIL = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_ulonglong, _F32P, ctypes.c_int, ctypes.c_void_p]
@@ -70,14 +71,30 @@ class Segment(ctypes.Structure):
     """A segment launch's host arguments (csrc/ccvm_common.cuh ``Segment``):
     device pointers of the state to start from (``inp[0]`` None: the
     initial state) and of the moments to write, DL's clamped c, the absolute
-    first step and the whole solve's steps."""
+    first step, the whole solve's steps and the first block that holds a row
+    of the launch (which the entry point sets from its row base)."""
 
     _fields_ = [("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p * 6),
                 ("clamped", ctypes.c_void_p), ("start", ctypes.c_int),
-                ("total", ctypes.c_int)]
+                ("total", ctypes.c_int), ("first_block", ctypes.c_int)]
 
 
-_SOLVE_TAIL = _TAIL + [ctypes.c_void_p, ctypes.POINTER(Segment)]
+_SOLVE_TAIL = _TAIL + [ctypes.c_void_p, ctypes.POINTER(Segment), ctypes.c_int]
+
+
+def check_row_base(row_base, rows, stacked, kernel):
+    """Raise unless a launch's row base suits the kernel: a multiple of its
+    ``rows`` a block (its grid starts that many blocks early, csrc/
+    ccvm_common.cuh ``Segment``), and one instance."""
+    if row_base < 0 or row_base % rows or (row_base and stacked):
+        raise ValueError(
+            f"{kernel} takes a row base that is a multiple of its {rows} rows a block, "
+            f"for one instance: a data-parallel rank's batch must be such a multiple "
+            f"(got row base {row_base})")
+# (mv, v, steps, state, x_out, batch, nl, col_base, row_base, step, total,
+# seed, scalars, stream) of the one-step builds' ccvm_*_step.
+STEP_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                 + [ctypes.c_ulonglong, _F32P, ctypes.c_void_p])
 
 
 def segment(state, shape, start, total, moments, clamped=None):
@@ -107,6 +124,7 @@ class DLSpec(NamedTuple):
     cols: int = 0  # per-column S: 1 in the final clamp only, 2 in the drift too
     seg: bool = False  # a segment launch
     elem: bool = False  # with cols, S one an element of a (batch, n) array
+    ext: bool = False  # one step of a tensor-parallel solve (ccvm_dl_step)
 
     source = "dl_solve.cu"
     symbol = "ccvm_dl_solve"
@@ -127,6 +145,7 @@ class MFSpec(NamedTuple):
     cols: bool = False  # a per-column S
     seg: bool = False  # a segment launch
     elem: bool = False  # with cols, S one an element of a (batch, n) array
+    ext: bool = False  # one step of a tensor-parallel solve (ccvm_mf_step)
 
     source = "mf_solve.cu"
     symbol = "ccvm_mf_solve"
@@ -150,6 +169,7 @@ class LangevinSpec(NamedTuple):
     cols: bool = False  # a per-column S
     seg: bool = False  # a segment launch
     elem: bool = False  # with cols, S one an element of a (batch, n) array
+    ext: bool = False  # one step of a tensor-parallel solve (ccvm_langevin_step)
 
     source = "langevin_solve.cu"
     symbol = "ccvm_langevin_solve"
@@ -405,13 +425,13 @@ def build(specs) -> dict:
 
 def kernel_report(log: str) -> str:
     """ptxas's registers and spills of the solve kernel in a library's
-    build log (the entry function named *_solve_kernel or *_variant_kernel;
-    a library may hold helper kernels too)."""
+    build log (the entry function named *_solve_kernel, *_variant_kernel or
+    *_step_kernel; a library may hold helper kernels too)."""
     lines = [ln.strip() for ln in log.splitlines()]
     entry = None
     for i, ln in enumerate(lines):
         if "Compiling entry function" in ln:
-            entry = "solve_kernel" in ln or "variant_kernel" in ln
+            entry = any(k in ln for k in ("solve_kernel", "variant_kernel", "step_kernel"))
         elif entry and "spill" in ln and i + 1 < len(lines) and "registers" in lines[i + 1]:
             return f"{lines[i + 1].split(':', 1)[-1].strip()}; {ln}"
     return log.strip()[-200:]

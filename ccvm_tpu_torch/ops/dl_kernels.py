@@ -60,18 +60,19 @@ def columns_kind(S, pump_is_gt_one):
     return 1 if pump_is_gt_one else 2
 
 
-def per_element(values, fills, rows, np_, extra=0):
+def per_element(values, fills, rows, np_, extra=0, lead=0):
     """The per-element builds' array on the values' device: each (batch, n)
-    tensor of ``values`` as a (rows', NP) slice, its padding (the batch to
-    ``rows'``, a multiple of the launch's ``rows`` a block; the columns to
-    ``np_``) filled with its ``fills`` value, then ``extra`` slices left for
-    the kernel to write."""
+    tensor of ``values`` as a (rows', NP) slice, its padding (``lead``
+    leading rows, a launch's row base, whose kernel indexes rows globally;
+    the batch to ``rows'``, a multiple of the launch's ``rows`` a block; the
+    columns to ``np_``) filled with its ``fills`` value, then ``extra``
+    slices left for the kernel to write."""
     batch, n = values[0].shape
-    out = torch.empty((len(values) + extra, -(-batch // rows) * rows, np_),
+    out = torch.empty((len(values) + extra, lead + -(-batch // rows) * rows, np_),
                       dtype=torch.float32, device=values[0].device)
     for k, (x, fill) in enumerate(zip(values, fills)):
         out[k].fill_(fill)
-        out[k, :batch, :n] = x
+        out[k, lead:lead + batch, :n] = x
     return out
 
 
@@ -134,20 +135,22 @@ def _scalars(params, hp, noise_scale, pump_is_gt_one):
     return (ctypes.c_float * 20)(*vals.tolist())
 
 
-def _columns(params, device, rows, np_, instances):
+def _columns(params, device, rows, np_, instances, lead=0):
     """S's array for the kernel on ``device``, by float32 operations on the
     device that round as :func:`_scalars`'s on the host (None for a scalar
     S): the per-column build's (3, n) S_j, span / S_j and 0.25 span / S_j;
     the per-element build's (2 + ``instances``, rows', ``np_``) S_ij and
-    span / S_ij (:func:`per_element`; padding S 1), then room for each
-    instance's feedback offsets, which the kernel writes."""
+    span / S_ij (:func:`per_element`, ``lead`` leading rows; padding S 1),
+    then room for each instance's feedback offsets, which the kernel
+    writes."""
     if np.ndim(params.S) == 0:
         return None
     S = common.saturation_tensor(params.S, device)
     span = (torch.tensor(float(params.upper_limit), dtype=torch.float32, device=device)
             - float(params.lower_limit))
     if S.ndim == 2:
-        return per_element([S, span / S], (1.0, 0.0), rows, np_, extra=instances)
+        return per_element([S, span / S], (1.0, 0.0), rows, np_, extra=instances,
+                           lead=lead)
     return torch.stack([S, span / S, 0.25 * span / S])
 
 
@@ -222,11 +225,13 @@ def check_segment(state, start, num, iterations, names, q_matrix, batch_size):
 
 
 def _launch(mma, seed, q_matrix, v_vector, params, *, iterations, batch_size,
-            pump_rate_flag, pump_is_gt_one, noise_scale, rng, hp, segment=None):
+            pump_rate_flag, pump_is_gt_one, noise_scale, rng, hp, segment=None,
+            row_base=0):
     """One launch of csrc/dl_solve.cu on CUDA tensors.  ``segment``: (state,
     start, num, steps) of a segment launch (state None: the zeros; steps
     None: the table built here), which returns ``(state, c clamped or
-    None)``; else the whole solve's ``(c, s)``."""
+    None)``; else the whole solve's ``(c, s)``.  ``row_base``: the global
+    row of trajectory 0 (a data-parallel rank's first row)."""
     if q_matrix.device.type != "cuda":
         raise ValueError(f"dl_solve runs on cpu or cuda, not {q_matrix.device}")
     stacked = q_matrix.ndim == 3
@@ -238,13 +243,14 @@ def _launch(mma, seed, q_matrix, v_vector, params, *, iterations, batch_size,
         raise ValueError("the CUDA-core DL matvec takes a scalar S")
     shape_ = build.dl_launch_shape(n, hp is not None, mma, cols)
     rows = shape_.rows
+    build.check_row_base(int(row_base), rows, stacked, "the DL kernel")
     launch = build.load(_spec(n, hp, noise_scale, rng, mma, cols, segment is not None,
                               np.ndim(params.S) == 2))
     steps = None if segment is None else segment[3]
     if steps is None:
         steps = _step_table(params, hp, noise_scale, iterations, pump_rate_flag,
                             q.device)
-    col_values = _columns(params, q.device, rows, shape_.np, num_instances)
+    col_values = _columns(params, q.device, rows, shape_.np, num_instances, int(row_base))
     shape = (num_instances, int(batch_size), n)
     c = torch.empty(shape, dtype=torch.float32, device=q.device)
     s = torch.empty_like(c)
@@ -263,7 +269,7 @@ def _launch(mma, seed, q_matrix, v_vector, params, *, iterations, batch_size,
             int(seed) % 2**64,
             _scalars(params, hp, float(noise_scale), pump_is_gt_one), rows,
             stream, None if col_values is None else col_values.data_ptr(),
-            None if seg is None else ctypes.byref(seg),
+            None if seg is None else ctypes.byref(seg), int(row_base),
         )
     if err != 0:
         raise RuntimeError(f"dl_solve kernel launch failed: cudaError_t {err}")
@@ -284,7 +290,7 @@ def _count(q_matrix, hp):
 
 def solve_with(mma, seed, q_matrix, v_vector, params, *, iterations,
                batch_size, pump_rate_flag, pump_is_gt_one, noise_scale=1.0,
-               rng="popcount16", hp=None):
+               rng="popcount16", hp=None, row_base=0):
     """:func:`dl_solve` with the matvec chosen: ``mma`` True is the 3xTF32
     tensor-core design that :func:`dl_solve` launches, False the fp32
     CUDA-core one that only the race harness launches.  Counts no launch:
@@ -295,7 +301,7 @@ def solve_with(mma, seed, q_matrix, v_vector, params, *, iterations,
     kwargs = dict(
         iterations=iterations, batch_size=batch_size,
         pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
-        noise_scale=noise_scale, rng=rng, hp=hp,
+        noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base,
     )
     if q_matrix.device.type == "cpu":
         return dl_solve_reference(seed, q_matrix, v_vector, params, **kwargs)
@@ -305,15 +311,18 @@ def solve_with(mma, seed, q_matrix, v_vector, params, *, iterations,
 def dl_solve(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
     pump_rate_flag, pump_is_gt_one, noise_scale=1.0, rng="popcount16",
-    hp=None,
+    hp=None, row_base=0,
 ):
     """Fused DL solve; ``hp`` selects the Adam variant.  Returns ``(c, s)``
     shaped ``(batch, n)``, or ``(I, batch, n)`` for a stacked ``(I, n, n)``
-    Q, where instance ``i`` draws the noise of a solve with ``seed + i``."""
+    Q, where instance ``i`` draws the noise of a solve with ``seed + i``.
+    ``row_base``: the global row of trajectory 0, so that a data-parallel
+    rank's rows draw what those rows of a single solve draw."""
     out = solve_with(
         True, seed, q_matrix, v_vector, params, iterations=iterations,
         batch_size=batch_size, pump_rate_flag=pump_rate_flag,
         pump_is_gt_one=pump_is_gt_one, noise_scale=noise_scale, rng=rng, hp=hp,
+        row_base=row_base,
     )
     _count(q_matrix, hp)
     return out
@@ -328,7 +337,7 @@ dl_solve.dl_adam_launches = 0
 def dl_solve_segment(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
     batch_size, pump_rate_flag, pump_is_gt_one, noise_scale=1.0,
-    rng="popcount16", hp=None, steps=None,
+    rng="popcount16", hp=None, steps=None, row_base=0,
 ):
     """Advance ``state`` by ``num`` steps from absolute step ``start`` of a
     solve of ``iterations`` steps (the JAX ``solve_segment``).  ``state`` is
@@ -336,7 +345,8 @@ def dl_solve_segment(
     solve's zeros.  Returns ``(state, c_final)``: the raw state (no clamp),
     and where the segment ends the solve c clamped to +-S, as
     :func:`dl_solve` returns it (else None).  ``steps``: the solve's step
-    table (:func:`_step_table`), to build it once for many segments."""
+    table (:func:`_step_table`), to build it once for many segments;
+    ``row_base`` as :func:`dl_solve`'s."""
     if rng not in philox.RNG_NAMES:
         raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
     _check(q_matrix, v_vector, params, batch_size)
@@ -345,7 +355,7 @@ def dl_solve_segment(
                   q_matrix, batch_size)
     kwargs = dict(iterations=iterations, batch_size=batch_size,
                   pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
-                  noise_scale=noise_scale, rng=rng, hp=hp)
+                  noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
     if q_matrix.device.type == "cpu":
         return dl_solve_segment_reference(seed, q_matrix, v_vector, params, state,
                                           start, num, **kwargs)
@@ -357,7 +367,7 @@ def dl_solve_segment(
 
 def dl_solve_sampled(
     seed, q_matrix, v_vector, params, segments, *, batch_size, pump_rate_flag,
-    pump_is_gt_one, noise_scale=1.0, rng="popcount16", hp=None,
+    pump_is_gt_one, noise_scale=1.0, rng="popcount16", hp=None, row_base=0,
 ):
     """A whole solve of ``sum(segments)`` steps as one segment launch each
     (the JAX ``solve_sampled``).  Returns ``((c, s), (c_samples,
@@ -366,7 +376,7 @@ def dl_solve_sampled(
     iterations = int(sum(int(x) for x in segments))
     kwargs = dict(iterations=iterations, batch_size=batch_size,
                   pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
-                  noise_scale=noise_scale, rng=rng, hp=hp)
+                  noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
     if q_matrix.device.type == "cpu":
         return dl_solve_sampled_reference(seed, q_matrix, v_vector, params, segments,
                                           **kwargs)
@@ -399,7 +409,7 @@ def dl_solve_sampled_reference(seed, q_matrix, v_vector, params, segments, *,
 def dl_solve_segment_reference(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
     batch_size, pump_rate_flag, pump_is_gt_one, noise_scale=1.0,
-    rng="popcount16", hp=None,
+    rng="popcount16", hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`dl_solve_segment` (same arguments, same
     result), on the tensors' own device."""
@@ -412,7 +422,7 @@ def dl_solve_segment_reference(
     device = q.device
     zeros = torch.zeros((num_instances, int(batch_size), n), dtype=torch.float32,
                         device=device)
-    rows = torch.arange(int(batch_size), dtype=torch.int64, device=device)
+    rows = torch.arange(int(batch_size), dtype=torch.int64, device=device) + int(row_base)
     instances = torch.arange(num_instances, dtype=torch.int64, device=device)
     if state is None:
         state = (zeros,) * (2 if hp is None else 6)
@@ -448,7 +458,7 @@ def dl_solve_segment_reference(
 def dl_solve_reference(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
     pump_rate_flag, pump_is_gt_one, noise_scale=1.0, rng="popcount16",
-    hp=None,
+    hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`dl_solve` (same arguments, same
     result), on the tensors' own device: one segment over the whole solve."""
@@ -456,5 +466,128 @@ def dl_solve_reference(
         seed, q_matrix, v_vector, params, None, 0, iterations,
         iterations=iterations, batch_size=batch_size,
         pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
-        noise_scale=noise_scale, rng=rng, hp=hp)
+        noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
     return c, state[1]
+
+
+# ------------------------------------------------------------------ one step
+# A tensor-parallel solve (ccvm_tpu_torch/parallel/tp.py) runs each step as
+# a matmul and a reduce-scatter of its partial x @ Q (outside any kernel, as
+# the JAX package leaves them to XLA) and then one launch of a template's
+# one-step build (CCVM_EXT), which takes the scattered matvec from a buffer,
+# applies the template's step arithmetic and Philox draws at the shard's
+# global rows and columns, and writes the next step's matvec input.
+
+
+def check_step(mv, v_local, state, x, step, state_arrays, x_arrays, kernel):
+    """Raise unless ``state`` is a float32 (state_arrays, batch, nl) tensor,
+    ``x`` and ``mv`` (``mv`` None before the first step) (x_arrays, batch,
+    nl) and ``v_local`` (nl,), contiguous, on one device."""
+    if not isinstance(state, torch.Tensor) or state.ndim != 3 or \
+            state.shape[0] != state_arrays:
+        raise ValueError(f"{kernel} takes a state of {state_arrays} (batch, nl) arrays")
+    _, batch, nl = state.shape
+    want = {"state": (state, state.shape), "x": (x, (x_arrays, batch, nl)),
+            "V": (v_local, (nl,))}
+    if step is not None:
+        want["mv"] = (mv, (x_arrays, batch, nl))
+    for name, (t, shape) in want.items():
+        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape)
+                or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != state.device):
+            raise ValueError(f"{kernel} takes a contiguous float32 {name} shaped "
+                             f"{tuple(shape)} on the state's device")
+
+
+def run_step(spec, symbol, seed, mv, v_local, steps, state, x, step, iterations,
+             scalars, row_base, col_base):
+    """One launch of a one-step build on the card, on the state's card;
+    raises when the launch fails."""
+    launch = build.load(spec, symbol, build.STEP_ARGTYPES)
+    _, batch, nl = state.shape
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = launch(None if mv is None else mv.data_ptr(), v_local.data_ptr(),
+                     None if steps is None else steps.data_ptr(), state.data_ptr(),
+                     x.data_ptr(), batch, nl, int(col_base), int(row_base),
+                     -1 if step is None else int(step), int(iterations),
+                     int(seed) % 2**64, scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError_t {err}")
+
+
+def shard_rows(state, row_base):
+    return torch.arange(state.shape[1], dtype=torch.int64, device=state.device) + int(row_base)
+
+
+def dl_step(seed, mv, v_local, params, state, x, step, *, iterations,
+            pump_rate_flag, pump_is_gt_one, noise_scale=1.0, rng="popcount16",
+            hp=None, row_base=0, col_base=0, steps=None):
+    """Step ``step`` of a tensor-parallel DL solve of ``iterations`` steps on
+    a rank's (batch, nl) shard, whose row 0 and column 0 are the global
+    ``row_base`` and ``col_base``: ``state`` (c, s[, m_c, v_c, m_s, v_s])
+    stacked (2 or 6, batch, nl) and ``x`` (2, batch, nl), the next step's
+    matvec input of c and s, are updated in place.  ``mv`` (2, batch, nl)
+    is the step's (x_c @ Q, x_s @ Q) at the shard's columns; ``step`` None
+    writes only x of the state, for the first matvec.  ``params.S`` is a
+    scalar.  On the card it launches the one-step build of csrc/dl_solve.cu
+    (``steps``: the solve's :func:`_step_table`, built once); on the CPU it
+    runs :func:`dl_step_reference`."""
+    if rng not in philox.RNG_NAMES:
+        raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
+    check_step(mv, v_local, state, x, step, 2 if hp is None else 6, 2, "dl_step")
+    kwargs = dict(iterations=iterations, pump_rate_flag=pump_rate_flag,
+                  pump_is_gt_one=pump_is_gt_one, noise_scale=noise_scale, rng=rng,
+                  hp=hp, row_base=row_base, col_base=col_base)
+    if state.device.type == "cpu":
+        return dl_step_reference(seed, mv, v_local, params, state, x, step, **kwargs)
+    if step is not None and steps is None:
+        steps = _step_table(params, hp, noise_scale, iterations, pump_rate_flag,
+                            state.device)
+    spec = _spec(8, hp, noise_scale, rng, True)._replace(ext=True)  # one n-tile: any N
+    run_step(spec, "ccvm_dl_step", seed, mv, v_local, steps, state, x, step,
+             iterations, _scalars(params, hp, float(noise_scale), pump_is_gt_one),
+             row_base, col_base)
+    if hp is None:
+        dl_step.dl_launches += 1
+    else:
+        dl_step.dl_adam_launches += 1
+
+
+# Launch counts of the two one-step builds.
+dl_step.dl_launches = 0
+dl_step.dl_adam_launches = 0
+
+
+def dl_step_reference(seed, mv, v_local, params, state, x, step, *, iterations,
+                      pump_rate_flag, pump_is_gt_one, noise_scale=1.0,
+                      rng="popcount16", hp=None, row_base=0, col_base=0, steps=None):
+    """Plain PyTorch version of :func:`dl_step` (same arguments, same
+    result), on the tensors' own device: the dynamics' step with the given
+    matvec, the kernel's safety clip, and the draws of the shard's global
+    rows and columns."""
+    p = dyn._scalars(params, state.device)
+    s_d = dyn.drift_saturation(p, pump_is_gt_one)
+    if step is not None:
+        if noise_scale == 0.0:
+            w_c = w_s = torch.zeros_like(state[0])
+        else:
+            w_c, w_s = philox.wiener_pair(seed, step, shard_rows(state, row_base),
+                                          state.shape[-1], rng, col0=col_base)
+            if noise_scale != 1.0:
+                w_c, w_s = w_c * noise_scale, w_s * noise_scale
+        parts = iter(mv)  # the step takes x_c @ Q, then x_s @ Q
+        given = dict(matvec=lambda _x, _q: next(parts))
+        # Q is not read: the matvec is given; mv stands in for it as the
+        # carrier of the device.
+        if hp is None:
+            fn = dyn.make_step(mv, v_local, params, pump_rate_flag, pump_is_gt_one, **given)
+        else:
+            fn = dyn.make_adam_step(mv, v_local, params, pump_rate_flag, pump_is_gt_one,
+                                    hp, **given)
+        new = fn(tuple(state), step, w_c, w_s)
+        bound = DL_SAFETY_BOUND
+        state.copy_(torch.stack((new[0].clamp(-bound, bound), new[1].clamp(-bound, bound))
+                                + tuple(new[2:])))
+    x.copy_(torch.stack([dyn.matvec_input(z, s_d, p.lower_limit, p.upper_limit)
+                         for z in state[:2]]))

@@ -43,7 +43,8 @@ from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import langevin as lgv
 from ccvm_tpu_torch.dynamics import pumped_langevin as plgv
 from ccvm_tpu_torch.ops import build, philox
-from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment, per_element
+from ccvm_tpu_torch.ops.dl_kernels import (check_saturation, check_segment, check_step,
+                                           per_element, run_step, shard_rows)
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 
@@ -111,7 +112,7 @@ def _scalars(params, hp, noise_scale):
     return (ctypes.c_float * 13)(*vals.tolist())
 
 
-def _columns(params, device, rows, np_):
+def _columns(params, device, rows, np_, lead=0):
     """S's array for the kernel on ``device``, by float32 operations on the
     device that round as :func:`_scalars`'s on the host (None for a scalar
     S): S and scale = (u - l) / (2 S), the per-column build's (2, n), the
@@ -125,7 +126,7 @@ def _columns(params, device, rows, np_):
             - float(params.lower_limit))
     scale = span / (2.0 * S)
     if S.ndim == 2:
-        return per_element([S, scale], (1.0, 0.0), rows, np_)
+        return per_element([S, scale], (1.0, 0.0), rows, np_, lead=lead)
     return torch.stack([S, scale])
 
 
@@ -174,21 +175,24 @@ def _check(q_matrix, v_vector, params, rng, batch_size):
 
 
 def _run(launch, seed, q, v, params, *, iterations, batch_size, noise_scale, hp,
-         pump_rate_flag, segment=None):
+         pump_rate_flag, segment=None, row_base=0):
     """One launch of a built library's ``launch`` function on stacked
     (I, n, n) Q and (I, n) V on the card; returns c (I, batch, n), the
     moments (Adam's (m, v) of a segment launch, else none) and the
     cudaError_t of the launch.  ``segment``: (state, start, num, steps) of a
-    segment launch (state None: c = 0; steps None: the table built here).
+    segment launch (state None: c = 0; steps None: the table built here);
+    ``row_base`` the global row of trajectory 0 (a data-parallel rank's
+    first row).
     ``tools/breakdown.py`` times probe builds through it."""
     num_instances, n = q.shape[0], q.shape[-1]
     cols = np.ndim(params.S) != 0
     shape_ = build.langevin_launch_shape(n, hp is not None, cols)
     rows = shape_.rows
+    build.check_row_base(int(row_base), rows, num_instances > 1, "the Langevin kernels")
     steps = None if segment is None else segment[3]
     if steps is None:
         steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
-    col_values = _columns(params, q.device, rows, shape_.np)
+    col_values = _columns(params, q.device, rows, shape_.np, int(row_base))
     shape = (num_instances, int(batch_size), n)
     c = torch.zeros(shape, dtype=torch.float32,
                     device=q.device)  # the result of a solve of 0 iterations
@@ -204,13 +208,14 @@ def _run(launch, seed, q, v, params, *, iterations, batch_size, noise_scale, hp,
             num_instances, int(batch_size), n, int(num), int(seed) % 2**64,
             _scalars(params, hp, float(noise_scale)), rows, stream,
             None if col_values is None else col_values.data_ptr(),
-            None if seg is None else ctypes.byref(seg),
+            None if seg is None else ctypes.byref(seg), int(row_base),
         )
     return c, moments, err
 
 
 def _launch(seed, q_matrix, v_vector, params, *, pumped, iterations,
-            batch_size, pump_rate_flag, noise_scale, rng, hp, segment=None):
+            batch_size, pump_rate_flag, noise_scale, rng, hp, segment=None,
+            row_base=0):
     """One launch of ``csrc/langevin_solve.cu`` on CUDA tensors: c, or a
     segment's state (c, or with Adam (c, m, v)), counted."""
     if q_matrix.device.type != "cuda":
@@ -225,7 +230,8 @@ def _launch(seed, q_matrix, v_vector, params, *, pumped, iterations,
     c, moments, err = _run(build.load(spec), seed, q, v, params,
                            iterations=iterations, batch_size=batch_size,
                            noise_scale=noise_scale, hp=hp,
-                           pump_rate_flag=pump_rate_flag, segment=segment)
+                           pump_rate_flag=pump_rate_flag, segment=segment,
+                           row_base=row_base)
     if err != 0:
         raise RuntimeError(f"{spec} kernel launch failed: cudaError_t {err}")
     counts = (pumped_langevin_solve, ("pumped_launches", "pumped_adam_launches")) \
@@ -241,14 +247,16 @@ def _launch(seed, q_matrix, v_vector, params, *, pumped, iterations,
 
 def langevin_solve(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
-    noise_scale=1.0, rng="popcount32", hp=None,
+    noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Fused Langevin solve; ``hp`` selects the Adam variant.  Returns c
     shaped ``(batch, n)``, or ``(I, batch, n)`` for a stacked ``(I, n, n)``
-    Q, where instance ``i`` draws the noise of a solve with ``seed + i``."""
+    Q, where instance ``i`` draws the noise of a solve with ``seed + i``.
+    ``row_base``: the global row of trajectory 0, so that a data-parallel
+    rank's rows draw what those rows of a single solve draw."""
     _check(q_matrix, v_vector, params, rng, batch_size)
     kwargs = dict(iterations=iterations, batch_size=batch_size,
-                  noise_scale=noise_scale, rng=rng, hp=hp)
+                  noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
     if q_matrix.device.type == "cpu":
         return langevin_solve_reference(seed, q_matrix, v_vector, params, **kwargs)
     return _launch(seed, q_matrix, v_vector, params, pumped=False,
@@ -257,14 +265,14 @@ def langevin_solve(
 
 def pumped_langevin_solve(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
-    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Fused pumped-Langevin solve; ``hp`` selects the Adam variant.  Same
-    shapes and seeding as :func:`langevin_solve`."""
+    shapes, seeding and row base as :func:`langevin_solve`."""
     _check(q_matrix, v_vector, params, rng, batch_size)
     kwargs = dict(iterations=iterations, batch_size=batch_size,
                   pump_rate_flag=pump_rate_flag, noise_scale=noise_scale,
-                  rng=rng, hp=hp)
+                  rng=rng, hp=hp, row_base=row_base)
     if q_matrix.device.type == "cpu":
         return pumped_langevin_solve_reference(seed, q_matrix, v_vector, params,
                                                **kwargs)
@@ -286,9 +294,10 @@ def _check_segment(state, start, num, iterations, hp, q_matrix, batch_size):
 
 
 def _segment(pumped, seed, q_matrix, v_vector, params, state, start, num, *,
-             iterations, batch_size, pump_rate_flag, noise_scale, rng, hp, steps):
+             iterations, batch_size, pump_rate_flag, noise_scale, rng, hp, steps,
+             row_base=0):
     kwargs = dict(iterations=iterations, batch_size=batch_size,
-                  noise_scale=noise_scale, rng=rng, hp=hp)
+                  noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
     if q_matrix.device.type == "cpu":
         if pumped:
             return pumped_langevin_solve_segment_reference(
@@ -306,33 +315,33 @@ def _segment(pumped, seed, q_matrix, v_vector, params, state, start, num, *,
 
 def langevin_solve_segment(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
-    batch_size, noise_scale=1.0, rng="popcount32", hp=None, steps=None,
+    batch_size, noise_scale=1.0, rng="popcount32", hp=None, steps=None, row_base=0,
 ):
     """Advance ``state`` (c, or with ``hp`` (c, m, v); None: c = 0) by
     ``num`` steps from absolute step ``start`` of a solve of ``iterations``
     steps (the JAX ``solve_segment``); returns the state.  ``steps``: the
     solve's step table (:func:`_step_table`), to build it once for many
-    segments."""
+    segments; ``row_base`` as :func:`langevin_solve`'s."""
     return _segment(False, seed, q_matrix, v_vector, params, state, start, num,
                     iterations=iterations, batch_size=batch_size,
                     pump_rate_flag=False, noise_scale=noise_scale, rng=rng, hp=hp,
-                    steps=steps)
+                    steps=steps, row_base=row_base)
 
 
 def pumped_langevin_solve_segment(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
     batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
-    steps=None,
+    steps=None, row_base=0,
 ):
     """:func:`langevin_solve_segment` of pumped Langevin."""
     return _segment(True, seed, q_matrix, v_vector, params, state, start, num,
                     iterations=iterations, batch_size=batch_size,
                     pump_rate_flag=pump_rate_flag, noise_scale=noise_scale,
-                    rng=rng, hp=hp, steps=steps)
+                    rng=rng, hp=hp, steps=steps, row_base=row_base)
 
 
 def _sampled(pumped, seed, q_matrix, v_vector, params, segments, *, batch_size,
-             pump_rate_flag, noise_scale, rng, hp, plain=False):
+             pump_rate_flag, noise_scale, rng, hp, plain=False, row_base=0):
     """The segments of a whole solve (``plain``: the plain versions', on any
     device) and the state after each."""
     iterations = int(sum(int(x) for x in segments))
@@ -340,7 +349,7 @@ def _sampled(pumped, seed, q_matrix, v_vector, params, segments, *, batch_size,
     if q_matrix.device.type == "cuda" and not plain:
         steps = _step_table(params, hp, iterations, pump_rate_flag, q_matrix.device)
     kwargs = dict(iterations=iterations, batch_size=batch_size, noise_scale=noise_scale,
-                  rng=rng, hp=hp)
+                  rng=rng, hp=hp, row_base=row_base)
     if plain:
         segment = (functools.partial(pumped_langevin_solve_segment_reference,
                                      pump_rate_flag=pump_rate_flag) if pumped
@@ -359,7 +368,7 @@ def _sampled(pumped, seed, q_matrix, v_vector, params, segments, *, batch_size,
 
 def langevin_solve_sampled(
     seed, q_matrix, v_vector, params, segments, *, batch_size, noise_scale=1.0,
-    rng="popcount32", hp=None,
+    rng="popcount32", hp=None, row_base=0,
 ):
     """A whole solve of ``sum(segments)`` steps as one segment launch each
     (the JAX ``solve_sampled``).  Returns ``(c, c_samples)``: the final c,
@@ -367,42 +376,44 @@ def langevin_solve_sampled(
     device."""
     return _sampled(False, seed, q_matrix, v_vector, params, segments,
                     batch_size=batch_size, pump_rate_flag=False,
-                    noise_scale=noise_scale, rng=rng, hp=hp)
+                    noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
 
 
 def pumped_langevin_solve_sampled(
     seed, q_matrix, v_vector, params, segments, *, batch_size, pump_rate_flag,
-    noise_scale=1.0, rng="popcount32", hp=None,
+    noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """:func:`langevin_solve_sampled` of pumped Langevin."""
     return _sampled(True, seed, q_matrix, v_vector, params, segments,
                     batch_size=batch_size, pump_rate_flag=pump_rate_flag,
-                    noise_scale=noise_scale, rng=rng, hp=hp)
+                    noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
 
 
 def langevin_solve_sampled_reference(
     seed, q_matrix, v_vector, params, segments, *, batch_size, noise_scale=1.0,
-    rng="popcount32", hp=None,
+    rng="popcount32", hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`langevin_solve_sampled` (same
     arguments, same result), on the tensors' own device."""
     return _sampled(False, seed, q_matrix, v_vector, params, segments,
                     batch_size=batch_size, pump_rate_flag=False,
-                    noise_scale=noise_scale, rng=rng, hp=hp, plain=True)
+                    noise_scale=noise_scale, rng=rng, hp=hp, plain=True,
+                    row_base=row_base)
 
 
 def pumped_langevin_solve_sampled_reference(
     seed, q_matrix, v_vector, params, segments, *, batch_size, pump_rate_flag,
-    noise_scale=1.0, rng="popcount32", hp=None,
+    noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`pumped_langevin_solve_sampled`."""
     return _sampled(True, seed, q_matrix, v_vector, params, segments,
                     batch_size=batch_size, pump_rate_flag=pump_rate_flag,
-                    noise_scale=noise_scale, rng=rng, hp=hp, plain=True)
+                    noise_scale=noise_scale, rng=rng, hp=hp, plain=True,
+                    row_base=row_base)
 
 
 def _reference(solve, seed, q_matrix, v_vector, params, *, iterations,
-               batch_size, noise_scale, rng, segment=None, **kwargs):
+               batch_size, noise_scale, rng, segment=None, row_base=0, **kwargs):
     """A plain solve (``segment`` (state, start, num): a plain segment with
     ``solve`` the dynamics' ``advance``) on the tensors' own device, with
     the kernel's noise."""
@@ -411,7 +422,7 @@ def _reference(solve, seed, q_matrix, v_vector, params, *, iterations,
     q = q_matrix if stacked else q_matrix[None]
     v = (v_vector if stacked else v_vector[None])[:, None, :]
     n = q.shape[-1]
-    rows = torch.arange(int(batch_size), dtype=torch.int64, device=q.device)
+    rows = torch.arange(int(batch_size), dtype=torch.int64, device=q.device) + int(row_base)
     instances = torch.arange(q.shape[0], dtype=torch.int64, device=q.device)
 
     def draw(i):
@@ -439,30 +450,30 @@ def _reference(solve, seed, q_matrix, v_vector, params, *, iterations,
 
 def langevin_solve_reference(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
-    noise_scale=1.0, rng="popcount32", hp=None,
+    noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`langevin_solve` (same arguments,
     same result), on the tensors' own device."""
     return _reference(lgv.solve, seed, q_matrix, v_vector, params,
                       iterations=iterations, batch_size=batch_size,
-                      noise_scale=noise_scale, rng=rng, hp=hp)
+                      noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base)
 
 
 def pumped_langevin_solve_reference(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
-    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`pumped_langevin_solve` (same
     arguments, same result), on the tensors' own device."""
     return _reference(plgv.solve, seed, q_matrix, v_vector, params,
                       iterations=iterations, batch_size=batch_size,
                       noise_scale=noise_scale, rng=rng, hp=hp,
-                      pump_rate_flag=pump_rate_flag)
+                      pump_rate_flag=pump_rate_flag, row_base=row_base)
 
 
 def langevin_solve_segment_reference(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
-    batch_size, noise_scale=1.0, rng="popcount32", hp=None,
+    batch_size, noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`langevin_solve_segment` (same
     arguments, same result), on the tensors' own device."""
@@ -470,16 +481,111 @@ def langevin_solve_segment_reference(
     return _reference(lgv.advance, seed, q_matrix, v_vector, params,
                       iterations=iterations, batch_size=batch_size,
                       noise_scale=noise_scale, rng=rng, hp=hp,
-                      segment=(state, start, num))
+                      segment=(state, start, num), row_base=row_base)
 
 
 def pumped_langevin_solve_segment_reference(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
     batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    row_base=0,
 ):
     """Plain PyTorch version of :func:`pumped_langevin_solve_segment`."""
     _check_segment(state, start, num, iterations, hp, q_matrix, batch_size)
     return _reference(plgv.advance, seed, q_matrix, v_vector, params,
                       iterations=iterations, batch_size=batch_size,
                       noise_scale=noise_scale, rng=rng, hp=hp,
-                      pump_rate_flag=pump_rate_flag, segment=(state, start, num))
+                      pump_rate_flag=pump_rate_flag, segment=(state, start, num),
+                      row_base=row_base)
+
+
+def _step(pumped, seed, mv, v_local, params, state, x, step, *, iterations,
+          pump_rate_flag, noise_scale, rng, hp, row_base, col_base, steps, plain=False):
+    if rng not in philox.RNG_NAMES:
+        raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
+    name = "pumped_langevin_step" if pumped else "langevin_step"
+    check_step(mv, v_local, state, x, step, 1 if hp is None else 3, 1, name)
+    if plain or state.device.type == "cpu":
+        if step is not None:
+            w = torch.zeros_like(state[0])
+            if noise_scale != 0.0:
+                w = philox.wiener_one(seed, step, shard_rows(state, row_base), state.shape[-1],
+                                      rng, col0=col_base)
+                w = w if noise_scale == 1.0 else w * noise_scale
+            # Q is not read: the matvec is given; mv stands in for it as the
+            # carrier of the device.
+            given = dict(matvec=lambda _x, _q: mv[0])
+            flag = (pump_rate_flag,) if pumped else ()
+            dyn = plgv if pumped else lgv
+            if hp is None:
+                state[0] = dyn.make_step(mv, v_local, params, *flag, **given)(state[0], step, w)
+            else:
+                new = dyn.make_adam_step(mv, v_local, params, *flag, hp, **given)(
+                    tuple(state), step, w)
+                state.copy_(torch.stack(new))
+        p = common.float32_scalars(params, state.device)
+        x.copy_(lgv.matvec_input(state[0], p.S, p.lower_limit, p.upper_limit)[None])
+        return
+    if step is not None and steps is None:
+        steps = _step_table(params, hp, iterations, pump_rate_flag, state.device)
+    spec = _spec(8, hp, noise_scale, rng, pumped=pumped)._replace(ext=True)  # NP 8: any N
+    run_step(spec, "ccvm_langevin_step", seed, mv, v_local, steps, state, x, step,
+             iterations, _scalars(params, hp, float(noise_scale)), row_base, col_base)
+    counter = pumped_langevin_step if pumped else langevin_step
+    attr = ("pumped" if pumped else "langevin") + ("_adam" if hp is not None else "") \
+        + "_launches"
+    setattr(counter, attr, getattr(counter, attr) + 1)
+
+
+def langevin_step(seed, mv, v_local, params, state, x, step, *, iterations,
+                  noise_scale=1.0, rng="popcount32", hp=None, row_base=0, col_base=0,
+                  steps=None):
+    """Step ``step`` of a tensor-parallel Langevin solve of ``iterations``
+    steps on a rank's (batch, nl) shard, whose row 0 and column 0 are the
+    global ``row_base`` and ``col_base``: ``state`` (c[, m, v]) stacked (1
+    or 3, batch, nl) and ``x`` (1, batch, nl), the next step's matvec input,
+    are updated in place.  ``mv`` (1, batch, nl) is the step's x @ Q at the
+    shard's columns; ``step`` None writes only x of the state, for the first
+    matvec.  ``params.S`` is a scalar.  On the card it launches the one-step
+    build of csrc/langevin_solve.cu (``steps``: the solve's
+    :func:`_step_table`, built once); on the CPU it runs
+    :func:`langevin_step_reference`."""
+    return _step(False, seed, mv, v_local, params, state, x, step, iterations=iterations,
+                 pump_rate_flag=False, noise_scale=noise_scale, rng=rng, hp=hp,
+                 row_base=row_base, col_base=col_base, steps=steps)
+
+
+def pumped_langevin_step(seed, mv, v_local, params, state, x, step, *, iterations,
+                         pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+                         row_base=0, col_base=0, steps=None):
+    """:func:`langevin_step` of pumped Langevin."""
+    return _step(True, seed, mv, v_local, params, state, x, step, iterations=iterations,
+                 pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng, hp=hp,
+                 row_base=row_base, col_base=col_base, steps=steps)
+
+
+# Launch counts of the four one-step builds.
+langevin_step.langevin_launches = 0
+langevin_step.langevin_adam_launches = 0
+pumped_langevin_step.pumped_launches = 0
+pumped_langevin_step.pumped_adam_launches = 0
+
+
+def langevin_step_reference(seed, mv, v_local, params, state, x, step, *, iterations,
+                            noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
+                            col_base=0, steps=None):
+    """Plain PyTorch version of :func:`langevin_step` (same arguments, same
+    result), on the tensors' own device: the dynamics' step with the given
+    matvec and the draws of the shard's global rows and columns."""
+    return _step(False, seed, mv, v_local, params, state, x, step, iterations=iterations,
+                 pump_rate_flag=False, noise_scale=noise_scale, rng=rng, hp=hp,
+                 row_base=row_base, col_base=col_base, steps=steps, plain=True)
+
+
+def pumped_langevin_step_reference(seed, mv, v_local, params, state, x, step, *,
+                                   iterations, pump_rate_flag, noise_scale=1.0,
+                                   rng="popcount32", hp=None, row_base=0, col_base=0,
+                                   steps=None):
+    """Plain PyTorch version of :func:`pumped_langevin_step`."""
+    return _step(True, seed, mv, v_local, params, state, x, step, iterations=iterations,
+                 pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng, hp=hp,
+                 row_base=row_base, col_base=col_base, steps=steps, plain=True)

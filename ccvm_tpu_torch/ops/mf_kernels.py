@@ -39,7 +39,8 @@ import torch
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import mf as dyn
 from ccvm_tpu_torch.ops import build, philox
-from ccvm_tpu_torch.ops.dl_kernels import check_saturation, check_segment, per_element
+from ccvm_tpu_torch.ops.dl_kernels import (check_saturation, check_segment, check_step,
+                                           per_element, run_step, shard_rows)
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 def launch_shape(n: int, adam: bool = False):
@@ -107,7 +108,7 @@ def _scalars(params, hp, noise_scale):
     return (ctypes.c_float * 24)(*vals.tolist())
 
 
-def _columns(params, device, rows, np_):
+def _columns(params, device, rows, np_, lead=0):
     """S's array for the kernel on ``device`` (None for a scalar S): S and
     its reciprocal 1/S rounded to nearest, by a float32 division on the
     device, as :func:`_scalars` takes 1/S on the host; the per-column
@@ -118,7 +119,7 @@ def _columns(params, device, rows, np_):
     S = common.saturation_tensor(params.S, device)
     inv = torch.ones_like(S) / S
     if S.ndim == 2:
-        return per_element([S, inv], (1.0, 1.0), rows, np_)
+        return per_element([S, inv], (1.0, 1.0), rows, np_, lead=lead)
     return torch.stack([S, inv])
 
 
@@ -165,11 +166,13 @@ def _check(q_matrix, v_vector, params, rng, batch_size):
 
 
 def _launch(seed, q_matrix, v_vector, params, *, iterations, batch_size,
-            pump_rate_flag, noise_scale, rng, hp, segment=None):
+            pump_rate_flag, noise_scale, rng, hp, segment=None, row_base=0):
     """One launch of csrc/mf_solve.cu on CUDA tensors.  ``segment``: (state,
     start, num, steps) of a segment launch (state None: the solve's first
     state; steps None: the table built here), which returns ``(state,
-    mu_tilde or None)``; else the whole solve's ``(mu, mu_tilde, sigma)``."""
+    mu_tilde or None)``; else the whole solve's ``(mu, mu_tilde, sigma)``.
+    ``row_base``: the global row of trajectory 0 (a data-parallel rank's
+    first row)."""
     if q_matrix.device.type != "cuda":
         raise ValueError(f"mf_solve runs on cpu or cuda, not {q_matrix.device}")
     stacked = q_matrix.ndim == 3
@@ -179,12 +182,13 @@ def _launch(seed, q_matrix, v_vector, params, *, iterations, batch_size,
     cols = np.ndim(params.S) != 0
     shape_ = build.mf_launch_shape(n, hp is not None, cols)
     rows = shape_.rows
+    build.check_row_base(int(row_base), rows, stacked, "the MF kernel")
     launch = build.load(_spec(n, hp, noise_scale, rng, cols, segment is not None,
                               np.ndim(params.S) == 2))
     steps = None if segment is None else segment[3]
     if steps is None:
         steps = _step_table(params, hp, iterations, pump_rate_flag, q.device)
-    col_values = _columns(params, q.device, rows, shape_.np)
+    col_values = _columns(params, q.device, rows, shape_.np, int(row_base))
     shape = (num_instances, int(batch_size), n)
     mu = torch.empty(shape, dtype=torch.float32, device=q.device)
     mt = torch.zeros_like(mu)  # the readout of a solve of 0 iterations
@@ -202,7 +206,7 @@ def _launch(seed, q_matrix, v_vector, params, *, iterations, batch_size,
             int(num), int(seed) % 2**64,
             _scalars(params, hp, float(noise_scale)), rows, stream,
             None if col_values is None else col_values.data_ptr(),
-            None if seg is None else ctypes.byref(seg),
+            None if seg is None else ctypes.byref(seg), int(row_base),
         )
     if err != 0:
         raise RuntimeError(f"mf_solve kernel launch failed: cudaError_t {err}")
@@ -220,17 +224,19 @@ def _launch(seed, q_matrix, v_vector, params, *, iterations, batch_size,
 
 def mf_solve(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
-    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Fused MF solve; ``hp`` selects the Adam variant.  Returns
     ``(mu, mu_tilde, sigma)`` shaped ``(batch, n)``, or ``(I, batch, n)`` for
     a stacked ``(I, n, n)`` Q, where instance ``i`` draws the noise of a
     solve with ``seed + i``; ``mu_tilde`` is the last step's, clamped to
-    +-S."""
+    +-S.  ``row_base``: the global row of trajectory 0, so that a
+    data-parallel rank's rows draw what those rows of a single solve draw."""
     _check(q_matrix, v_vector, params, rng, batch_size)
     kwargs = dict(
         iterations=iterations, batch_size=batch_size,
         pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng, hp=hp,
+        row_base=row_base,
     )
     if q_matrix.device.type == "cpu":
         return mf_solve_reference(seed, q_matrix, v_vector, params, **kwargs)
@@ -246,7 +252,7 @@ mf_solve.mf_adam_launches = 0
 def mf_solve_segment(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
     batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
-    steps=None,
+    steps=None, row_base=0,
 ):
     """Advance ``state`` by ``num`` steps from absolute step ``start`` of a
     solve of ``iterations`` steps (the JAX ``solve_segment``).  ``state`` is
@@ -261,7 +267,7 @@ def mf_solve_segment(
                   batch_size)
     kwargs = dict(iterations=iterations, batch_size=batch_size,
                   pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng,
-                  hp=hp)
+                  hp=hp, row_base=row_base)
     if q_matrix.device.type == "cpu":
         return mf_solve_segment_reference(seed, q_matrix, v_vector, params, state,
                                           start, num, **kwargs)
@@ -271,7 +277,7 @@ def mf_solve_segment(
 
 def mf_solve_sampled(
     seed, q_matrix, v_vector, params, segments, *, batch_size, pump_rate_flag,
-    noise_scale=1.0, rng="popcount32", hp=None,
+    noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """A whole solve of ``sum(segments)`` steps as one segment launch each
     (the JAX ``solve_sampled``).  Returns ``((mu, mu_tilde, sigma),
@@ -281,7 +287,7 @@ def mf_solve_sampled(
     iterations = int(sum(int(x) for x in segments))
     kwargs = dict(iterations=iterations, batch_size=batch_size,
                   pump_rate_flag=pump_rate_flag, noise_scale=noise_scale, rng=rng,
-                  hp=hp)
+                  hp=hp, row_base=row_base)
     if q_matrix.device.type == "cpu":
         return mf_solve_sampled_reference(seed, q_matrix, v_vector, params, segments,
                                           **kwargs)
@@ -310,9 +316,10 @@ def mf_solve_sampled_reference(seed, q_matrix, v_vector, params, segments, *,
                     segments, kwargs)
 
 
-def _draw(seed, q, batch_size, rng, noise_scale):
-    """Step i's draw of the kernel's noise, for a stacked (I, n, n) Q."""
-    rows = torch.arange(int(batch_size), dtype=torch.int64, device=q.device)
+def _draw(seed, q, batch_size, rng, noise_scale, row_base=0):
+    """Step i's draw of the kernel's noise, for a stacked (I, n, n) Q whose
+    trajectory 0 is the global row ``row_base``."""
+    rows = torch.arange(int(batch_size), dtype=torch.int64, device=q.device) + int(row_base)
     instances = torch.arange(q.shape[0], dtype=torch.int64, device=q.device)
 
     def draw(i):
@@ -325,6 +332,7 @@ def _draw(seed, q, batch_size, rng, noise_scale):
 def mf_solve_segment_reference(
     seed, q_matrix, v_vector, params, state, start, num, *, iterations,
     batch_size, pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    row_base=0,
 ):
     """Plain PyTorch version of :func:`mf_solve_segment` (same arguments,
     same result), on the tensors' own device."""
@@ -340,7 +348,7 @@ def mf_solve_segment_reference(
     with fp32_matmul():
         full = dyn.advance(q, v, params, full, start, num,
                            pump_rate_flag=pump_rate_flag, hp=hp,
-                           draw=_draw(seed, q, batch_size, rng, noise_scale))
+                           draw=_draw(seed, q, batch_size, rng, noise_scale, row_base))
     unstack = (lambda x: x) if stacked else (lambda x: x[0])
     mt = None
     if int(start) + int(num) == int(iterations):
@@ -350,7 +358,7 @@ def mf_solve_segment_reference(
 
 def mf_solve_reference(
     seed, q_matrix, v_vector, params, *, iterations, batch_size,
-    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+    pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None, row_base=0,
 ):
     """Plain PyTorch version of :func:`mf_solve` (same arguments, same
     result), on the tensors' own device."""
@@ -363,6 +371,78 @@ def mf_solve_reference(
         mu, mt, sigma = dyn.solve(
             q, v, params, iterations=iterations, batch_size=batch_size,
             pump_rate_flag=pump_rate_flag, hp=hp,
-            draw=_draw(seed, q, batch_size, rng, noise_scale),
+            draw=_draw(seed, q, batch_size, rng, noise_scale, row_base),
         )
     return (mu, mt, sigma) if stacked else (mu[0], mt[0], sigma[0])
+
+
+def mf_step(seed, mv, v_local, params, state, x, step, *, iterations, pump_rate_flag,
+            noise_scale=1.0, rng="popcount32", hp=None, row_base=0, col_base=0,
+            steps=None):
+    """Step ``step`` of a tensor-parallel MF solve of ``iterations`` steps on
+    a rank's (batch, nl) shard, whose row 0 and column 0 are the global
+    ``row_base`` and ``col_base``: ``state`` (mu, sigma, mu_tilde[, m, v])
+    stacked (3 or 5, batch, nl), mu_tilde the step's measured field, and
+    ``x`` (1, batch, nl), the next step's matvec input (its mu_tilde
+    clamped, through the change of variables, with the next step's draw),
+    are updated in place.  ``mv`` (1, batch, nl) is the step's x @ Q at the
+    shard's columns; ``step`` None writes only step 0's x, for the first
+    matvec.  ``params.S`` is a scalar.  On the card it launches the one-step
+    build of csrc/mf_solve.cu (``steps``: the solve's :func:`_step_table`,
+    built once); on the CPU it runs :func:`mf_step_reference`."""
+    if rng not in philox.RNG_NAMES:
+        raise ValueError(f"rng must be one of {philox.RNG_NAMES}, got {rng!r}")
+    check_step(mv, v_local, state, x, step, 3 if hp is None else 5, 1, "mf_step")
+    kwargs = dict(iterations=iterations, pump_rate_flag=pump_rate_flag,
+                  noise_scale=noise_scale, rng=rng, hp=hp, row_base=row_base,
+                  col_base=col_base)
+    if state.device.type == "cpu":
+        return mf_step_reference(seed, mv, v_local, params, state, x, step, **kwargs)
+    if steps is None:
+        steps = _step_table(params, hp, iterations, pump_rate_flag, state.device)
+    spec = _spec(4, hp, noise_scale, rng)._replace(ext=True)  # NP 4: any N
+    run_step(spec, "ccvm_mf_step", seed, mv, v_local, steps, state, x, step, iterations,
+             _scalars(params, hp, float(noise_scale)), row_base, col_base)
+    if hp is None:
+        mf_step.mf_launches += 1
+    else:
+        mf_step.mf_adam_launches += 1
+
+
+# Launch counts of the two one-step builds.
+mf_step.mf_launches = 0
+mf_step.mf_adam_launches = 0
+
+
+def mf_step_reference(seed, mv, v_local, params, state, x, step, *, iterations,
+                      pump_rate_flag, noise_scale=1.0, rng="popcount32", hp=None,
+                      row_base=0, col_base=0, steps=None):
+    """Plain PyTorch version of :func:`mf_step` (same arguments, same
+    result), on the tensors' own device: the dynamics' step with the given
+    matvec, the kernel's safety clip of mu, and the draws of the shard's
+    global rows and columns."""
+    rows, nl = shard_rows(state, row_base), state.shape[-1]
+
+    def draw(i):
+        if noise_scale == 0.0:
+            return torch.zeros_like(state[0])
+        w = philox.wiener_one(seed, i, rows, nl, rng, col0=col_base)
+        return w if noise_scale == 1.0 else w * noise_scale
+
+    if step is not None:
+        # Q is not read: the matvec is given; mv stands in for it as the
+        # carrier of the device.
+        given = dict(matvec=lambda _x, _q: mv[0])
+        if hp is None:
+            fn = dyn.make_step(mv, v_local, params, pump_rate_flag, **given)
+        else:
+            fn = dyn.make_adam_step(mv, v_local, params, pump_rate_flag, hp, **given)
+        new = fn(tuple(state), step, draw(step))
+        bound = dyn.MF_SAFETY_BOUND
+        state.copy_(torch.stack((new[0].clamp(-bound, bound),) + tuple(new[1:])))
+    following = 0 if step is None else int(step) + 1
+    if following < int(iterations):
+        p = common.float32_scalars(params, state.device)
+        mt_c = dyn._measure(p, following, state[0], draw(following), torch.sqrt(p.dt),
+                            pump_rate_flag)[3]
+        x.copy_(dyn.matvec_input(mt_c, p.S, p.lower_limit, p.upper_limit)[None])

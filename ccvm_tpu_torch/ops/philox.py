@@ -89,18 +89,23 @@ def seed_key(seed: int, instance=0):
 
 
 def words(seed: int, step: int, rows: torch.Tensor, n: int, stream: int,
-          instance=0):
-    """The word of every (row, column < n) for one step and stream.
+          instance=0, col0: int = 0):
+    """The word of every (row, column col0 .. col0 + n - 1) for one step and
+    stream.
 
     ``rows`` is a (B,) int64 tensor of global trajectory rows; ``instance``
     an int, giving a (B, n) result, or an (I,) int64 tensor, giving
-    (I, B, n)."""
+    (I, B, n).  ``col0`` is the first global column (a tensor-parallel
+    rank's feature shard), any offset, not only a multiple of 4."""
     device = rows.device
-    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    first = int(col0) // 4
+    groups = torch.arange(first, (int(col0) + n + 3) // 4, dtype=torch.int64,
+                          device=device)
     inst = torch.as_tensor(instance, dtype=torch.int64, device=device)
     k0, k1 = seed_key(seed, inst.reshape(inst.shape + (1, 1)))
     out = philox4x32_10((step, rows[:, None], groups, stream), (k0, k1))
-    return torch.stack(out, dim=-1).flatten(-2)[..., :n]
+    skip = int(col0) - 4 * first
+    return torch.stack(out, dim=-1).flatten(-2)[..., skip:skip + n]
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:
@@ -205,17 +210,18 @@ HARNESS_RNGS = {
 HARNESS_RNG_NAMES = tuple(HARNESS_RNGS)
 
 
-def _pair(transform, streams, seed, step, rows, n, instance):
-    ws = [words(seed, step, rows, n, k, instance) for k in range(streams)]
+def _pair(transform, streams, seed, step, rows, n, instance, col0=0):
+    ws = [words(seed, step, rows, n, k, instance, col0) for k in range(streams)]
     return transform(*ws)
 
 
 def wiener_pair(seed: int, step: int, rows: torch.Tensor, n: int, rng: str,
-                instance=0):
-    """The kernel's standard-normal pair ``(w_c, w_s)`` for one step."""
+                instance=0, col0: int = 0):
+    """The kernel's standard-normal pair ``(w_c, w_s)`` for one step, at
+    columns ``col0`` .. ``col0 + n - 1``."""
     if rng not in TRANSFORMS:
         raise ValueError(f"rng must be one of {RNG_NAMES}, got {rng!r}")
-    return _pair(TRANSFORMS[rng], STREAMS[rng], seed, step, rows, n, instance)
+    return _pair(TRANSFORMS[rng], STREAMS[rng], seed, step, rows, n, instance, col0)
 
 
 def harness_pair(seed: int, step: int, rows: torch.Tensor, n: int, name: str,
@@ -228,9 +234,11 @@ def harness_pair(seed: int, step: int, rows: torch.Tensor, n: int, name: str,
 
 
 def wiener_one(seed: int, step: int, rows: torch.Tensor, n: int, rng: str,
-               instance=0):
-    """The kernel's single standard-normal draw ``w`` for one step."""
+               instance=0, col0: int = 0):
+    """The kernel's single standard-normal draw ``w`` for one step, at
+    columns ``col0`` .. ``col0 + n - 1``."""
     if rng not in TRANSFORMS_ONE:
         raise ValueError(f"rng must be one of {RNG_NAMES}, got {rng!r}")
-    ws = [words(seed, step, rows, n, k, instance) for k in range(STREAMS_ONE[rng])]
+    ws = [words(seed, step, rows, n, k, instance, col0)
+          for k in range(STREAMS_ONE[rng])]
     return TRANSFORMS_ONE[rng](*ws)

@@ -1,23 +1,29 @@
-"""Multi-process helpers: the single-process part of
-``ccvm_tpu/parallel/multihost.py``, under the same names.
+"""Multi-process runtime helpers (the twin of
+``ccvm_tpu/parallel/multihost.py``, on ``torch.distributed``).
 
-``run_resilient`` is the JAX package's failure-tolerant work loop, line for
-line (plain Python).  ``process_index``, ``is_coordinator`` and
-``local_shard_bounds`` read ``torch.distributed``'s rank and world size when
-a process group is initialised, and rank 0 of 1 otherwise.  Starting a
-multi-process run (``initialize``) and a mesh over every card
-(``global_batch_mesh``) wait for ROADMAP queue 1 item 13.
+Multi-process scaling is: :func:`initialize` once per process (from its
+arguments or from torchrun's environment), a global mesh over every rank
+(:func:`global_batch_mesh`), batch or instance axes sharded over it, and the
+small final gathers over NCCL (cards) or gloo (CPU).  Process 0 writes
+Solution / Metadata artifacts.  ``run_resilient`` is the JAX package's
+failure-tolerant work loop, line for line (plain Python).
 """
 
 from __future__ import annotations
 
+import datetime
 import logging
+import os
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
-from ccvm_tpu_torch.solvers.base import not_ported
-
 logger = logging.getLogger(__name__)
+
+_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+# How long a rank waits for the others (to join, and at each collective).
+_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def _rank_and_world():
@@ -26,9 +32,62 @@ def _rank_and_world():
     return 0, 1
 
 
-def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """Not ported: a multi-process run (``ccvm_tpu/parallel/multihost.py:21-67``)."""
-    raise not_ported("multihost.initialize", "queue 1 item 13")
+def initialize(coordinator_address=None, num_processes=None, process_id=None, *,
+               device="cuda"):
+    """Join the process group (idempotent; the twin of
+    ``ccvm_tpu/parallel/multihost.py:22-67``).
+
+    With ``coordinator_address`` ("host:port", or a ``tcp://`` or
+    ``file://`` URL) or ``num_processes`` it joins the group they describe as
+    ``process_id``; else, under torchrun, the one
+    its environment describes (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``, ``LOCAL_RANK``).  ``device`` "cuda" takes NCCL and the
+    card ``LOCAL_RANK`` (``torch.cuda.set_device``; a rank without a card
+    raises), "cpu" gloo.  A configured run that fails raises: going on as one
+    process would compute 1/N of the sweep.  With nothing configured it logs
+    and returns, a single-process run (tests, one-card benches) with no
+    group to join."""
+    if dist.is_initialized():
+        return
+    explicit = coordinator_address is not None or num_processes is not None
+    from_env = all(k in os.environ for k in _ENV)
+    if not (explicit or from_env):
+        logger.info("torch.distributed not initialized (no coordinator and no "
+                    "torchrun environment); single-process run")
+        return
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f'device must be "cuda" or "cpu", got {device!r}')
+    try:
+        if explicit:
+            world = int(1 if num_processes is None else num_processes)
+            rank = int(0 if process_id is None else process_id)
+            if not 0 <= rank < world:
+                raise ValueError(f"process {rank} is not one of {world}")
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            address = coordinator_address or "localhost:29500"
+            if "://" not in address:
+                address = f"tcp://{address}"
+            init = dict(init_method=address, world_size=world, rank=rank)
+        else:
+            local = int(os.environ.get("LOCAL_RANK", os.environ["RANK"]))
+            init = dict(init_method="env://")
+        if device == "cuda":
+            cards = torch.cuda.device_count()
+            if local >= cards:
+                raise RuntimeError(
+                    f"local rank {local} has no card ({cards} on this host): NCCL "
+                    "takes one card a rank")
+            torch.cuda.set_device(local)
+        dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                                timeout=_TIMEOUT, **init)
+    except (RuntimeError, ValueError) as e:
+        raise RuntimeError(
+            "torch.distributed.init_process_group failed for the configured "
+            f"multi-process run (coordinator={coordinator_address!r}, "
+            f"num_processes={num_processes!r}, process_id={process_id!r}): {e}"
+        ) from e
+    logger.info("torch.distributed initialized: process %d/%d (%s)",
+                dist.get_rank(), dist.get_world_size(), dist.get_backend())
 
 
 def process_index() -> int:
@@ -42,8 +101,32 @@ def is_coordinator() -> bool:
 
 
 def global_batch_mesh():
-    """Not ported: a "batch" mesh over every card (``multihost.py:75-79``)."""
-    raise not_ported("multihost.global_batch_mesh", "queue 1 item 13")
+    """1-D "batch" mesh over every rank of the process group (all hosts)."""
+    from ccvm_tpu_torch.parallel.mesh import make_batch_mesh
+
+    return make_batch_mesh()
+
+
+def process_allgather(x, tiled=False):
+    """Every process's ``x`` (a scalar, an array or a tensor), as a host
+    array (``jax.experimental.multihost_utils.process_allgather``): stacked
+    on a new leading axis, or with ``tiled`` concatenated along the first.
+    One process gives its own ``x`` so shaped.  NCCL gathers on the card,
+    gloo on the CPU."""
+    t = torch.as_tensor(np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x))
+    if t.ndim == 0 and tiled:
+        raise ValueError("a tiled gather takes an array of at least one axis")
+    _, world = _rank_and_world()
+    if world == 1:
+        parts = [t]
+    else:
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend() == "nccl" else torch.device("cpu")
+        t = t.to(device).contiguous()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+    out = torch.cat(parts) if tiled else torch.stack(parts)
+    return out.cpu().numpy()
 
 
 def local_shard_bounds(total: int) -> tuple[int, int]:

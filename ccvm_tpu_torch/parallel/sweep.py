@@ -6,7 +6,12 @@ the JAX package ``vmap``s the solve over a leading instance axis.  Here the
 instances stack into an (I, n, n) Q and an (I, n) V, and one launch of the
 solver's whole-solve kernel integrates every instance's batch (on "cpu" its
 plain version): instance ``i`` draws the noise of a solve with ``seed + i``,
-so it equals ``solver(instance_i, seed=seed + i)`` on the same device.  The
+so it equals ``solver(instance_i, seed=seed + i)`` on the same device.
+With a mesh, the instances shard over its "batch" axis where they divide
+evenly (as the JAX sweep shards them; replicated otherwise): each rank runs
+one stacked launch of its instances, instance i keeping seed + i by its
+global index, and the results are all-gathered, so every rank returns every
+instance's Solution.  The
 post-processor's core then refines the (I, batch, n) sweep in one call, and
 the readout crosses to the host in one (2, I, batch) copy
 (:func:`ccvm_tpu_torch.problem_classes.boxqp.problem_instance.stacked_readout64`).
@@ -24,13 +29,13 @@ import torch
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
 from ccvm_tpu_torch.ops.lbfgs import lbfgs_box_batch
+from ccvm_tpu_torch.parallel.mesh import all_gather, axis_group, axis_index, axis_size
 from ccvm_tpu_torch.post_processor.adam import _adam_refine
 from ccvm_tpu_torch.post_processor.asgd import _asgd_refine
 from ccvm_tpu_torch.post_processor.grad_descent import _gd_refine
 from ccvm_tpu_torch.problem_classes.boxqp.problem_instance import stacked_readout64
 from ccvm_tpu_torch.solution import Solution
-from ccvm_tpu_torch.solvers.base import (not_ported, per_variable_saturation,
-                                         saturation_of)
+from ccvm_tpu_torch.solvers.base import check_mesh, per_variable_saturation, saturation_of
 from ccvm_tpu_torch.solvers.langevin import algorithm_hyperparameters
 
 POST_PROCESSORS = (None, "grad-descent", "adam", "asgd", "bfgs", "lbfgs")
@@ -92,6 +97,19 @@ def _refine(post_processor, c, qs, vs, lo, hi):
                            max_iter=1)
 
 
+def _instance_shard(mesh, num_instances):
+    """(first instance, instances, "batch" group) of this rank's share of a
+    sweep over ``mesh``: the instances shard over the "batch" axis where its
+    size divides their number, as the JAX sweep's ``_shard_instance_axis``
+    (``ccvm_tpu/parallel/sweep.py:69-86``) shards them; every rank runs all
+    of them (no group) otherwise and without a mesh."""
+    dp = 1 if mesh is None else axis_size(mesh, "batch")
+    if dp == 1 or num_instances % dp != 0:
+        return 0, num_instances, None
+    per = num_instances // dp
+    return axis_index(mesh, "batch") * per, per, axis_group(mesh, "batch")
+
+
 def _synchronize(x):
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
@@ -123,7 +141,8 @@ def sweep_solve(
             seed=seed + i)``.
         scale: when True, applies ``instance.scale_coefs(get_scaling_factor)``
             to every instance first (skip if the caller already scaled).
-        mesh: not ported (ROADMAP queue 1 item 13); anything but None raises.
+        mesh: a mesh (``ccvm_tpu_torch.parallel.make_mesh``) whose "batch"
+            axis shards the instances where it divides their number.
         g: DL's (default 0.05) or MF's (default 0.01) ``g``; ignored for the
             Langevin family.
         pump_rate_flag: the pump schedule of DL, MF and pumped Langevin.
@@ -133,8 +152,7 @@ def sweep_solve(
         and ``pp_time`` the sweep's walls over ``len(instances) *
         batch_size``.
     """
-    if mesh is not None:
-        raise not_ported("mesh-sharded sweeps", "queue 1 item 13")
+    check_mesh(mesh)
     cls = solver.__class__.__name__
     if post_processor not in POST_PROCESSORS:
         raise ValueError(
@@ -149,14 +167,17 @@ def sweep_solve(
             inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
 
     qs, vs, size = _stack_instances(solver, instances)
-    num_instances = len(instances)
+    all_instances, all_qs, all_vs = instances, qs, vs
+    first, per, group = _instance_shard(mesh, len(instances))
+    instances = instances[first:first + per]
+    qs, vs = qs[first:first + per], vs[first:first + per]
     batch_size = solver.batch_size
     solver.solution_bounds = instances[0].solution_bounds
     lo, hi = solver.solution_bounds
     pk = _get_params(solver, size)
     iterations = pk["iterations"]
     hp = algorithm_hyperparameters(algorithm_parameters)
-    seed = int(seed)
+    seed = int(seed) + first
     kw = dict(iterations=iterations, batch_size=batch_size, rng=solver.kernel_rng, hp=hp)
 
     # A (batch, n) S is shared by every instance, as the JAX sweep's vmap
@@ -221,12 +242,18 @@ def sweep_solve(
 
     confs = (common.change_variables_boxqp(problem_variables, lo, hi, S)
              if needs_final_cv else problem_variables)
+    if group is not None:
+        problem_variables, confs = (all_gather(x, group, 0)
+                                    for x in (problem_variables, confs))
+        extra_vars = {k: all_gather(x, group, 0) for k, x in extra_vars.items()}
+        instances, qs, vs = all_instances, all_qs, all_vs
     objvals = stacked_readout64(instances, confs, qs, vs)
 
     # Wall time attributed evenly across the sweep, then batch-normalised
-    # (reference solve-time semantics, dl_solver.py:933).
-    solve_time = solve_wall / (num_instances * batch_size)
-    pp_time = pp_wall / (num_instances * batch_size)
+    # (reference solve-time semantics, dl_solver.py:933), over every
+    # instance of the sweep (with a mesh the ranks solve theirs side by side).
+    solve_time = solve_wall / (len(all_instances) * batch_size)
+    pp_time = pp_wall / (len(all_instances) * batch_size)
     solutions = []
     for i, inst in enumerate(instances):
         variables = {"problem_variables": problem_variables[i]}

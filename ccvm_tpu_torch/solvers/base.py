@@ -31,6 +31,18 @@ def not_ported(feature, item):
     )
 
 
+def check_mesh(mesh):
+    """Raise unless ``mesh`` is None or a
+    :class:`torch.distributed.device_mesh.DeviceMesh`
+    (:func:`ccvm_tpu_torch.parallel.make_mesh`)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be a torch.distributed DeviceMesh (make_mesh), got {type(mesh).__name__}"
+        )
+
+
 def per_variable_saturation(S, problem_size, batch_size, device):
     """A façade's S as its solve takes it: a scalar, one value a column (a
     tuple of float32 values, ``dynamics/common.saturation``), or one an
@@ -83,6 +95,13 @@ class CCVMSolver(ABC):
 
     Args:
         device (str): "cuda" or "cpu"; "cuda" raises when no card is present.
+        mesh (torch.distributed.device_mesh.DeviceMesh, optional): When
+            given (:func:`ccvm_tpu_torch.parallel.make_mesh`), trajectory
+            batches are sharded over the mesh's "batch" axis (data
+            parallelism: each rank runs the whole-solve kernel on its rows,
+            then the state is all-gathered), and a "model" axis larger than
+            one routes the solve to :mod:`ccvm_tpu_torch.parallel.tp`.  Its
+            device type must be the solver's.
         timing (str): "sync" (default) synchronises the card right after the
             SDE integration so ``solve_time`` measures it alone. "async" lets
             the solve and the readout run with the readout's single
@@ -90,13 +109,19 @@ class CCVMSolver(ABC):
             the full pipeline minus ``pp_time``.
     """
 
-    def __init__(self, device, timing="sync"):
+    def __init__(self, device, mesh=None, timing="sync"):
         self.torch_device = resolve_device(device)
         if timing not in ("sync", "async"):
             raise ValueError(
                 f'timing must be "sync" or "async", got {timing!r}'
             )
+        check_mesh(mesh)
+        if mesh is not None and mesh.device_type != self.torch_device.type:
+            raise ValueError(
+                f'a "{mesh.device_type}" mesh cannot shard a "{device}" solver'
+            )
         self.device = device
+        self.mesh = mesh
         self.timing = timing
         self._is_tuned = False
         self._scaling_multiplier = None
@@ -216,6 +241,47 @@ class CCVMSolver(ABC):
             for block in blocks:
                 write_sample_rows(f, block[best].cpu().numpy(),
                                   append_trailing_tab=append_trailing_tab)
+
+    def _tp_mesh(self):
+        """The mesh when it carries a nontrivial "model" (tensor-parallel)
+        axis, else None.  Façades route such solves through
+        :mod:`ccvm_tpu_torch.parallel.tp` (Q's rows sharded)."""
+        from ccvm_tpu_torch.parallel.mesh import axis_size
+
+        if self.mesh is not None and axis_size(self.mesh, "model") > 1:
+            return self.mesh
+        return None
+
+    def _sharded(self, run, params):
+        """``run(params, batch_size, row_base)`` on this rank's rows of a
+        mesh-sharded solve, its every tensor (tuples nest) all-gathered
+        along the batch dimension (the second last) over the mesh's "batch"
+        axis, so that every rank returns the global arrays; without a mesh,
+        ``run`` on the whole batch.  ``row_base`` is the rank's first global
+        row, whose draws are those of the single-card solve's rows; a
+        per-element (batch, n) S is cut to the rank's rows."""
+        if self.mesh is None:
+            return run(params, self.batch_size, 0)
+        from ccvm_tpu_torch.parallel.mesh import (all_gather, axis_group, axis_index,
+                                                  axis_size)
+
+        dp = axis_size(self.mesh, "batch")
+        if self.batch_size % dp != 0:
+            raise ValueError(
+                f"batch_size {self.batch_size} must divide over the batch axis ({dp})"
+            )
+        batch = self.batch_size // dp
+        row_base = axis_index(self.mesh, "batch") * batch
+        if isinstance(params.S, torch.Tensor) and params.S.ndim == 2:
+            params = params._replace(S=params.S[row_base:row_base + batch])
+        group = axis_group(self.mesh, "batch")
+
+        def gather(x):
+            if isinstance(x, tuple):
+                return tuple(gather(y) for y in x)
+            return all_gather(x, group, -2)
+
+        return gather(run(params, batch, row_base))
 
     def tune(self, instances, post_processor=None, parameter_ranges=None, **kwargs):
         """Grid-search ``parameter_ranges`` on ``instances`` and make the

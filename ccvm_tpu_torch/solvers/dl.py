@@ -22,8 +22,7 @@ from ccvm_tpu_torch.ops import dl_kernels
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
-from ccvm_tpu_torch.solvers.base import (CCVMSolver, not_ported,
-                                         per_variable_saturation, saturation_of)
+from ccvm_tpu_torch.solvers.base import CCVMSolver, per_variable_saturation, saturation_of
 
 DL_SCALING_MULTIPLIER = 0.2
 """Reference ``dl_solver.py:12``."""
@@ -33,9 +32,9 @@ class DLSolver(CCVMSolver):
     """Models the delay-line coherent continuous-variable machine (DL-CCVM),
     reference ``dl_solver.py:17``.
 
-    ``mesh`` and ``backend`` are kept for signature parity with the JAX
-    façade: a mesh is not ported yet, and ``backend`` accepts only "auto"
-    (the device decides the path).
+    ``mesh`` shards the batch (and with a "model" axis the features) as
+    the base class says; ``backend`` is kept for signature parity with the
+    JAX façade and accepts only "auto" (the device decides the path).
     """
 
     def __init__(
@@ -49,9 +48,7 @@ class DLSolver(CCVMSolver):
         timing="sync",
         kernel_rng="popcount16",
     ):
-        super().__init__(device, timing=timing)
-        if mesh is not None:
-            raise not_ported("mesh-sharded solving", "queue 1 item 13")
+        super().__init__(device, mesh=mesh, timing=timing)
         if backend != "auto":
             raise ValueError(
                 f'backend must be "auto" (the device decides the path), got {backend!r}'
@@ -263,16 +260,28 @@ class DLSolver(CCVMSolver):
         ``_evolution_sample_plan``), the samples kept on the device in
         ``c_sample`` / ``s_sample``.  ``hp`` selects the Adam variant, which
         works here although the reference's own DL+Adam call site raises
-        TypeError (``dl_solver.py:906-923``)."""
-        kwargs = dict(batch_size=self.batch_size, pump_rate_flag=pump_rate_flag,
-                      pump_is_gt_one=pump_is_gt_one, rng=self.kernel_rng, hp=hp)
+        TypeError (``dl_solver.py:906-923``).  A mesh shards the batch
+        (:meth:`_sharded`), or with a "model" axis runs
+        :func:`ccvm_tpu_torch.parallel.tp.dl_solve`."""
+        kwargs = dict(pump_rate_flag=pump_rate_flag, pump_is_gt_one=pump_is_gt_one,
+                      rng=self.kernel_rng, hp=hp)
+        q, v = self.q_matrix, self.v_vector
         if not evolution_step_size:
-            return dl_kernels.dl_solve(seed, self.q_matrix, self.v_vector, params,
-                                       iterations=iterations, **kwargs)
+            tp_mesh = self._tp_mesh()
+            if tp_mesh is not None:
+                from ccvm_tpu_torch.parallel import tp
+
+                return tp.dl_solve(tp_mesh, seed, q, v, params, iterations=iterations,
+                                   batch_size=self.batch_size, **kwargs)
+            return self._sharded(lambda p, batch, row_base: dl_kernels.dl_solve(
+                seed, q, v, p, iterations=iterations, batch_size=batch,
+                row_base=row_base, **kwargs), params)
         num_samples, segments = self._evolution_sample_plan(iterations,
                                                             evolution_step_size)
-        (c, s), (c_samples, s_samples) = dl_kernels.dl_solve_sampled(
-            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        (c, s), (c_samples, s_samples) = self._sharded(
+            lambda p, batch, row_base: dl_kernels.dl_solve_sampled(
+                seed, q, v, p, segments, batch_size=batch, row_base=row_base,
+                **kwargs), params)
         self.c_sample = self._device_sample_stack(c_samples, num_samples)
         self.s_sample = self._device_sample_stack(s_samples, num_samples)
         return c, s

@@ -31,12 +31,10 @@ LANGEVIN_SCALING_MULTIPLIER = 0.05
 ``langevin_solver.py:12``)."""
 
 
-def check_langevin_options(mesh, backend, kernel_rng):
-    """The constructor options the Langevin-family façades share: a mesh and
-    a backend other than "auto" are not ported; ``kernel_rng`` names one of
-    the kernel's Wiener transforms."""
-    if mesh is not None:
-        raise not_ported("mesh-sharded solving", "queue 1 item 13")
+def check_langevin_options(backend, kernel_rng):
+    """The constructor options the Langevin-family façades share: a backend
+    other than "auto" is not ported; ``kernel_rng`` names one of the
+    kernel's Wiener transforms."""
     if backend != "auto":
         raise not_ported(
             f"backend={backend!r} (the device decides the path in this port)",
@@ -151,9 +149,10 @@ class LangevinSolver(CCVMSolver):
     """Models typical Langevin dynamics as a system of SDEs
     (reference ``langevin_solver.py:17``).
 
-    ``mesh`` and ``backend`` are kept for signature parity with the JAX
-    façade: neither a mesh nor a backend other than "auto" (the device
-    decides the path) is ported.  ``kernel_rng`` names the kernel's Wiener
+    ``mesh`` shards the batch (and with a "model" axis the features) as
+    the base class says; ``backend`` is kept for signature parity with the
+    JAX façade: no backend other than "auto" (the device decides the path)
+    is ported.  ``kernel_rng`` names the kernel's Wiener
     transform ("popcount32", the default, "popcount16", "popcount" or
     "box_muller").
     """
@@ -168,8 +167,8 @@ class LangevinSolver(CCVMSolver):
         timing="sync",
         kernel_rng="popcount32",
     ):
-        super().__init__(device, timing=timing)
-        check_langevin_options(mesh, backend, kernel_rng)
+        super().__init__(device, mesh=mesh, timing=timing)
+        check_langevin_options(backend, kernel_rng)
         self.batch_size = batch_size
         self.backend = backend
         self.kernel_rng = kernel_rng
@@ -314,16 +313,27 @@ class LangevinSolver(CCVMSolver):
         version on "cpu"): one whole-solve launch, or with
         ``evolution_step_size`` one segment launch a sample, the samples
         kept on the device in ``c_sample``; ``hp`` selects the Adam
-        variant."""
-        kwargs = dict(batch_size=self.batch_size, rng=self.kernel_rng, hp=hp)
+        variant.  A mesh shards the batch (:meth:`_sharded`), or with a
+        "model" axis runs :func:`ccvm_tpu_torch.parallel.tp.langevin_solve`."""
+        kwargs = dict(rng=self.kernel_rng, hp=hp)
+        q, v = self.q_matrix, self.v_vector
         if not evolution_step_size:
-            return langevin_kernels.langevin_solve(
-                seed, self.q_matrix, self.v_vector, params, iterations=iterations,
-                **kwargs)
+            tp_mesh = self._tp_mesh()
+            if tp_mesh is not None:
+                from ccvm_tpu_torch.parallel import tp
+
+                return tp.langevin_solve(tp_mesh, seed, q, v, params,
+                                         iterations=iterations,
+                                         batch_size=self.batch_size, **kwargs)
+            return self._sharded(lambda p, batch, row_base: langevin_kernels.langevin_solve(
+                seed, q, v, p, iterations=iterations, batch_size=batch,
+                row_base=row_base, **kwargs), params)
         num_samples, segments = self._evolution_sample_plan(iterations,
                                                             evolution_step_size)
-        c, samples = langevin_kernels.langevin_solve_sampled(
-            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        c, samples = self._sharded(
+            lambda p, batch, row_base: langevin_kernels.langevin_solve_sampled(
+                seed, q, v, p, segments, batch_size=batch, row_base=row_base,
+                **kwargs), params)
         self.c_sample = self._device_sample_stack(samples, num_samples)
         return c
 

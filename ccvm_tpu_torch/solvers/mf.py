@@ -21,8 +21,7 @@ from ccvm_tpu_torch.ops import mf_kernels, philox
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
-from ccvm_tpu_torch.solvers.base import (CCVMSolver, not_ported,
-                                         per_variable_saturation, saturation_of)
+from ccvm_tpu_torch.solvers.base import CCVMSolver, per_variable_saturation, saturation_of
 
 MF_SCALING_MULTIPLIER = 0.05
 """Reference ``mf_solver.py:12``."""
@@ -31,9 +30,9 @@ MF_SCALING_MULTIPLIER = 0.05
 class MFSolver(CCVMSolver):
     """Measurement-feedback CCVM solver (reference ``mf_solver.py:17``).
 
-    ``mesh`` and ``backend`` are kept for signature parity with the JAX
-    façade: a mesh is not ported yet, and ``backend`` accepts only "auto"
-    (the device decides the path).
+    ``mesh`` shards the batch (and with a "model" axis the features) as
+    the base class says; ``backend`` is kept for signature parity with the
+    JAX façade and accepts only "auto" (the device decides the path).
     """
 
     def __init__(
@@ -46,9 +45,7 @@ class MFSolver(CCVMSolver):
         timing="sync",
         kernel_rng="popcount32",
     ):
-        super().__init__(device, timing=timing)
-        if mesh is not None:
-            raise not_ported("mesh-sharded solving", "queue 1 item 13")
+        super().__init__(device, mesh=mesh, timing=timing)
         if backend != "auto":
             raise ValueError(
                 f'backend must be "auto" (the device decides the path), got {backend!r}'
@@ -250,16 +247,27 @@ class MFSolver(CCVMSolver):
         version on "cpu"): one whole-solve launch, or with
         ``evolution_step_size`` one segment launch a sample, the samples
         kept on the device in ``mu_sample`` / ``sigma_sample``; ``hp``
-        selects the Adam variant."""
-        kwargs = dict(batch_size=self.batch_size, pump_rate_flag=pump_rate_flag,
-                      rng=self.kernel_rng, hp=hp)
+        selects the Adam variant.  A mesh shards the batch
+        (:meth:`_sharded`), or with a "model" axis runs
+        :func:`ccvm_tpu_torch.parallel.tp.mf_solve`."""
+        kwargs = dict(pump_rate_flag=pump_rate_flag, rng=self.kernel_rng, hp=hp)
+        q, v = self.q_matrix, self.v_vector
         if not evolution_step_size:
-            return mf_kernels.mf_solve(seed, self.q_matrix, self.v_vector, params,
-                                       iterations=iterations, **kwargs)
+            tp_mesh = self._tp_mesh()
+            if tp_mesh is not None:
+                from ccvm_tpu_torch.parallel import tp
+
+                return tp.mf_solve(tp_mesh, seed, q, v, params, iterations=iterations,
+                                   batch_size=self.batch_size, **kwargs)
+            return self._sharded(lambda p, batch, row_base: mf_kernels.mf_solve(
+                seed, q, v, p, iterations=iterations, batch_size=batch,
+                row_base=row_base, **kwargs), params)
         num_samples, segments = self._evolution_sample_plan(iterations,
                                                             evolution_step_size)
-        (mu, mu_tilde, sigma), (mu_samples, sigma_samples) = mf_kernels.mf_solve_sampled(
-            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        (mu, mu_tilde, sigma), (mu_samples, sigma_samples) = self._sharded(
+            lambda p, batch, row_base: mf_kernels.mf_solve_sampled(
+                seed, q, v, p, segments, batch_size=batch, row_base=row_base,
+                **kwargs), params)
         self.mu_sample = self._device_sample_stack(mu_samples, num_samples)
         self.sigma_sample = self._device_sample_stack(sigma_samples, num_samples)
         return mu, mu_tilde, sigma

@@ -42,8 +42,8 @@ class PumpedLangevinSolver(CCVMSolver):
         timing="sync",
         kernel_rng="popcount32",
     ):
-        super().__init__(device, timing=timing)
-        check_langevin_options(mesh, backend, kernel_rng)
+        super().__init__(device, mesh=mesh, timing=timing)
+        check_langevin_options(backend, kernel_rng)
         self.batch_size = batch_size
         self.backend = backend
         self.kernel_rng = kernel_rng
@@ -118,17 +118,29 @@ class PumpedLangevinSolver(CCVMSolver):
         version on "cpu"): one whole-solve launch, or with
         ``evolution_step_size`` one segment launch a sample, the samples
         kept on the device in ``c_sample``; ``hp`` selects the Adam
-        variant."""
-        kwargs = dict(batch_size=self.batch_size, pump_rate_flag=pump_rate_flag,
-                      rng=self.kernel_rng, hp=hp)
+        variant.  A mesh shards the batch (:meth:`_sharded`), or with a
+        "model" axis runs
+        :func:`ccvm_tpu_torch.parallel.tp.pumped_langevin_solve`."""
+        kwargs = dict(pump_rate_flag=pump_rate_flag, rng=self.kernel_rng, hp=hp)
+        q, v = self.q_matrix, self.v_vector
         if not evolution_step_size:
-            return langevin_kernels.pumped_langevin_solve(
-                seed, self.q_matrix, self.v_vector, params, iterations=iterations,
-                **kwargs)
+            tp_mesh = self._tp_mesh()
+            if tp_mesh is not None:
+                from ccvm_tpu_torch.parallel import tp
+
+                return tp.pumped_langevin_solve(tp_mesh, seed, q, v, params,
+                                                iterations=iterations,
+                                                batch_size=self.batch_size, **kwargs)
+            return self._sharded(
+                lambda p, batch, row_base: langevin_kernels.pumped_langevin_solve(
+                    seed, q, v, p, iterations=iterations, batch_size=batch,
+                    row_base=row_base, **kwargs), params)
         num_samples, segments = self._evolution_sample_plan(iterations,
                                                             evolution_step_size)
-        c, samples = langevin_kernels.pumped_langevin_solve_sampled(
-            seed, self.q_matrix, self.v_vector, params, segments, **kwargs)
+        c, samples = self._sharded(
+            lambda p, batch, row_base: langevin_kernels.pumped_langevin_solve_sampled(
+                seed, q, v, p, segments, batch_size=batch, row_base=row_base,
+                **kwargs), params)
         self.c_sample = self._device_sample_stack(samples, num_samples)
         return c
 

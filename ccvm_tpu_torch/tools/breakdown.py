@@ -93,7 +93,7 @@ def _mf_timer(fn, problem, hp, noise_scale, batch):
         err = fn(q.data_ptr(), v.data_ptr(), steps.data_ptr(), mu.data_ptr(),
                  mt.data_ptr(), sigma.data_ptr(), 1, batch, n, iterations, 100,
                  mf_kernels._scalars(p, hp, noise_scale), rows,
-                 torch.cuda.current_stream().cuda_stream, None, None)
+                 torch.cuda.current_stream().cuda_stream, None, None, 0)
         end.record()
         torch.cuda.synchronize()
         if err != 0:

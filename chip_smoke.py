@@ -193,7 +193,29 @@ exits non-zero without printing a result:
    P(0.1%), P(1%), every objective value finite; phase 2 builds these
    specialisations and prints their registers, spills and residency; the
    kernels line gains each kernel's phase-15 launches;
-16. the last line: {"ok": true, "device": {...}}.
+16. meshes on one card (run after phase 15, in a child process of this
+   script, ``--mesh-worker``, waited for and killed if the run fails, so
+   that its process group ends with it), with the launch counts of the
+   whole-solve kernels and of the one-step builds zeroed before (b) and read
+   after (d): (a) ``multihost.initialize`` of a one-rank NCCL world (twice:
+   idempotent), ``make_mesh(1, tp=1)``, ``global_batch_mesh()`` and
+   ``process_allgather``; (b) the four façades' main paths (phase 6's
+   instance, parameters and post-processors, batch 65536, 15,000 steps)
+   with ``mesh=`` against ``mesh=None``, bit for bit, each wall the better
+   of two in turns beside phase 6's; (c) each family's tensor-parallel
+   engine (``parallel/tp.py``, plain and Adam) against its whole-solve
+   kernel, noise off, P16_HOLD_STEPS steps at the main shape, at
+   PARITY_TOL; DL's engine at full depth, noise on, timed; each one-step
+   build (``ops/build.py`` ``ext``) against its plain step over
+   P16_STEP_HOLD steps on the same Philox words (in units of max(1, |x|)),
+   and timed over P16_TIMED launches beside its plain step and its bound;
+   a DL TP step's matmul, reduce-scatter and step launch, each timed alone;
+   (d) ``sweep_solve`` of the 50 Size70 instances over the mesh against
+   without one, bit for bit; (e) every whole-solve and one-step wrapper
+   entering ``torch.cuda.device`` of its tensors' card around its launch;
+   the kernels line gains each kernel's phase-16 launches and the eight
+   one-step builds' rows (phase 2 builds them and prints their registers);
+17. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -300,6 +322,15 @@ OUTPUTS = {"dl_solve": 2, "dl_adam_solve": 2, "mf_solve": 3, "mf_adam_solve": 3,
            "pumped_langevin_solve": 1, "pumped_langevin_adam_solve": 1,
            "dl_v2": 2, "dl_v3": 2}
 KERNELS = tuple(MATVECS)
+# The TPU kernel each production kernel replaces.
+REPLACES = {"dl_solve": "ccvm_tpu/ops/pallas_kernels.py:843",
+            "dl_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:977",
+            "mf_solve": "ccvm_tpu/ops/pallas_kernels.py:1085",
+            "mf_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:1224",
+            "langevin_solve": "ccvm_tpu/ops/pallas_kernels.py:488",
+            "langevin_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:585",
+            "pumped_langevin_solve": "ccvm_tpu/ops/pallas_kernels.py:657",
+            "pumped_langevin_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:762"}
 # Published dense fp32 (non-tensor-core) peaks, memory rates and dense TF32
 # tensor-core peaks of H100 parts, by a substring of the nvidia-smi name
 # (NVIDIA data sheets; the TF32 rates are half the sparse ones quoted).
@@ -406,6 +437,33 @@ P15_BATCH, P15_STEPS, P15_ROUNDS = 1024, 300, 2
 P15_LABELS = ("dl_solve", "dl_adam_solve", "mf_solve", "mf_adam_solve", "langevin_solve",
               "langevin_adam_solve", "pumped_langevin_solve", "pumped_langevin_adam_solve",
               "dl_solve pump 0.9", "dl_adam_solve pump 0.9")
+# Phase 16: meshes on one card, in a child process (``--mesh-worker``) that
+# joins a one-rank NCCL world.  Each family's tensor-parallel engine is held
+# against its whole-solve kernel over P16_HOLD_STEPS steps with the noise
+# off; each one-step build against its plain step over P16_STEP_HOLD steps
+# on the same Philox words; each piece of a TP step (matmul, reduce-scatter,
+# step launch) timed over P16_TIMED launches; the DL engine run at full depth;
+# the sweep over the 50 Size70 instances at phase 13's batch.
+P16_HOLD_STEPS = 300
+P16_STEP_HOLD = 10
+P16_TIMED = 500
+MESH_TIMEOUT_S = 600
+# The one-step builds (CCVM_EXT) of the three templates: name -> (family,
+# Adam, the whole-solve kernel whose template and TPU kernel it shares).
+STEP_KERNELS = {
+    "dl_step": ("dl", False, "dl_solve"), "dl_adam_step": ("dl", True, "dl_adam_solve"),
+    "mf_step": ("mf", False, "mf_solve"), "mf_adam_step": ("mf", True, "mf_adam_solve"),
+    "langevin_step": ("langevin", False, "langevin_solve"),
+    "langevin_adam_step": ("langevin", True, "langevin_adam_solve"),
+    "pumped_langevin_step": ("pumped", False, "pumped_langevin_solve"),
+    "pumped_langevin_adam_step": ("pumped", True, "pumped_langevin_adam_solve"),
+}
+# A step build's arrays a step (each (batch, n) element): matvec inputs (read
+# as the scattered matvec, written as the next input), state arrays read and
+# written (MF reads mu and sigma, and Adam's moments, and writes mu_tilde
+# too).
+STEP_ARRAYS = {"dl": (2, (2, 6), (2, 6)), "mf": (1, (2, 4), (3, 5)),
+               "langevin": (1, (1, 3), (1, 3)), "pumped": (1, (1, 3), (1, 3))}
 # Phase 11 waits this long for bench_torch.py.
 BENCH_TIMEOUT_S = 400
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device_amortised_rate")
@@ -555,6 +613,346 @@ def bench_child():
     bench.main()
     launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     print(f"# launches {json.dumps(launched)}", file=sys.stderr, flush=True)
+
+
+def step_counters():
+    """Each one-step build's launch count: (wrapper, attribute) by name."""
+    from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
+
+    wrapper = {"dl": dl_kernels.dl_step, "mf": mf_kernels.mf_step,
+               "langevin": langevin_kernels.langevin_step,
+               "pumped": langevin_kernels.pumped_langevin_step}
+    prefix = {"dl": "dl", "mf": "mf", "langevin": "langevin", "pumped": "pumped"}
+    return {name: (wrapper[f], f"{prefix[f]}{'_adam' if adam else ''}_launches")
+            for name, (f, adam, _) in STEP_KERNELS.items()}
+
+
+def mesh_worker(arg):
+    """``chip_smoke.py --mesh-worker '<json>'``: phase 16 in a child process,
+    so that its process group cannot outlive it.  ``arg`` carries phase 6's
+    walls and kernel times and the card's name.  Logs each part and, last,
+    ``# mesh {...}``: the launch counts of its main path (the DP façades,
+    the TP engines, the sweep), the kernels line's rows of the one-step
+    builds and the failures."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from ccvm_tpu_torch import (AdamParameters, DLSolver, LangevinSolver, MFSolver,
+                                ProblemInstance, PumpedLangevinSolver)
+    from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
+    from ccvm_tpu_torch.parallel import (global_batch_mesh, initialize, make_mesh,
+                                         multihost, sweep_solve, tp)
+    from ccvm_tpu_torch.runtime import fp32_matmul
+    from ccvm_tpu_torch.tools.tc_model import PARITY_TOL
+
+    given = json.loads(arg)
+    name = given["name"]
+    failures = []
+    t16 = time.perf_counter()
+
+    # (a) a one-rank NCCL world and its meshes
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize(f"localhost:{port}", 1, 0, device="cuda")
+    initialize(f"localhost:{port}", 1, 0, device="cuda")  # idempotent
+    mesh = make_mesh(1, tp=1)
+    batch_mesh = global_batch_mesh()
+    log(f"phase 16 (a) {dist.get_backend()} world of {dist.get_world_size()}: "
+        f"make_mesh(1, tp=1) {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+        f"({mesh.device_type}), global_batch_mesh() "
+        f"{dict(zip(batch_mesh.mesh_dim_names, batch_mesh.shape))}, "
+        f"process_allgather(7) {multihost.process_allgather(7).tolist()}")
+    assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+
+    with open(TUNED) as f:
+        tuned_all = json.load(f)
+    tuned = {f: tuned_all[f][str(N)] for f in ("dl", "mf", "langevin", "pumped")}
+    classes = {"dl": DLSolver, "mf": MFSolver, "langevin": LangevinSolver,
+               "pumped": PumpedLangevinSolver}
+    calls = {"dl": {}, "mf": {"post_processor": "grad-descent", "g": MF_G},
+             "langevin": {"post_processor": "grad-descent"},
+             "pumped": {"post_processor": "grad-descent"}}
+
+    def instance(family):
+        inst = ProblemInstance(device="cuda", instance_type="tuning", file_path=INSTANCE)
+        inst.scale_coefs(classes[family](device="cuda").get_scaling_factor(inst.q_matrix))
+        return inst
+
+    whole = launch_counters()
+    steps_ = step_counters()
+    for fn, attr in list(whole.values()) + list(steps_.values()):
+        setattr(fn, attr, 0)
+
+    # (b) the four façades' main paths over the mesh against mesh=None
+    for family, cls in classes.items():
+        inst = instance(family)
+        sols, walls = {}, {"mesh": [], "none": []}
+        fac = {}
+        for key, m in (("mesh", mesh), ("none", None)):
+            fac[key] = cls(device="cuda", batch_size=MAIN_BATCH, mesh=m)
+            fac[key].parameter_key = {N: dict(tuned[family], iterations=ITERATIONS)}
+        fac["mesh"](inst, seed=1, **calls[family])  # warm-up
+        for key in ("mesh", "none", "none", "mesh"):
+            t = time.perf_counter()
+            sols[key] = fac[key](inst, seed=1, **calls[family])
+            walls[key].append(time.perf_counter() - t)
+        walls = {k: min(w) for k, w in walls.items()}
+        same = (torch.equal(sols["mesh"].variables["problem_variables"],
+                            sols["none"].variables["problem_variables"])
+                and np.array_equal(sols["mesh"].objective_values,
+                                   sols["none"].objective_values))
+        log(f"phase 16 (b) {family} façade, batch {MAIN_BATCH}, {ITERATIONS} steps: "
+            f"mesh wall {walls['mesh']:.3f} s, mesh=None {walls['none']:.3f} s (the better of "
+            f"two each, in turns; phase 6's "
+            f"best wall {given['walls'][family]:.3f} s); the solution "
+            f"{'equals' if same else 'DIFFERS FROM'} mesh=None's bit for bit; "
+            f"P(0.1%)={sols['mesh'].solution_performance['optimal']:.4f}")
+        if not same:
+            failures.append(f"phase 16 (b) {family}: the mesh's solution differs")
+
+    # (c) the TP engines: noise off against the whole-solve kernel
+    hp = AdamParameters(beta2=0.999).to_hyperparameters()
+    solvers = {f: classes[f](device="cuda", batch_size=MAIN_BATCH) for f in classes}
+    insts = {f: instance(f) for f in classes}
+    for f in classes:
+        solvers[f].solution_bounds = insts[f].solution_bounds
+
+    def params(family, iterations):
+        t = tuned[family]
+        s = solvers[family]
+        if family == "dl":
+            return s._make_params(t["pump"], 1.0, t["dt"], t["noise_ratio"],
+                                  t["feedback_scale"], G, iterations)
+        if family == "mf":
+            return s._make_params(t["pump"], t["S"], t["dt"], t["j"], t["feedback_scale"],
+                                  MF_G, iterations)
+        if family == "langevin":
+            return s._make_params(t["S"], t["dt"], t["sigma"], t["feedback_scale"])
+        return s._make_params(t["pump"], t["S"], t["dt"], t["sigma"], t["feedback_scale"],
+                              iterations)
+
+    flags = {"dl": {"pump_rate_flag": True, "pump_is_gt_one": tuned["dl"]["pump"] > 1},
+             "mf": {"pump_rate_flag": True}, "langevin": {},
+             "pumped": {"pump_rate_flag": True}}
+    rngs = {"dl": "popcount16", "mf": "popcount32", "langevin": "popcount32",
+            "pumped": "popcount32"}
+    engines = {"dl": tp.dl_solve, "mf": tp.mf_solve, "langevin": tp.langevin_solve,
+               "pumped": tp.pumped_langevin_solve}
+    wholes = {"dl": dl_kernels.dl_solve, "mf": mf_kernels.mf_solve,
+              "langevin": langevin_kernels.langevin_solve,
+              "pumped": langevin_kernels.pumped_langevin_solve}
+    engine_err = {}
+    for sname, (family, adam, kname) in STEP_KERNELS.items():
+        q, v = insts[family].q_matrix, insts[family].v_vector
+        p = params(family, P16_HOLD_STEPS)
+        kw = dict(iterations=P16_HOLD_STEPS, batch_size=MAIN_BATCH, noise_scale=0.0,
+                  rng=rngs[family], hp=hp if adam else None, **flags[family])
+        t = time.perf_counter()
+        ours = engines[family](mesh, 11, q, v, p, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        theirs = wholes[family](11, q, v, p, **kw)
+        ours = ours if isinstance(ours, tuple) else (ours,)
+        theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+        err = max((a - b).abs().max().item() for a, b in zip(ours, theirs))
+        engine_err[sname] = err
+        log(f"phase 16 (c) {sname}: the TP engine against {kname}, noise off, "
+            f"{P16_HOLD_STEPS} steps at batch {MAIN_BATCH}: max |diff| {err:.3g} "
+            f"(tolerance {PARITY_TOL}); engine wall {wall:.3f} s")
+        if not err <= PARITY_TOL:
+            failures.append(f"phase 16 (c) {sname}: TP engine {err} > {PARITY_TOL}")
+
+    # The DL engine at full depth, noise on, timed.
+    q, v = insts["dl"].q_matrix, insts["dl"].v_vector
+    p_full = params("dl", ITERATIONS)
+    dl_kw = dict(iterations=ITERATIONS, batch_size=MAIN_BATCH, rng="popcount16",
+                 **flags["dl"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    c_tp, s_tp = tp.dl_solve(mesh, 21, q, v, p_full, **dl_kw)
+    torch.cuda.synchronize()
+    engine_wall = time.perf_counter() - t
+    assert torch.isfinite(c_tp).all()
+    c_whole, s_whole = dl_kernels.dl_solve(21, q, v, p_full, **dl_kw)
+    log(f"phase 16 (c) dl TP engine, noise on, {ITERATIONS} steps at batch {MAIN_BATCH}: "
+        f"wall {engine_wall:.3f} s, {1e3 * engine_wall / ITERATIONS:.4f} ms a step, "
+        f"against the whole-solve kernel's {given['dl_kernel_ms']:.1f} ms (phase 6, CUDA "
+        f"events); max |engine - whole| after {ITERATIONS} steps: c (clamped) "
+        f"{(c_tp - c_whole).abs().max().item():.3g}, s {(s_tp - s_whole).abs().max().item():.3g} "
+        f"(no hold: DL grows round-off differences, phase 7 holds it over "
+        f"{EARLIER_PLAIN_DEPTH})")
+
+    # (d) the sweep over the mesh against mesh=None
+    files = sorted(f for f in os.listdir(SIZE70) if f.endswith(".in"))
+    sweeps = {}
+    for key, m in (("mesh", mesh), ("none", None)):
+        solver = DLSolver(device="cuda", batch_size=P13_BATCH)
+        solver.parameter_key = {N: dict(tuned["dl"], iterations=ITERATIONS)}
+        insts_ = [ProblemInstance(device="cuda", instance_type="tuning",
+                                  file_path=os.path.join(SIZE70, f)) for f in files]
+        t = time.perf_counter()
+        sweeps[key] = sweep_solve(solver, insts_, seed=0, scale=True, mesh=m)
+        walls_ = time.perf_counter() - t
+        log(f"phase 16 (d) sweep_solve of {len(files)} instances, batch {P13_BATCH}, "
+            f"mesh {key}: wall {walls_:.3f} s")
+    same = all(torch.equal(a.variables["problem_variables"], b.variables["problem_variables"])
+               and np.array_equal(a.objective_values, b.objective_values)
+               for a, b in zip(sweeps["mesh"], sweeps["none"]))
+    log(f"phase 16 (d) the sweep over the mesh {'equals' if same else 'DIFFERS FROM'} "
+        f"mesh=None's bit for bit")
+    if not same:
+        failures.append("phase 16 (d): the sweep over the mesh differs")
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in whole.items()}
+    launched_steps = {k: getattr(fn, attr) for k, (fn, attr) in steps_.items()}
+    log(f"phase 16 main path launches: {launched}; one-step builds {launched_steps}")
+    for k in ("dl_solve", "mf_solve", "langevin_solve", "pumped_langevin_solve"):
+        if not launched[k] > 0:
+            failures.append(f"phase 16: {k} was not launched")
+    for k, n in launched_steps.items():
+        if not n > 0:
+            failures.append(f"phase 16: {k} was not launched")
+
+    # The one-step builds against their plain steps, and each piece timed.
+    step_fns = {"dl": (dl_kernels.dl_step, dl_kernels.dl_step_reference),
+                "mf": (mf_kernels.mf_step, mf_kernels.mf_step_reference),
+                "langevin": (langevin_kernels.langevin_step,
+                             langevin_kernels.langevin_step_reference),
+                "pumped": (langevin_kernels.pumped_langevin_step,
+                           langevin_kernels.pumped_langevin_step_reference)}
+    tables = {"dl": lambda p, h: dl_kernels._step_table(p, h, 1.0, ITERATIONS, True, "cuda"),
+              "mf": lambda p, h: mf_kernels._step_table(p, h, ITERATIONS, True, "cuda"),
+              "langevin": lambda p, h: langevin_kernels._step_table(p, h, ITERATIONS,
+                                                                    False, "cuda"),
+              "pumped": lambda p, h: langevin_kernels._step_table(p, h, ITERATIONS, True,
+                                                                  "cuda")}
+    flops_peak, bw, _ = card_peaks(name)
+
+    def events_ms(fn, reps):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    rows = []
+    for sname, (family, adam, kname) in STEP_KERNELS.items():
+        h = hp if adam else None
+        kx, k_in, k_out = STEP_ARRAYS[family]
+        k_state = k_out[adam]
+        q, v = insts[family].q_matrix, insts[family].v_vector
+        p = params(family, ITERATIONS)
+        table = tables[family](p, h)
+        kw = dict(iterations=ITERATIONS, rng=rngs[family], hp=h, **flags[family])
+        states = []
+        for fn in step_fns[family]:
+            state = torch.zeros((k_state, MAIN_BATCH, N), device="cuda")
+            if family == "mf":
+                state[1] = 0.5
+            x = torch.empty((kx, MAIN_BATCH, N), device="cuda")
+            fn(31, None, v, p, state, x, None, steps=table, **kw)
+            with fp32_matmul():
+                for i in range(P16_STEP_HOLD):
+                    fn(31, torch.matmul(x, q), v, p, state, x, i, steps=table, **kw)
+            states.append((state, x))
+        torch.cuda.synchronize()
+        # In units of max(1, |x|): Adam's second moments of MF reach ~1e7.
+        err = ((states[0][0] - states[1][0]).abs()
+               / states[1][0].abs().clamp(min=1.0)).max().item()
+        if not err <= PARITY_TOL:
+            failures.append(f"phase 16 (c) {sname}: the build against its plain step "
+                            f"{err} > {PARITY_TOL}")
+        state, x = states[0]
+        with fp32_matmul():
+            mv = torch.matmul(x, q)
+        build_ms = events_ms(lambda: step_fns[family][0](
+            31, mv, v, p, state, x, 5, steps=table, **kw), P16_TIMED)
+        plain_ms = events_ms(lambda: step_fns[family][1](
+            31, mv, v, p, state, x, 5, steps=table, **kw), 5)
+        flops = ELEMENTWISE_FLOPS[kname] * MAIN_BATCH * N
+        nbytes = 4 * (MAIN_BATCH * N * (2 * kx + k_in[adam] + k_out[adam]) + N)
+        t_ops, t_bytes = flops / flops_peak, nbytes / bw
+        bound = 1e3 * max(t_ops, t_bytes)
+        rows.append({
+            "name": sname, "route": "cuda", "source": f"ccvm_tpu_torch/csrc/"
+            f"{'langevin' if family in ('langevin', 'pumped') else family}_solve.cu",
+            "build": "CCVM_EXT 1 (one step of a tensor-parallel solve)",
+            "replaces": REPLACES[kname], "launches": launched_steps[sname],
+            "max_abs_err": err, "hold_steps": P16_STEP_HOLD, "ms": build_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "launches_by_phase": {"16": launched_steps[sname]}})
+        log(f"phase 16 (c) {sname}: {P16_STEP_HOLD} steps on the same words against its "
+            f"plain step, max |diff| / max(1, |x|) {err:.3g}; one launch at batch {MAIN_BATCH}, N={N}: "
+            f"{build_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+            f"({rows[-1]['bound_by']}; {100 * bound / build_ms:.1f}% of it); TP engine "
+            f"against the whole solve {engine_err[sname]:.3g}")
+
+    # The DL TP step's pieces at the main shape, each timed alone.
+    q, v = insts["dl"].q_matrix, insts["dl"].v_vector
+    p = params("dl", ITERATIONS)
+    table = tables["dl"](p, None)
+    model = mesh.get_group("model")
+    state = torch.zeros((2, MAIN_BATCH, N), device="cuda")
+    x = torch.empty((2, MAIN_BATCH, N), device="cuda")
+    kw = dict(iterations=ITERATIONS, rng="popcount16", **flags["dl"])
+    dl_kernels.dl_step(21, None, v, p, state, x, None, steps=table, **kw)
+    with fp32_matmul():
+        partial = torch.matmul(x.view(-1, N), q)
+        matmul_ms = events_ms(lambda: torch.matmul(x.view(-1, N), q), P16_TIMED)
+    out = torch.empty_like(partial)
+    collective_ms = events_ms(lambda: dist.reduce_scatter(out, [partial], group=model),
+                              P16_TIMED)
+    mv = out.view(x.shape)
+    step_ms = events_ms(lambda: dl_kernels.dl_step(21, mv, v, p, state, x, 7, steps=table,
+                                                   **kw), P16_TIMED)
+    log(f"phase 16 (c) dl TP step at batch {MAIN_BATCH}, N={N}, tp 1 on {name}: matmul "
+        f"{matmul_ms:.4f} ms, reduce-scatter {collective_ms:.4f} ms, step launch "
+        f"{step_ms:.4f} ms (sum {matmul_ms + collective_ms + step_ms:.4f} ms; the "
+        f"engine's {1e3 * engine_wall / ITERATIONS:.4f} ms a step includes the host's "
+        f"launches); the whole-solve kernel {given['dl_kernel_ms'] / ITERATIONS:.4f} ms "
+        f"a step")
+
+    # (e) each wrapper launches on its tensors' card.
+    entered = []
+    real = torch.cuda.device
+
+    class Spy(real):
+        def __init__(self, device):
+            entered.append(torch.device(device))
+            super().__init__(device)
+
+    torch.cuda.device = Spy
+    try:
+        q, v = insts["dl"].q_matrix, insts["dl"].v_vector
+        for family in classes:
+            p = params(family, 10)
+            wholes[family](1, q, v, p, iterations=10, batch_size=64, **flags[family])
+            k_state = STEP_ARRAYS[family][2][0]
+            st = torch.zeros((k_state, 64, N), device="cuda")
+            xs = torch.empty((STEP_ARRAYS[family][0], 64, N), device="cuda")
+            step_fns[family][0](1, None, v, p, st, xs, None, iterations=10, **flags[family])
+    finally:
+        torch.cuda.device = real
+    torch.cuda.synchronize()
+    ok = len(entered) == 8 and all(d == q.device for d in entered)
+    log(f"phase 16 (e) each whole-solve and one-step wrapper entered "
+        f"torch.cuda.device({q.device}) around its launch: {entered} "
+        f"({'as it must' if ok else 'NOT AS IT MUST'})")
+    if not ok:
+        failures.append("phase 16 (e): a wrapper launched outside its tensors' card")
+    dist.destroy_process_group()
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    print("# mesh " + json.dumps({"launched": launched, "rows": rows,
+                                  "failures": failures}), flush=True)
 
 
 class PlainWorkers:
@@ -1608,6 +2006,19 @@ def main(cleanup):
 
     specs += [variant_spec(*case) for cases in variant_cases.values()
               for case in cases]
+    # Phase 16's one-step builds (CCVM_EXT), noise on and off; one library
+    # serves every N.
+    for family, adam, _ in STEP_KERNELS.values():
+        for noise in (1.0, 0.0):
+            hp = adam_hps[0.999] if adam else None
+            if family == "dl":
+                ext = dl_kernels._spec(8, hp, noise, "popcount16", True)
+            elif family == "mf":
+                ext = mf_kernels._spec(4, hp, noise, "popcount32")
+            else:
+                ext = langevin_kernels._spec(8, hp, noise, "popcount32",
+                                             pumped=family == "pumped")
+            specs.append(ext._replace(ext=True))
     t0 = time.perf_counter()
     reports = build.build(specs)
     log(f"phase 2 build: {len(reports)} libraries in "
@@ -2286,6 +2697,7 @@ def main(cleanup):
         return {k: expected.get(k, 0) for k in KERNELS}
 
     event_ms = {}  # each main path's kernel times (CUDA events) by label
+    main_walls = {}  # ... and its best wall
 
     def main_path(cls, pkey, instance_, label, min_p1=0.95, **call):
         main_solver = event_timed(cls)(device="cuda", batch_size=MAIN_BATCH,
@@ -2308,6 +2720,7 @@ def main(cleanup):
         kernel_ms = [a.elapsed_time(b) for a, b in main_solver.kernel_events]
         assert len(kernel_ms) == 3, kernel_ms
         event_ms[label] = kernel_ms
+        main_walls[label] = best_wall
         c = best.variables["problem_variables"]
         assert c.shape == (MAIN_BATCH, N) and c.is_cuda
         assert torch.isfinite(c).all()
@@ -2421,14 +2834,6 @@ def main(cleanup):
         return out, events[0].elapsed_time(events[1])
 
     kernels = []
-    replaces = {"dl_solve": "ccvm_tpu/ops/pallas_kernels.py:843",
-                "dl_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:977",
-                "mf_solve": "ccvm_tpu/ops/pallas_kernels.py:1085",
-                "mf_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:1224",
-                "langevin_solve": "ccvm_tpu/ops/pallas_kernels.py:488",
-                "langevin_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:585",
-                "pumped_langevin_solve": "ccvm_tpu/ops/pallas_kernels.py:657",
-                "pumped_langevin_adam_solve": "ccvm_tpu/ops/pallas_kernels.py:762"}
     sources = {"dl": "dl_solve.cu", "mf": "mf_solve.cu",
                "langevin": "langevin_solve.cu", "pumped": "langevin_solve.cu"}
     for kname, hp in main_hp.items():
@@ -2496,7 +2901,7 @@ def main(cleanup):
         row = {
             "name": kname, "route": "cuda",
             "source": f"ccvm_tpu_torch/csrc/{sources[family]}",
-            "replaces": replaces[kname], "launches": launches[kname],
+            "replaces": REPLACES[kname], "launches": launches[kname],
             "max_abs_err": max_err[kname], "ms": min(times),
             "plain_ms": plain_ms, "plain_iterations": plain_depth,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -2949,6 +3354,31 @@ def main(cleanup):
     assert launched15 == only(**{k: launched15[k] for k in main_hp}), launched15
     assert all(launched15[k] > 0 for k in main_hp), launched15
 
+    log(f"phase 16 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 16. meshes on one card: a one-rank NCCL world in a child process that
+    # is waited for and killed if the run fails
+    given = {"name": name, "dl_kernel_ms": main_ms["dl"], "walls": {
+        f: main_walls[label] for f, label in (
+            ("dl", "DL"), ("mf", "MF (grad-descent)"), ("langevin", "langevin (grad-descent)"),
+            ("pumped", "pumped (grad-descent)"))}}
+    mesh_proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                                  json.dumps(given)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+    cleanup.callback(stop, mesh_proc)
+    out, err = mesh_proc.communicate(timeout=MESH_TIMEOUT_S)
+    if mesh_proc.returncode != 0:
+        raise RuntimeError(f"phase 16's child exited with {mesh_proc.returncode}:\n"
+                           f"{out[-4000:]}\n{err[-4000:]}")
+    lines = out.strip().splitlines()
+    for ln in lines[:-1]:
+        log(ln)
+    mesh_result = json.loads(lines[-1].split("# mesh ", 1)[1])
+    failures += mesh_result["failures"]
+    launched16 = mesh_result["launched"]
+    assert launched16 == only(**{k: launched16[k] for k in main_hp}), launched16
+    for k in ("dl_solve", "mf_solve", "langevin_solve", "pumped_langevin_solve"):
+        assert launched16[k] > 0, launched16
+
     log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 11. bench_torch.py, in a child process that is waited for and killed
     # if the run fails
@@ -2983,7 +3413,8 @@ def main(cleanup):
             {"6": row["launches"], "10": launched_pp[name_],
              "11": launched_bench[name_], "12": launched12[name_],
              "13": launched13[name_], "14": launched14[name_],
-             "15": launched15[name_]})
+             "15": launched15[name_], "16": launched16[name_]})
+    kernels += mesh_result["rows"]
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -2996,6 +3427,8 @@ if __name__ == "__main__":
         plain_worker()
     elif sys.argv[1:] == ["--bench-child"]:
         bench_child()
+    elif sys.argv[1:2] == ["--mesh-worker"] and len(sys.argv) == 3:
+        mesh_worker(sys.argv[2])
     else:
         with contextlib.ExitStack() as stack:
             main(stack)

@@ -11,15 +11,20 @@ whole-solve CUDA kernel; with ``--sweep`` all instances of a size go in one
 stacked launch (``ccvm_tpu_torch.parallel.sweep_solve``).
 
 It runs on the card ("cuda", and raises without one); ``--device cpu`` runs
-the kernels' plain PyTorch versions instead.  ``--mesh`` waits for ROADMAP
-queue 1 item 13.
+the kernels' plain PyTorch versions instead.  ``--mesh N`` shards every
+solve's batch (a sweep's instances) over an N-rank mesh: one process a card
+under ``torchrun --nproc_per_node N`` (gloo ranks with ``--device cpu``;
+without torchrun one process is a one-rank world), every process solving
+the same files together and the coordinator writing the metadata.  Without
+a mesh, each process of a torchrun run takes its ``local_shard_bounds`` of
+the instance files and writes its own metadata file.
 
 Usage:
     python examples/torch_port/benchmarking_study.py \
         [--instances-dir examples/benchmarking_instances] \
         [--solvers dl,mf,langevin,pumped] [--sizes 20,30] [--batch-size 1000] \
         [--iterations 15000] [--post-processor grad-descent] [--output-dir ./metadata] \
-        [--plots] [--sweep] [--params examples/tuned_parameters.json]
+        [--plots] [--sweep] [--params examples/tuned_parameters.json] [--mesh N]
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import argparse
 import glob
 import json
 import os
+import socket
 import sys
 import time
 
@@ -44,7 +50,6 @@ from ccvm_tpu_torch.solvers import (  # noqa: E402
     MFSolver,
     PumpedLangevinSolver,
 )
-from ccvm_tpu_torch.solvers.base import not_ported  # noqa: E402
 
 # Paper-default parameters (docs/source/ccvm_equations_of_motion.rst table and
 # the reference examples); one entry per solver, applied to every size.
@@ -99,11 +104,29 @@ def run_sweep(args, failed=None):
     # No compilation cache to enable (the JAX script's
     # enable_compilation_cache): the nvcc libraries are cached in build/kernels/.
     device = args.device or default_device()
-    if args.mesh:
-        # A batch sharded over N cards waits for the port's meshes.
-        raise not_ported("--mesh (a batch sharded over several cards)", "queue 1 item 13")
-    mesh = None
+    if not args.mesh:
+        return _run_sweep(args, device, None, failed)
+    # Multi-process: one process a card (torchrun's environment, or a
+    # one-rank world); the mesh spans every process.
+    import torch.distributed as dist
 
+    from ccvm_tpu_torch.parallel import initialize, make_mesh
+
+    if "RANK" in os.environ:
+        initialize(device=device)
+    else:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        initialize(f"localhost:{port}", 1, 0, device=device)
+    try:
+        return _run_sweep(args, device, make_mesh(args.mesh), failed)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_sweep(args, device, mesh, failed):
+    """:func:`run_sweep` on ``device`` over ``mesh`` (or None)."""
     sizes = [int(s) for s in args.sizes.split(",") if s]
     solver_names = [s.strip() for s in args.solvers.split(",") if s.strip()]
     os.makedirs(args.output_dir, exist_ok=True)
@@ -170,8 +193,11 @@ def run_sweep(args, failed=None):
             if not files:
                 print(f"[{name}] no instances for size {size} ({pattern})")
                 continue
-            lo_f, hi_f = multihost.local_shard_bounds(len(files))
-            files = files[lo_f:hi_f]
+            if mesh is None:
+                # Each process its contiguous shard of the files; with a
+                # mesh the processes solve every file together.
+                lo_f, hi_f = multihost.local_shard_bounds(len(files))
+                files = files[lo_f:hi_f]
             if not files:
                 continue
             n_opt = 0
@@ -243,6 +269,8 @@ def run_sweep(args, failed=None):
                 f"[{name}] size {size}: {len(files)} instances, "
                 f"mean P(optimal)={mean_opt:.3f}, wall {wall:.2f}s"
             )
+        if mesh is not None and not multihost.is_coordinator():
+            continue  # the coordinator writes the mesh's metadata
         # The process index comes from torch.distributed (rank 0 without a
         # process group), not jax.process_index().
         suffix = (
@@ -320,8 +348,8 @@ def parse_args(argv=None):
     ap.add_argument("--output-dir", default="./metadata")
     ap.add_argument("--plots", action="store_true")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard the batch over an N-card mesh (not ported yet: "
-                         "ROADMAP queue 1 item 13)")
+                    help="shard the batch over an N-card mesh (torchrun "
+                         "--nproc_per_node N)")
     ap.add_argument("--sweep", action="store_true",
                     help="stack all instances of a size into one launch "
                          "(instance-sweep parallelism)")

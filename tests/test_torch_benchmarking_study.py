@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch.distributed
 from test_torch_examples import port_noise_off
 from test_torch_sweep import _write_instance
 
@@ -179,9 +180,19 @@ def test_flags_and_tables_are_the_jax_script_s():
         assert type(ours).__name__ == type(theirs).__name__
 
 
-def test_mesh_waits_for_item_13(toy, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        study.run_sweep(study.parse_args(_argv(toy, tmp_path, True, "--mesh", "2")))
+def test_mesh_of_one_rank_equals_the_jax_script_without_noise(toy, jax_runs, tmp_path,
+                                                              noise_off, monkeypatch):
+    """``--mesh 1`` outside torchrun: the study starts a one-rank world
+    (gloo with ``--device cpu``), shards every solve over its mesh and ends
+    the world; with the noise off it equals the JAX script's study, whose
+    one-device mesh solves as no mesh does."""
+    monkeypatch.delenv("RANK", raising=False)
+    summary = study.run_sweep(study.parse_args(_argv(toy, tmp_path, True, "--mesh", "1")))
+    assert not torch.distributed.is_initialized()
+    theirs, folder = jax_runs[True]
+    _summaries_equal(summary, theirs)
+    for name in SOLVERS.split(","):
+        _same_apart_from_times(_metadata(tmp_path, name), _metadata(folder, name))
 
 
 def test_override_below_the_optimum_raises_the_jax_error(toy, tmp_path):

@@ -906,3 +906,135 @@ def test_checkpointed_dl_adam_solve_equals_the_whole_launch(tmp_path):
     assert len(state) == 6
     assert torch.equal(torch.clamp(state[0], -p.S, p.S), c) and torch.equal(state[1], s)
     assert checkpoint.load_state(path)[1] == _FEATURE_ITERS
+
+
+# The one-step builds (CCVM_EXT) of a tensor-parallel solve: (step wrapper,
+# its plain version, params, flags, state arrays (plain, Adam), matvec
+# inputs, whole-solve wrapper).
+def _step_cases():
+    from ccvm_tpu_torch.dynamics import dl as ddl
+    from ccvm_tpu_torch.dynamics import langevin as dlg
+    from ccvm_tpu_torch.dynamics import mf as dmf
+    from ccvm_tpu_torch.dynamics import pumped_langevin as dpl
+
+    return {
+        "dl": (dl_kernels.dl_step, dl_kernels.dl_step_reference,
+               ddl.DLParams(8.0, 1.0, 0.001, 10.0, 100.0, 0.05, 0.0, 1.0, 300.0),
+               dict(pump_rate_flag=True, pump_is_gt_one=True), (2, 6), 2,
+               dl_kernels.dl_solve),
+        "mf": (mf_kernels.mf_step, mf_kernels.mf_step_reference,
+               dmf.MFParams(0.0, 20.0, 0.0025, 5.0, 4000.0, 0.01, 0.0, 1.0, 300.0),
+               dict(pump_rate_flag=True), (3, 5), 1, mf_kernels.mf_solve),
+        "langevin": (langevin_kernels.langevin_step, langevin_kernels.langevin_step_reference,
+                     dlg.LangevinParams(0.5, 0.002, 0.5, 1.0, 0.0, 1.0), {}, (1, 3), 1,
+                     langevin_kernels.langevin_solve),
+        "pumped": (langevin_kernels.pumped_langevin_step,
+                   langevin_kernels.pumped_langevin_step_reference,
+                   dpl.PumpedLangevinParams(2.0, 0.5, 0.002, 0.5, 1.0, 0.0, 1.0, 300.0),
+                   dict(pump_rate_flag=True), (1, 3), 1,
+                   langevin_kernels.pumped_langevin_solve),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("beta2", [None, 0.999])
+@pytest.mark.parametrize("family", ["dl", "mf", "langevin", "pumped"])
+def test_one_step_build_matches_its_plain_step(cuda_instance, family, beta2, noise_scale):
+    """Ten steps of the build against its plain version on the same Philox
+    words, from a shard at global row 100 and column 3 of a wider solve."""
+    inst, _ = cuda_instance
+    step, plain, params, flags, arrays, x_arrays, _ = _step_cases()[family]
+    hp = _hp(beta2)
+    q, v = inst.q_matrix, inst.v_vector
+    cols = slice(3, 13)
+    states = []
+    for fn in (step, plain):
+        state = torch.zeros(arrays[hp is not None], 256, 10, device="cuda")
+        if family == "mf":
+            state[1] = 0.5
+        x = torch.empty(x_arrays, 256, 10, device="cuda")
+        kw = dict(iterations=300, noise_scale=noise_scale, hp=hp, row_base=100,
+                  col_base=3, **flags)
+        fn(4, None, v[cols].contiguous(), params, state, x, None, **kw)
+        for i in range(10):
+            mv = torch.matmul(x, q[cols, cols]).contiguous()
+            fn(4, mv, v[cols].contiguous(), params, state, x, i, **kw)
+        states.append(state)
+    torch.cuda.synchronize()
+    # In units of max(1, |x|): Adam's second moments of MF reach ~1e7.
+    assert ((states[0] - states[1]).abs() / states[1].abs().clamp(min=1.0)).max() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beta2", [None, 0.999])
+@pytest.mark.parametrize("family", ["dl", "mf", "langevin", "pumped"])
+def test_row_base_launches_make_up_the_whole_batch(cuda_instance, family, beta2):
+    """Two launches of half the batch each, the second from row base 128,
+    are the launch of the whole batch bit for bit (a data-parallel rank's
+    rows draw what those rows of one launch draw)."""
+    inst, _ = cuda_instance
+    *_, flags, _, _, solve = _step_cases()[family]
+    params = _step_cases()[family][2]
+    kw = dict(iterations=300, hp=_hp(beta2), **flags)
+    whole = solve(6, inst.q_matrix, inst.v_vector, params, batch_size=256, **kw)
+    halves = [solve(6, inst.q_matrix, inst.v_vector, params, batch_size=128, row_base=r,
+                    **kw) for r in (0, 128)]
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    halves = [h if isinstance(h, tuple) else (h,) for h in halves]
+    for w, a, b in zip(whole, *halves):
+        assert torch.equal(w, torch.cat([a, b]))
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_on_the_tensor_s_card(cuda_instance, monkeypatch):
+    """Every wrapper enters ``torch.cuda.device`` of its tensors' card
+    around its launch, so a rank whose tensors lie on cuda:k launches there
+    whatever device is current."""
+    inst, solver = cuda_instance
+    entered = []
+
+    class Spy(torch.cuda.device):
+        def __init__(self, device):
+            entered.append(torch.device(device))
+            super().__init__(device)
+
+    q, v = inst.q_matrix, inst.v_vector
+    cases = _step_cases()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "device", Spy)
+        for family, (step, _, params, flags, arrays, x_arrays, solve) in cases.items():
+            solve(1, q, v, params, iterations=10, batch_size=64, **flags)
+            state = torch.zeros(arrays[0], 64, 20, device="cuda")
+            x = torch.empty(x_arrays, 64, 20, device="cuda")
+            step(1, None, v, params, state, x, None, iterations=10, **flags)
+        dl_variant_kernels.dl_v2(1, q, v, harness_params(10), iterations=10, batch_size=64,
+                                 rng_name="popcount1", fuse_matvec=True, unroll=1)
+    torch.cuda.synchronize()
+    assert len(entered) == 2 * len(cases) + 1
+    assert all(d == q.device for d in entered)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dl", "mf", "langevin", "pumped"])
+def test_row_base_launches_with_a_per_element_s(cuda_instance, family):
+    """A (batch, n) S whose rows differ, cut by rows as a data-parallel
+    rank cuts it: the two halves' launches are the whole launch, bit for
+    bit (the per-element array of the second half has its row base's
+    leading rows)."""
+    inst, _ = cuda_instance
+    *_, flags, _, _, solve = _step_cases()[family]
+    params = _step_cases()[family][2]
+    S0 = float(params.S)
+    rng = np.random.RandomState(3)
+    S = torch.tensor(S0 * rng.uniform(0.5, 1.5, (256, 20)), dtype=torch.float32,
+                     device="cuda")
+    kw = dict(iterations=100, **flags)
+    whole = solve(6, inst.q_matrix, inst.v_vector, params._replace(S=S), batch_size=256,
+                  **kw)
+    halves = [solve(6, inst.q_matrix, inst.v_vector, params._replace(S=S[r:r + 128]),
+                    batch_size=128, row_base=r, **kw) for r in (0, 128)]
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    halves = [h if isinstance(h, tuple) else (h,) for h in halves]
+    for w, a, b in zip(whole, *halves):
+        assert torch.equal(w, torch.cat([a, b]))

@@ -211,7 +211,8 @@ def test_malformed_pump_ramp_raises_a_value_error_naming_it(pump_ramp):
 def test_per_variable_s_and_mesh_raise():
     """A 1-D S of the problem's size now runs (and matches the JAX façade:
     ``tests/test_torch_per_variable_s.py``); another size raises the JAX
-    package's ValueError; a mesh still raises naming its ROADMAP item."""
+    package's ValueError; a mesh runs now (tests/test_torch_mesh.py), and
+    what is not a DeviceMesh raises."""
     inst = ProblemInstance(device="cpu", file_path=TEST020)
     jinst = JProblemInstance(device="cpu", file_path=TEST020)
     sols = []
@@ -225,7 +226,7 @@ def test_per_variable_s_and_mesh_raise():
     solver.parameter_key = PARAMS
     with pytest.raises(ValueError, match="Tensor S size"):
         solver(inst)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DLSolver(device="cpu", mesh=object())
 
 

@@ -44,6 +44,8 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import ccvm_tpu_torch.parallel, ccvm_tpu_torch.parallel.sweep, ccvm_tpu_torch.tuning;"
         "import ccvm_tpu_torch.checkpoint, ccvm_tpu_torch.profiling;"
         "import ccvm_tpu_torch.parallel.multihost, ccvm_tpu_torch.tools.tune_benchmark_set;"
+        "import ccvm_tpu_torch.parallel.mesh, ccvm_tpu_torch.parallel.tp;"
+        "import ccvm_tpu_torch.tools.multihost_smoke;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -58,7 +60,7 @@ PLOTTING = os.path.join(PKG, "ccvmplotlib")
 BENCH = os.path.join(REPO, "bench_torch.py")
 SCRIPTS = os.path.join(REPO, "examples", "torch_port")
 SCRIPT_NAMES = ("benchmarking_study", "ccvm_boxqp_dl", "ccvm_boxqp_mf", "langevin_boxqp",
-                "pumped_langevin_boxqp", "ccvm_boxqp_plot")
+                "pumped_langevin_boxqp", "ccvm_boxqp_plot", "tensor_parallel_boxqp")
 
 
 def _port_python_sources():
@@ -114,6 +116,8 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
     scanned = {os.path.relpath(p, PKG) for p in _port_python_sources()}
     assert {os.path.join("parallel", "__init__.py"), os.path.join("parallel", "sweep.py"),
             os.path.join("parallel", "multihost.py"),
+            os.path.join("parallel", "mesh.py"), os.path.join("parallel", "tp.py"),
+            os.path.join("tools", "multihost_smoke.py"),
             os.path.join("tools", "tune_benchmark_set.py"),
             "tuning.py", "checkpoint.py", "profiling.py"} <= scanned
     for path in _port_python_sources():
@@ -179,6 +183,18 @@ def _entry_points():
         mod = _load_script(name)
         return mod.main, lambda mp: mp.setattr(mod, cls, _stand_in)
 
+    def tensor_parallel():
+        # No world to join here: the process group and its mesh are left
+        # out, so that the solver is the first thing built on the card.
+        mod = _load_script("tensor_parallel_boxqp")
+
+        def stand_in(mp):
+            mp.setattr(mod, "LangevinSolver", _stand_in)
+            mp.setattr(mod, "initialize", lambda *a, **k: None)
+            mp.setattr(mod, "mesh_of_the_world", lambda: None)
+
+        return functools.partial(mod.main, []), stand_in
+
     return {
         "benchmarking_study": study,
         "ccvm_boxqp_dl": lambda: example("ccvm_boxqp_dl", "DLSolver"),
@@ -187,6 +203,7 @@ def _entry_points():
         "pumped_langevin_boxqp": lambda: example("pumped_langevin_boxqp",
                                                  "PumpedLangevinSolver"),
         "ccvm_boxqp_plot": lambda: example("ccvm_boxqp_plot", "DLSolver"),
+        "tensor_parallel_boxqp": tensor_parallel,
         "tune_benchmark_set": lambda: (
             functools.partial(tune_benchmark_set.main, out_path="tuned.json"),
             lambda mp: mp.setattr(tune_benchmark_set, "CLASSES", dict.fromkeys(

@@ -175,8 +175,9 @@ def test_features_left_out_raise(tmp_path, family, call):
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_per_variable_s_mesh_tune_and_backend_raise(family):
     """A 1-D S of the problem's size now runs and matches the JAX façade
-    (more in tests/test_torch_per_variable_s.py); a mesh and a backend
-    other than "auto" still raise naming their ROADMAP items; tune runs
+    (more in tests/test_torch_per_variable_s.py); a mesh runs now
+    (tests/test_torch_mesh.py) and what is not a DeviceMesh raises; a
+    backend other than "auto" still raises naming its ROADMAP item; tune runs
     (tests/test_torch_tuning.py) and, as the JAX package's, needs a
     parameter key first."""
     jcls, tcls, params, _ = FAMILIES[family]
@@ -186,7 +187,7 @@ def test_per_variable_s_mesh_tune_and_backend_raise(family):
     np.testing.assert_allclose(np.asarray(sol_t.objective_values),
                                np.asarray(sol_j.objective_values), rtol=1e-4)
     assert sol_t.solution_performance == sol_j.solution_performance
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcls(device="cpu", mesh=object())
     with pytest.raises(ValueError, match="Set solver.parameter_key before tuning"):
         tcls(device="cpu").tune([])

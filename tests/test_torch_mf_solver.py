@@ -181,14 +181,15 @@ def test_features_left_out_raise(noise_off, tmp_path, call):
 
 def test_per_variable_s_mesh_and_tune_raise(noise_off):
     """A 1-D S of the problem's size now runs and matches the JAX façade
-    (more in tests/test_torch_per_variable_s.py); a mesh still raises
-    naming its ROADMAP item; tune runs (tests/test_torch_tuning.py) and, as
+    (more in tests/test_torch_per_variable_s.py); a mesh runs now
+    (tests/test_torch_mesh.py) and what is not a DeviceMesh raises; tune
+    runs (tests/test_torch_tuning.py) and, as
     the JAX package's, needs a parameter key first."""
     params = {20: dict(PARAMS[20], S=np.linspace(15.0, 25.0, 20))}
     sol_j = _solve(JMFSolver, JProblemInstance, params, batch=8)
     sol_t = _solve(MFSolver, ProblemInstance, params, batch=8)
     _agree(sol_t, sol_j)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         MFSolver(device="cpu", mesh=object())
     with pytest.raises(ValueError, match="Set solver.parameter_key before tuning"):
         MFSolver(device="cpu").tune([])

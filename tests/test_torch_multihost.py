@@ -8,6 +8,10 @@ same order of attempts.  ``local_shard_bounds``, ``process_index`` and
 ``is_coordinator`` are held against the JAX ones on one process, and on a
 pretended process group of four (the JAX side's process count and index
 patched, the port's ``torch.distributed`` state patched alike).
+``initialize`` is held to the JAX helper's rules on one process (nothing
+configured: a single-process run; a bad explicit configuration: it
+raises); tests/test_torch_mesh.py and tests/test_torch_multihost_run.py
+run it in worlds of several processes.
 """
 
 from __future__ import annotations
@@ -87,6 +91,9 @@ def test_package_exports_the_three_helpers():
     assert parallel.run_resilient is multihost.run_resilient
     assert parallel.local_shard_bounds is multihost.local_shard_bounds
     assert parallel.is_coordinator is multihost.is_coordinator
+    assert parallel.initialize is multihost.initialize
+    assert parallel.global_batch_mesh is multihost.global_batch_mesh
+    assert parallel.process_allgather is multihost.process_allgather
 
 
 @pytest.mark.parametrize("total", [0, 1, 7, 50, 301])
@@ -111,7 +118,31 @@ def test_shard_bounds_of_a_process_group_equal_jax_s(monkeypatch, rank, total):
     assert multihost.is_coordinator() == jmultihost.is_coordinator() == (rank == 0)
 
 
-def test_a_multi_process_run_waits_for_item_13():
-    for call in (multihost.initialize, multihost.global_batch_mesh):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-            call()
+def test_initialize_without_a_configuration_is_a_single_process_run(monkeypatch):
+    """No coordinator and no torchrun environment: no group to join, as the
+    JAX helper logs and carries on (ccvm_tpu/parallel/multihost.py:65-67)."""
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    multihost.initialize()
+    multihost.initialize(device="cpu")
+    assert not dist.is_initialized()
+    assert multihost.process_index() == 0 and multihost.local_shard_bounds(3) == (0, 3)
+
+
+@pytest.mark.parametrize("config,match", [
+    (dict(num_processes=2, process_id=2, device="cpu"), "process 2 is not one of 2"),
+    (dict(coordinator_address="localhost:1", num_processes=1, process_id=0,
+          device="cuda"), "has no card"),
+], ids=["rank out of range", "cuda without a card"])
+def test_initialize_raises_under_an_explicit_bad_configuration(monkeypatch, config, match):
+    """A configured run that cannot start raises, as the JAX helper does
+    (:57-64): going on alone would compute 1/N of the sweep."""
+    monkeypatch.setattr("torch.cuda.device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match=match):
+        multihost.initialize(**config)
+    assert not dist.is_initialized()
+
+
+def test_a_mesh_over_every_card_needs_a_process_group():
+    with pytest.raises(RuntimeError, match="process group"):
+        multihost.global_batch_mesh()

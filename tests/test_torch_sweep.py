@@ -251,7 +251,9 @@ def test_rejects_mixed_sizes_devices_and_unknown_post_processor(files, tmp_path)
 
 
 def test_mesh_raises_naming_its_roadmap_item(files):
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    """A mesh runs now (tests/test_torch_mesh.py shards a sweep over two
+    ranks); what is not a DeviceMesh is refused before anything is solved."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sweep_solve(_solver("dl"), _instances(files), mesh=object())
 
 
