@@ -143,6 +143,14 @@
 
 #include "ccvm_common.cuh"
 
+// Probe of ccvm_tpu_torch/tools/breakdown.py (--family dl), never set by the
+// solvers' builds: CCVM_MATVEC 0 takes both matvecs of the tensor-core
+// design out, the mma chains and the midpoint's column sums alike, so that
+// x_c @ Q and x_s @ Q stay 0 (the step of a solve with Q = 0).
+#ifndef CCVM_MATVEC
+#define CCVM_MATVEC 1
+#endif
+
 namespace {
 
 using namespace ccvm;
@@ -327,7 +335,7 @@ __device__ __forceinline__ void matvec(float (&acc)[NT][4],
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 #pragma unroll
-  for (int kt = 0; kt < NT; ++kt) {
+  for (int kt = 0; kt < (CCVM_MATVEC ? NT : 0); ++kt) {
     const float4 z = z_of(kt);
     float2 xs = make_float2(p.xscale, p.xscale);
     if (COLS == 2) xs = *reinterpret_cast<const float2*>(xsc + 8 * kt + 2 * (lane & 3));
@@ -393,7 +401,7 @@ __device__ __forceinline__ void dl_mma_body(
   // scales and S_j).
   for (int j = tid; j < NP; j += blockDim.x) {
     float colsum = 0.0f;
-    for (int k = 0; k < n && j < n; ++k) colsum += qi[k * n + j];
+    for (int k = 0; k < (CCVM_MATVEC ? n : 0) && j < n; ++k) colsum += qi[k * n + j];
     const float midsum = p.mid * colsum;
     const float vj = j < n ? v[(size_t)inst * n + j] : 0.0f;
     if (ELEM && COLS == 2) {
@@ -744,7 +752,8 @@ dl_solve_kernel(const float* __restrict__ q, const float* __restrict__ v,
                 unsigned long long seed, DLScalars p, float* __restrict__ cols,
                 Segment sg) {
   extern __shared__ __align__(16) float smem[];
-  static_assert(MMA || (COLS == 0 && !SEG), "the CUDA-core design takes neither flag");
+  static_assert(MMA || (COLS == 0 && !SEG && CCVM_MATVEC),
+                "the CUDA-core design takes neither flag, nor the probe");
   if ((int)blockIdx.x < sg.first_block) return;  // rows below the launch's
   static_assert(!ELEM || COLS, "a per-element S is a build of the per-column one");
   if constexpr (MMA)

@@ -17,12 +17,12 @@ tensor never reaches the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from typing import NamedTuple
+
+from ccvm_tpu_torch import sharedlib
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -377,12 +377,8 @@ def find_nvcc() -> str:
 
 def _source_hash(name: str) -> str:
     """Hash of the source ``name`` and of every header under ``csrc/``."""
-    h = hashlib.sha1()
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith((".cuh", ".h")))
-    for f in [name, *headers]:
-        with open(os.path.join(CSRC, f), "rb") as fh:
-            h.update(f.encode() + b"\0" + fh.read())
-    return h.hexdigest()[:12]
+    return sharedlib.digest(os.path.join(CSRC, f) for f in [name, *headers])
 
 
 def library_path(spec) -> str:
@@ -400,27 +396,16 @@ def build(specs) -> dict:
     if not todo:
         return {}
     nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = []
-    for spec in todo:
-        out = library_path(spec)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", *spec.defines(),
-               "-o", tmp, os.path.join(CSRC, spec.source)]
-        procs.append((spec, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    reports, failures = {}, []
-    for spec, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{spec}:\n{log}")
-            continue
-        os.replace(tmp, out)
-        reports[spec] = log
-    if failures:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return reports
+
+    def command(spec):
+        return lambda tmp: [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                            "-Xcompiler", "-fPIC", "-Xptxas", "-v", *spec.defines(),
+                            "-o", tmp, os.path.join(CSRC, spec.source)]
+
+    outs = {spec: library_path(spec) for spec in todo}
+    logs = sharedlib.compile_into([(outs[s], command(s)) for s in todo],
+                                  "the CUDA kernels of ccvm_tpu_torch (nvcc)")
+    return {spec: logs[out] for spec, out in outs.items()}
 
 
 def kernel_report(log: str) -> str:

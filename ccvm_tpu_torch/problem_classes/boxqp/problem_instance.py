@@ -26,7 +26,7 @@ import enum
 import numpy as np
 import torch
 
-from ccvm_tpu_torch.native import fast_parse_matrix
+from ccvm_tpu_torch.native import fast_parse_matrix, load_library
 from ccvm_tpu_torch.runtime import fp32_matmul, put, validate_device
 
 
@@ -153,7 +153,13 @@ def parse_instance_file(file_path: str, file_delimiter: str = "\t"):
     """Parse a ``.in`` file into host NumPy arrays + metadata dict.
 
     Sign conventions match the reference loader exactly (V and Q negated).
+    The body (V and Q) goes through the native tokenizer
+    (:func:`ccvm_tpu_torch.native.fast_parse_matrix`), the header and the
+    solution line through Python; a malformed file raises "Error reading
+    instance file", and a library that cannot be built raises its own
+    ``RuntimeError``.
     """
+    load_library()
     with open(file_path, "r") as stream:
         lines = stream.readlines()
 

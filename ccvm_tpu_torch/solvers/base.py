@@ -24,13 +24,6 @@ from ccvm_tpu_torch.runtime import resolve_device
 from ccvm_tpu_torch.tuning import tune_solver
 
 
-def not_ported(feature, item):
-    """The error a feature not ported yet raises, naming its ROADMAP item."""
-    return NotImplementedError(
-        f"{feature} is not ported to ccvm_tpu_torch yet (ROADMAP.md, {item})"
-    )
-
-
 def check_mesh(mesh):
     """Raise unless ``mesh`` is None or a
     :class:`torch.distributed.device_mesh.DeviceMesh`

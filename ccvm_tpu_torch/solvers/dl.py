@@ -4,9 +4,8 @@
 ``device="cuda"`` launches the whole-solve CUDA kernel (``csrc/dl_solve.cu``)
 for every feature this port carries (evolution sampling as one segment
 launch a sample, a per-variable S and the generalised ``pump_ramp`` included);
-``device="cpu"`` runs its plain PyTorch version.  Features not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that brings them; none
-of them takes another path quietly.
+``device="cpu"`` runs its plain PyTorch version.  No feature takes another
+path quietly.
 """
 
 from __future__ import annotations

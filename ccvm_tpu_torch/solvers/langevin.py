@@ -5,9 +5,8 @@
 ``device="cuda"`` launches the whole-solve CUDA kernel
 (``csrc/langevin_solve.cu``) for every feature this port carries (evolution
 sampling as one segment launch a sample, and a per-variable S, included);
-``device="cpu"`` runs its plain PyTorch version.  Features not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that brings them; none
-of them takes another path quietly.
+``device="cpu"`` runs its plain PyTorch version.  No feature takes another
+path quietly.
 """
 
 from __future__ import annotations
@@ -23,8 +22,8 @@ from ccvm_tpu_torch.ops import langevin_kernels, philox
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
-from ccvm_tpu_torch.solvers.base import (CCVMSolver, not_ported,
-                                         per_variable_saturation, saturation_of)
+from ccvm_tpu_torch.solvers.base import (CCVMSolver, per_variable_saturation,
+                                         saturation_of)
 
 LANGEVIN_SCALING_MULTIPLIER = 0.05
 """Scaling multiplier used in get_scaling_factor (reference
@@ -32,13 +31,14 @@ LANGEVIN_SCALING_MULTIPLIER = 0.05
 
 
 def check_langevin_options(backend, kernel_rng):
-    """The constructor options the Langevin-family façades share: a backend
-    other than "auto" is not ported; ``kernel_rng`` names one of the
-    kernel's Wiener transforms."""
+    """The constructor options the Langevin-family façades share: the
+    backend is "auto" (the device decides the path, as for ``DLSolver`` and
+    ``MFSolver``); ``kernel_rng`` names one of the kernel's Wiener
+    transforms."""
     if backend != "auto":
-        raise not_ported(
-            f"backend={backend!r} (the device decides the path in this port)",
-            "queue 1 item 7")
+        raise ValueError(
+            f'backend must be "auto" (the device decides the path), got {backend!r}'
+        )
     if kernel_rng not in philox.RNG_NAMES:
         raise ValueError(
             f"kernel_rng must be one of {philox.RNG_NAMES}, got {kernel_rng!r}"

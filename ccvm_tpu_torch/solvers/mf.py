@@ -4,8 +4,7 @@
 ``device="cuda"`` launches the whole-solve CUDA kernel (``csrc/mf_solve.cu``)
 for every feature this port carries (evolution sampling as one segment
 launch a sample, and a per-variable S, included); ``device="cpu"`` runs its
-plain PyTorch version.  Features not ported yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them; none of them takes another path quietly.
+plain PyTorch version.  No feature takes another path quietly.
 """
 
 from __future__ import annotations

@@ -5,10 +5,8 @@
 ``device="cuda"`` launches the whole-solve CUDA kernel
 (``csrc/langevin_solve.cu``, pumped specialisation; evolution sampling as one
 segment launch a sample, and a per-variable S, included); ``device="cpu"``
-runs its plain PyTorch version.  Features not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that brings them.  There is
-no machine model of its own: the base class's cpu and gpu models apply, as
-in the JAX package.
+runs its plain PyTorch version.  There is no machine model of its own: the
+base class's cpu and gpu models apply, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -14,11 +14,18 @@ defines, which the solvers never set:
 * ``--family mf`` (``csrc/mf_solve.cu``): MF and MF-Adam (beta2 0.999 and
   1.0) with noise, MF without noise, without its matvec, and with one x
   buffer and a second barrier a step (``CCVM_X_BUFFERS=1``) in place of the
-  launch rule's two.
+  launch rule's two;
+* ``--family dl`` (``csrc/dl_solve.cu``, the twin of
+  ``tools/profile_kernel.py``): DL (the façade's popcount16) and DL-Adam
+  (Adam's defaults) with noise, without noise, and without both matvecs
+  (``CCVM_MATVEC=0``: the 3xTF32 mma chains and the midpoint's column sums
+  taken out, so that the step is a step with Q = 0); then DL with each
+  Wiener transform of ``ops.philox.RNG_NAMES``.
 
 Run from the root of a checkout on a machine with the card::
 
     python -m ccvm_tpu_torch.tools.breakdown --family langevin
+    python -m ccvm_tpu_torch.tools.breakdown --family dl
     python -m ccvm_tpu_torch.tools.mf_breakdown   # the same as --family mf
 
 Each row prints ptxas's registers and spills of the solve kernel.  The
@@ -52,9 +59,9 @@ import time
 
 import torch
 
-from ccvm_tpu_torch import (AdamParameters, LangevinSolver, ProblemInstance,
+from ccvm_tpu_torch import (AdamParameters, DLSolver, LangevinSolver, ProblemInstance,
                             PumpedLangevinSolver)
-from ccvm_tpu_torch.ops import build, langevin_kernels, mf_kernels
+from ccvm_tpu_torch.ops import build, dl_kernels, langevin_kernels, mf_kernels, philox
 from ccvm_tpu_torch.tools import tc_model
 
 
@@ -75,6 +82,64 @@ def probe_spec_type(base, **probes):
 MFProbeSpec = probe_spec_type(build.MFSpec, matvec=True, x_buffers=0)
 # The Langevin family: CCVM_MATVEC 0 takes the matvec out.
 LangevinProbeSpec = probe_spec_type(build.LangevinSpec, matvec=True)
+# DL: CCVM_MATVEC 0 takes both matvecs out.
+DLProbeSpec = probe_spec_type(build.DLSpec, matvec=True)
+DL_G = 0.05  # DLSolver's default g, as the main path runs it
+
+
+def dl_problem(device, n=70, g=DL_G):
+    """The scaled Size70 instance of the DL main path on ``device``, and a
+    function of T giving the tuned N=70 DL parameters (S 1)."""
+    root = tc_model._repo()
+    path = os.path.join(root, "examples", "benchmarking_instances", f"Size{n}",
+                        f"tuningH0{n}-100-0.in")
+    inst = ProblemInstance(device=device, instance_type="tuning", file_path=path)
+    solver = DLSolver(device=device)
+    inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+    solver.solution_bounds = inst.solution_bounds
+    with open(os.path.join(root, "examples", "tuned_parameters.json")) as f:
+        t = json.load(f)["dl"][str(n)]
+
+    def params(iterations):
+        return solver._make_params(t["pump"], 1.0, t["dt"], t["noise_ratio"],
+                                   t["feedback_scale"], g, iterations)
+
+    return inst.q_matrix, inst.v_vector, params
+
+
+def launch_dl(fn, q, v, params, hp, noise_scale, c, s, seed=100):
+    """One launch of a DL build's ``fn`` (csrc/dl_solve.cu ``ccvm_dl_solve``)
+    on one instance (``q`` (1, n, n), ``v`` (1, n)) into ``c`` and ``s``
+    (1, batch, n), over ``params.iterations`` steps with the rate-scaled
+    pump; returns the launch's cudaError_t."""
+    n, batch, iterations = q.shape[-1], c.shape[1], int(params.iterations)
+    steps = dl_kernels._step_table(params, hp, noise_scale, iterations, True, "cuda")
+    return fn(q.data_ptr(), v.data_ptr(), steps.data_ptr(), c.data_ptr(), s.data_ptr(),
+              1, batch, n, iterations, seed,
+              dl_kernels._scalars(params, hp, noise_scale, float(params.pump) > 1),
+              build.dl_launch_shape(n, hp is not None).rows,
+              torch.cuda.current_stream().cuda_stream, None, None, 0)
+
+
+def _dl_timer(fn, problem, hp, noise_scale, batch):
+    """ms of one DL launch of ``fn`` over ``iterations`` steps (CUDA events;
+    the rate-scaled pump, T = the steps run)."""
+    q, v, params = problem
+    c = torch.empty((1, batch, q.shape[-1]), device="cuda")
+    s = torch.empty_like(c)
+
+    def run(iterations):
+        p = params(iterations)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        err = launch_dl(fn, q, v, p, hp, noise_scale, c, s)
+        end.record()
+        torch.cuda.synchronize()
+        if err != 0:
+            raise RuntimeError(f"launch failed: cudaError_t {err}")
+        return start.elapsed_time(end)
+
+    return run
 
 
 def _mf_timer(fn, problem, hp, noise_scale, batch):
@@ -158,6 +223,52 @@ def langevin_rows():
                 row(f"{name}-Adam (tuned)", tuned),
                 row(f"{name}-Adam (tuned), no matvec", tuned, matvec=False)]
     return out
+
+
+def dl_rows(device="cuda"):
+    """(label, problem, Adam hyperparameters, noise scale, spec, timer) of
+    each DL row (the problem on ``device``)."""
+    q, v, params = dl_problem(device)
+    problem = (q[None].contiguous(), v[None].contiguous(), params)
+    adam = AdamParameters().to_hyperparameters()
+
+    def row(label, hp=None, noise_scale=1.0, rng="popcount16", **probe):
+        spec = DLProbeSpec(*dl_kernels._spec(70, hp, noise_scale, rng, True), **probe)
+        return label, problem, hp, noise_scale, spec, _dl_timer
+
+    return ([row("DL"), row("DL, noise off", noise_scale=0.0),
+             row("DL, no matvec", matvec=False), row("DL-Adam", adam),
+             row("DL-Adam, noise off", adam, 0.0), row("DL-Adam, no matvec", adam,
+                                                      matvec=False)]
+            + [row(f"DL, kernel_rng {r}", rng=r) for r in philox.RNG_NAMES])
+
+
+ROWS = {"langevin": langevin_rows, "mf": mf_rows, "dl": dl_rows}
+
+
+def run_rows(family, rows, *, batch, i1, i2, reps, rounds, reports, out=print):
+    """Time each row (:func:`dl_rows`, ...) as marginal us per step, best of
+    ``reps``, the median of ``rounds`` (the row order reversed every other
+    round), and print it with ptxas's registers and spills from
+    ``reports`` ({spec: build log}); returns {label: [us per round]}."""
+    out(f"{family} kernel breakdown on {_card()}, batch {batch}, N=70, marginal "
+        f"us/step over {i1} and {i2} steps, best of {reps}, {rounds} round(s):")
+    timers = {label: timer(build.load(spec), problem, hp, noise_scale, batch)
+              for label, problem, hp, noise_scale, spec, timer in rows}
+    us = {label: [] for label in timers}
+    for r in range(rounds):
+        for label in (list(timers) if r % 2 == 0 else list(timers)[::-1]):
+            run = timers[label]
+            run(i1)  # warm-up
+            t = {it: min(run(it) for _ in range(reps)) for it in (i1, i2)}
+            us[label].append((t[i2] - t[i1]) / (i2 - i1) * 1e3)
+    for label, *_, spec, _ in rows:
+        med = sorted(us[label])[len(us[label]) // 2]
+        report = build.kernel_report(reports[spec]) if spec in reports else \
+            "built before this run"
+        out(f"  {label}: {med:.3f} us/step median ({med * 15:.1f} ms at 15,000 "
+            f"steps), rounds {', '.join(f'{x:.3f}' for x in us[label])}; {report}")
+    return us
 
 
 def wrapper_us_per_step(n, batch, i1, i2, reps, device="cuda"):
@@ -261,7 +372,7 @@ def _card():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--family", choices=("langevin", "mf"), default="langevin")
+    ap.add_argument("--family", choices=tuple(ROWS), default="langevin")
     ap.add_argument("--n", type=int, default=70,
                     help="Langevin: the bundled size; other than 70 (or with "
                          "--against) only the production kernels, through the wrappers")
@@ -284,27 +395,11 @@ def main(argv=None):
         return
     if args.family == "langevin" and (args.n != 70 or args.against):
         return compare_trees(args)
-    rows = mf_rows() if args.family == "mf" else langevin_rows()
+    rows = ROWS[args.family]()
     reports = build.build([r[4] for r in rows])
-    print(f"{args.family} kernel breakdown on {_card()}, "
-          f"batch {args.batch}, N=70, marginal us/step over {args.i1} and {args.i2} "
-          f"steps, best of {args.reps}, {args.rounds} round(s):", flush=True)
-    timers = {label: timer(build.load(spec), problem, hp, noise_scale, args.batch)
-              for label, problem, hp, noise_scale, spec, timer in rows}
-    us = {label: [] for label in timers}
-    for r in range(args.rounds):
-        for label in (list(timers) if r % 2 == 0 else list(timers)[::-1]):
-            run = timers[label]
-            run(args.i1)  # warm-up
-            t = {it: min(run(it) for _ in range(args.reps)) for it in (args.i1, args.i2)}
-            us[label].append((t[args.i2] - t[args.i1]) / (args.i2 - args.i1) * 1e3)
-    for label, *_, spec, _ in rows:
-        med = sorted(us[label])[len(us[label]) // 2]
-        report = build.kernel_report(reports[spec]) if spec in reports else \
-            "built before this run"
-        print(f"  {label}: {med:.3f} us/step median ({med * 15:.1f} ms at 15,000 "
-              f"steps), rounds {', '.join(f'{x:.3f}' for x in us[label])}; {report}",
-              flush=True)
+    run_rows(args.family, rows, batch=args.batch, i1=args.i1, i2=args.i2, reps=args.reps,
+             rounds=args.rounds, reports=reports,
+             out=lambda line: print(line, flush=True))
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ exits non-zero without printing a result:
 1. device: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does;
 2. build: compiles every kernel specialisation the run launches from
-   ``ccvm_tpu_torch/csrc`` (one nvcc each, all started together) into
-   build/kernels, and prints what ptxas reports of each solve kernel; for
+   ``ccvm_tpu_torch/csrc`` (one nvcc each, all started together, in a
+   thread while phase 5's plain workers start: their plain solves launch no
+   kernel) into build/kernels, and, once it has ended, prints what ptxas
+   reports of each solve kernel; for
    each DL, MF and Langevin-family specialisation the blocks per SM the card
    keeps resident (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
    for the DL main path's two (3xTF32 tensor-core matvec, noise on) it holds
@@ -30,10 +32,13 @@ exits non-zero without printing a result:
    launch against two serial launches, bit for bit;
 4. noise on, same Philox words: kernel against plain, 100 iterations;
 5. noise on, statistics: 15,000 iterations at batch 4096, kernel against
-   plain (DL, DL-Adam, MF, Langevin, pumped Langevin at N=70; DL-Adam, MF and
-   MF-Adam on tools/tpu_validate.py's N=20 instance with its parameters);
-   every success probability within 5 combined binomial sigmas + 0.01 (the
-   band of tools/tpu_validate.py).  The readouts of MF and of the Langevin family go
+   plain (DL, DL-Adam, MF, Langevin, pumped Langevin at N=70; DL-Adam with
+   DL's default transform, popcount16, on tools/tpu_validate.py's N=20
+   instance with its DL parameters); every success probability within 5
+   combined binomial sigmas + 0.01 (the band of tools/tpu_validate.py, held
+   by its twin ``ccvm_tpu_torch/tools/validate.py``, whose eight cases on
+   that tool's N=20 instance, all popcount32, are phase 17 (c)'s: their
+   plain sides run in this phase's workers).  The readouts of MF and of the Langevin family go
    through their change of variables, grad-descent and
    ``compute_energy_readout64``, as the façades' do.  The plain solves at
    full depth, these and phase 7's, run in child processes of this script
@@ -215,7 +220,23 @@ exits non-zero without printing a result:
    entering ``torch.cuda.device`` of its tensors' card around its launch;
    the kernels line gains each kernel's phase-16 launches and the eight
    one-step builds' rows (phase 2 builds them and prints their registers);
-17. the last line: {"ok": true, "device": {...}}.
+17. the native host I/O library and this slice's tools (run after phase 16),
+   with the launch counts zeroed before and read after (c): (a) the library
+   (``ccvm_tpu_torch/native/ccvm_io.cpp``, built with g++ in phase 2 at its
+   first use, its compiler line printed): every bundled instance file (the
+   300 of Size20..Size70 and the single test instance) loaded through the
+   native tokenizer and through ``fast_parse_matrix_reference``, equal bit
+   for bit, the median host ms a load both ways (phase 14 (a)'s loads line
+   reads the native path, beside the NumPy tokenizer's recorded loads);
+   (b) an evolution run of each façade (DL, MF, Langevin, pumped) at N=70,
+   batch P17_BATCH, a sample every P17_STEP steps: the file equal, byte for
+   byte, to ``format_rounded_reference``'s text of the same samples; (c)
+   ``ccvm_tpu_torch.tools.validate`` at its defaults, its eight cases' plain
+   sides run in the phase-5 workers, every gap within band; (d)
+   ``breakdown --family dl``'s rows at P17_I1 and P17_I2 steps (its probe
+   builds, made in phase 2, are not kernels of a path); the kernels line
+   gains each kernel's phase-17 launches;
+18. the last line: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -236,13 +257,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SIZE70 = os.path.join(REPO, "examples", "benchmarking_instances", "Size70")
 INSTANCE = os.path.join(SIZE70, "tuningH070-100-0.in")
 SECOND_INSTANCE = os.path.join(SIZE70, "tuningH070-100-1.in")
-# tools/tpu_validate.py's instance and parameters (:33-49), for phase 5's
-# bands at N=20: DL pump 8, fs 100, dt 0.001, noise ratio 10; MF pump 0, fs
-# 4000, j 5, S 20, dt 0.0025; Adam at its defaults.
-VALIDATE_INSTANCE = os.path.join(REPO, "examples", "benchmarking_instances",
-                                 "single_test_instance", "tuningH020-100-0.in")
-VALIDATE_DL = dict(pump=8.0, S=1.0, dt=0.001, noise_ratio=10.0, feedback_scale=100.0)
-VALIDATE_MF = dict(pump=0.0, S=20.0, dt=0.0025, j=5.0, feedback_scale=4000.0)
 TUNED = os.path.join(REPO, "examples", "tuned_parameters.json")
 
 N = 70
@@ -466,6 +480,15 @@ STEP_ARRAYS = {"dl": (2, (2, 6), (2, 6)), "mf": (1, (2, 4), (3, 5)),
                "langevin": (1, (1, 3), (1, 3)), "pumped": (1, (1, 3), (1, 3))}
 # Phase 11 waits this long for bench_torch.py.
 BENCH_TIMEOUT_S = 400
+# Phase 14 (a)'s loads as recorded in PERF.md section 5 with the NumPy
+# tokenizer (seconds, share of the study's wall; NVIDIA H100 80GB HBM3 at
+# 700 W), which the native tokenizer's are printed beside.
+NUMPY_LOADS_S, NUMPY_LOADS_SHARE = 1.336, 0.183
+# Phase 17 (b): each façade's evolution run at N=70, this batch, a sample
+# every P17_STEP steps; (d): breakdown --family dl's steps.
+P17_BATCH = 4096
+P17_STEP = 500
+P17_I1, P17_I2 = 1000, 4000
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device_amortised_rate")
 
 
@@ -563,15 +586,24 @@ def stop(proc):
 
 
 def plain_worker():
-    """``chip_smoke.py --plain-worker``: one ``plain_solve``, or a list of
-    them (``("many", jobs)``), its arguments pickled on standard input and
-    its result pickled on standard output (anything else the solve prints
-    goes to standard error)."""
+    """``chip_smoke.py --plain-worker``: one ``plain_solve``, a list of
+    them (``("many", jobs)``), or a call of a function of the package
+    (``("call", module, function, kwargs)``), its arguments pickled on
+    standard input and its result pickled on standard output (anything else
+    the solve prints goes to standard error)."""
+    import importlib
+
     job = pickle.load(sys.stdin.buffer)
     with os.fdopen(os.dup(1), "wb") as out:
         os.dup2(2, 1)
-        pickle.dump([plain_solve(*j) for j in job[1]] if job[0] == "many"
-                    else plain_solve(*job), out)
+        if job[0] == "many":
+            result = [plain_solve(*j) for j in job[1]]
+        elif job[0] == "call":
+            sys.path.insert(0, REPO)
+            result = getattr(importlib.import_module(job[1]), job[2])(**job[3])
+        else:
+            result = plain_solve(*job)
+        pickle.dump(result, out)
 
 
 def launch_counters():
@@ -979,6 +1011,10 @@ class PlainWorkers:
         solves)."""
         return self._threads.submit(self._run, ("many", jobs))
 
+    def submit_call(self, module, function, kwargs):
+        """A future of ``module.function(**kwargs)`` run in a worker."""
+        return self._threads.submit(self._run, ("call", module, function, kwargs))
+
     def _run(self, job):
         with self._lock:
             if self._closed:
@@ -1004,19 +1040,11 @@ class PlainWorkers:
 
 
 def success_band_ok(perf_a, perf_b, batch, names=("kernel", "plain")):
-    """tools/tpu_validate.py:96-106: |pa - pb| <= 5 sigma + 0.01."""
-    import numpy as np
+    """tools/tpu_validate.py's band, |pa - pb| <= 5 sigma + 0.01, as its twin
+    ``ccvm_tpu_torch/tools/validate.py`` holds it, each gap's line logged."""
+    from ccvm_tpu_torch.tools import validate
 
-    ok = True
-    for gap in perf_a:
-        pa, pb = perf_a[gap], perf_b[gap]
-        sig = np.sqrt(max(pa * (1 - pa), pb * (1 - pb), 1e-6) / batch) * np.sqrt(2)
-        tol = 5 * sig + 0.01
-        good = abs(pa - pb) <= tol
-        ok &= bool(good)
-        log(f"  {'ok ' if good else 'FAIL'} {gap:<13} {names[0]}={pa:.4f} "
-            f"{names[1]}={pb:.4f} tol={tol:.4f}")
-    return ok
+    return not validate.compare(perf_a, perf_b, batch, names, out=log)
 
 
 def max_diff(a, b):
@@ -1487,9 +1515,10 @@ def entry_point_phase(tuned_all, p13_stats, p13_winner, counters, failures):
                 failures.append(f"phase 14 (a) {name} N={size}: {len(failed[name, size])} "
                                 f"failed, {len(got)} rows of {len(files)} instances")
         load_s = sum(dt for _, dt in loads)
-        log(f"phase 14 (a) {len(loads)} instance files loaded (each parsed once a solver "
-            f"and copied to the card) in {load_s:.3f} s, {load_s / study_wall:.1%} of the "
-            f"study's wall")
+        log(f"phase 14 (a) {len(loads)} instance files loaded (each parsed once a solver, "
+            f"the body by the native tokenizer, and copied to the card) in {load_s:.3f} s, "
+            f"{load_s / study_wall:.1%} of the study's wall (recorded with the NumPy "
+            f"tokenizer: {NUMPY_LOADS_S} s, {NUMPY_LOADS_SHARE:.1%})")
         for name in STUDY_SOLVERS:
             # N=70's rows against phase 13 (a)'s sweep of the same seed.
             want = p13_stats[STUDY_LABELS[name]]
@@ -1838,6 +1867,115 @@ def per_element_phase(tuned_all, main_ms, counters, failures):
     return launched, main_times
 
 
+def native_phase(reports, dl_probe_rows, v_plain, counters, failures):
+    """Phase 17: the native host I/O library, an evolution run of each
+    façade, the validation tool's eight cases (their plain sides from the
+    phase-5 workers, ``v_plain``) and ``breakdown --family dl``'s rows (built
+    in phase 2, ``reports``), with the launch counts zeroed before and read
+    after; returns the counts."""
+    import glob
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from ccvm_tpu_torch import (DLSolver, LangevinSolver, MFSolver, ProblemInstance,
+                                PumpedLangevinSolver, native)
+    from ccvm_tpu_torch.problem_classes.boxqp import problem_instance
+    from ccvm_tpu_torch.tools import breakdown, validate
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t17 = time.perf_counter()
+    # (a) Every bundled instance through the native tokenizer and through
+    # its plain version, whole loads (file, header, body) timed by the host
+    # clock, the order of the two alternating from file to file.
+    log(f"phase 17 (a) native I/O library {os.path.relpath(native.library_path(), REPO)}, "
+        f"built by: {' '.join(native.compile_command('<temp file>'))}, renamed into place")
+    files = sorted(glob.glob(os.path.join(REPO, "examples", "benchmarking_instances",
+                                          "Size*", "*.in"))) + [validate.INSTANCE]
+    ms, differ = {"native": [], "plain": []}, []
+    ways = [("native", native.fast_parse_matrix),
+            ("plain", native.fast_parse_matrix_reference)]
+    for k, path in enumerate(files):
+        parsed = {}
+        for label, parse in ways if k % 2 == 0 else ways[::-1]:
+            with mock.patch.object(problem_instance, "fast_parse_matrix", parse):
+                t = time.perf_counter()
+                q, v, _, _ = problem_instance.parse_instance_file(path)
+                ms[label].append(1e3 * (time.perf_counter() - t))
+            parsed[label] = q.tobytes() + v.tobytes()
+        if parsed["native"] != parsed["plain"]:
+            differ.append(os.path.relpath(path, REPO))
+    med = {label: float(np.median(x)) for label, x in ms.items()}
+    log(f"phase 17 (a) {len(files)} instance files (the 300 of Size20..Size70 and the "
+        f"single test instance) parsed through the native tokenizer and through "
+        f"fast_parse_matrix_reference: {len(differ)} differ bit for bit; median host ms "
+        f"a load {med['native']:.3f} native, {med['plain']:.3f} plain "
+        f"({med['plain'] / med['native']:.2f} x)")
+    if differ:
+        failures.append(f"phase 17 (a): the native tokenizer differs on {differ}")
+
+    # (b) An evolution run of each façade; its file against the plain
+    # formatter's bytes of the same samples (the best trajectory's).
+    with open(TUNED) as f:
+        tuned_all = json.load(f)
+    facades = {"dl": (DLSolver, ("c_sample", "s_sample")),
+               "mf": (MFSolver, ("mu_sample", "sigma_sample")),
+               "langevin": (LangevinSolver, ("c_sample",)),
+               "pumped": (PumpedLangevinSolver, ("c_sample",))}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        for family, (cls, names) in facades.items():
+            solver = cls(device="cuda", batch_size=P17_BATCH)
+            solver.parameter_key = {N: {**tuned_all[family][str(N)],
+                                        "iterations": ITERATIONS}}
+            inst = ProblemInstance(device="cuda", instance_type="tuning", file_path=INSTANCE)
+            inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+            path = os.path.join(tmp, f"{family}_evolution.txt")
+            t = time.perf_counter()
+            sol = solver(inst, seed=17, evolution_step_size=P17_STEP, evolution_file=path)
+            wall = time.perf_counter() - t
+            best = int(np.argmax(-np.asarray(sol.objective_values)))
+            want = io.StringIO()
+            for sample in names:
+                native.write_sample_rows_reference(
+                    want, getattr(solver, sample)[best].cpu().numpy(),
+                    append_trailing_tab=family != "mf")
+            with open(path, "rb") as f:
+                got = f.read()
+            same = got == want.getvalue().encode()
+            rows = got.count(b"\n")
+            log(f"phase 17 (b) {family} façade, batch {P17_BATCH}, {ITERATIONS} steps, "
+                f"evolution_step_size {P17_STEP}: wall {wall:.3f} s; its evolution file "
+                f"({len(got)} bytes, {rows} rows) "
+                f"{'equals' if same else 'DIFFERS FROM'} format_rounded_reference's bytes "
+                f"of the same samples")
+            if not same:
+                failures.append(f"phase 17 (b) {family}: the evolution file differs from "
+                                f"the plain formatter's")
+
+    # (c) The validation tool at its defaults.
+    t = time.perf_counter()
+    out_of_band = validate.validate(device="cuda", plain=v_plain, out=log)
+    log(f"phase 17 (c) python -m ccvm_tpu_torch.tools.validate (batch 4096, "
+        f"{ITERATIONS} steps, seed 7, popcount32): {len(validate.CASES)} cases, "
+        f"{len(out_of_band)} gaps out of band; the kernels' side "
+        f"{time.perf_counter() - t:.1f} s here, the plain versions' "
+        f"{sum(sec for _, sec in v_plain.values()):.1f} s in the phase-5 workers")
+    failures += [f"phase 17 (c) {case} {gap}: kernel {pk:.4f}, plain {pp:.4f}, out of band"
+                 for case, gap, pk, pp in out_of_band]
+    launched = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    # (d) breakdown --family dl (the probe builds are not counted: their
+    # libraries are launched directly, never through a wrapper).
+    breakdown.run_rows("dl", dl_probe_rows, batch=MAIN_BATCH, i1=P17_I1, i2=P17_I2,
+                       reps=2, rounds=1, reports=reports,
+                       out=lambda line: log(f"phase 17 (d) {line}"))
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s; launches {launched}")
+    return launched
+
+
 def main(cleanup):
     """Every phase; ``cleanup`` (a contextlib.ExitStack) stops the worker
     processes when the run ends or fails."""
@@ -1858,7 +1996,7 @@ def main(cleanup):
     from ccvm_tpu_torch.ops import (build, dl_kernels, dl_variant_kernels,
                                     langevin_kernels, mf_kernels, philox)
     from ccvm_tpu_torch.post_processor import PostProcessorGradDescent
-    from ccvm_tpu_torch.tools import kernel_experiments
+    from ccvm_tpu_torch.tools import breakdown, kernel_experiments, validate
     from ccvm_tpu_torch.tools.tc_model import PARITY_TOL
 
     failures = []  # checks that fail, raised after every kernel was measured
@@ -1873,7 +2011,16 @@ def main(cleanup):
     log(f"phase 1 device: {name}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, count {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build. First the native host I/O library, at its first use in the
+    # run: every instance file below is parsed by it.
+    from ccvm_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native_built = not os.path.exists(native.library_path())
+    native.load_library()
+    log(f"phase 2 native I/O library {os.path.relpath(native.library_path(), REPO)}: "
+        f"{'built' if native_built else 'found'} in {time.perf_counter() - t0:.2f} s "
+        f"({' '.join(native.compile_command('<temp file>'))}, renamed into place)")
     with open(TUNED) as f:
         tuned_all = json.load(f)
     tuned, mf_tuned = tuned_all["dl"][str(N)], tuned_all["mf"][str(N)]
@@ -1897,6 +2044,7 @@ def main(cleanup):
         "DL-Adam noise off": (N, adam_hps[0.999], False, True),
         "DL-Adam beta2 1 noise off": (N, adam_hps[1.0], False, True),
         "DL n 20": (20, None, True, True), "DL n 20 noise off": (20, None, False, True),
+        "DL-Adam n 20": (20, adam_hps[0.999], True, True),
         "DL CUDA-core": (N, None, True, False),
         "DL CUDA-core noise off": (N, None, False, False),
         "DL-Adam CUDA-core noise off": (N, adam_hps[0.999], False, False),
@@ -1927,8 +2075,6 @@ def main(cleanup):
                 "MF-Adam noise off": (adam_hps[0.999], False),
                 "MF-Adam beta2 1 noise off": (adam_hps[1.0], False)}
     specs += [mf_spec(*case) for case in mf_builds.values()]
-    # tools/tpu_validate.py's N=20 instance in phase 5.
-    specs += [mf_spec(None, n=20), mf_spec(adam_hps[0.999], n=20)]
     # The Langevin-family specialisations: (pumped, Adam hyperparameters,
     # noise) by label; those with noise are the main path's (the tuned Adam
     # parameters differ from the defaults only in alpha, a kernel argument).
@@ -2019,137 +2165,29 @@ def main(cleanup):
                 ext = langevin_kernels._spec(8, hp, noise, "popcount32",
                                              pumped=family == "pumped")
             specs.append(ext._replace(ext=True))
-    t0 = time.perf_counter()
-    reports = build.build(specs)
-    log(f"phase 2 build: {len(reports)} libraries in "
-        f"{time.perf_counter() - t0:.1f} s from ccvm_tpu_torch/csrc "
-        f"(dl_solve.cu, mf_solve.cu, langevin_solve.cu, dl_variants.cu, "
-        f"ccvm_common.cuh)")
-    for s, rep in reports.items():
-        log(f"  {type(s).__name__} {s.tag()}: {build.kernel_report(rep)}")
-    # The DL specialisations' residency, as the card reports it, and the
-    # main path's spills, resident warps and waves.
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, (n, hp, noise, mma) in dl_cases.items():
-        blocks = dl_kernels.blocks_per_sm(n, noise_scale=1.0 if noise else 0.0,
-                                          hp=hp, mma=mma)
-        shape = build.dl_launch_shape(n, hp is not None, mma)
-        warps = blocks * shape.threads // 32
-        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
-        log(f"  {label} ({spec(n, hp, noise, mma).tag()}): {blocks} blocks per SM "
-            f"of {shape.threads} threads ({warps} warps), {shape.rows} trajectories "
-            f"and {shape.smem} bytes of shared memory a block; batch {MAIN_BATCH} "
-            f"is {waves:.3f} waves of {sms} SMs")
-        if label not in ("DL", "DL-Adam"):
-            continue
-        rep = reports.get(spec(n, hp, noise, mma))
-        spill = [ln for ln in (rep or "").splitlines() if "spill" in ln]
-        if rep is None:
-            log(f"  {label}: built before this run, its ptxas report not read")
-        elif not all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in spill):
-            failures.append(f"{label} spills: {spill}")
-        if label == "DL-Adam" and warps < 16:
-            failures.append(f"DL-Adam keeps {warps} warps per SM resident, not 16")
-        if label == "DL" and waves / -(-waves // 1) < 0.9:
-            failures.append(f"DL's grid fills {waves:.3f} waves, not whole ones within 10%")
-    # The MF specialisations' residency as the card reports it; the main
-    # path's three hold no spills, at least 16 warps per SM and whole waves
-    # within 10%.
-    for label, (hp, noise) in mf_builds.items():
-        blocks = mf_kernels.blocks_per_sm(N, noise_scale=1.0 if noise else 0.0, hp=hp)
-        shape = build.mf_launch_shape(N, hp is not None)
-        warps = blocks * -(-shape.threads // 32)
-        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
-        rep = reports.get(mf_spec(hp, noise))
-        log(f"  {label} ({mf_spec(hp, noise).tag()}): "
-            f"{build.kernel_report(rep) if rep else 'built before this run'}; "
-            f"{blocks} blocks per SM of {shape.threads} threads ({warps} warps), "
-            f"{shape.rows} trajectories and {shape.smem} bytes of shared memory a "
-            f"block; batch {MAIN_BATCH} is {waves:.3f} waves of {sms} SMs")
-        if not noise:
-            continue
-        if rep is not None and "0 bytes spill stores, 0 bytes spill loads" not in \
-                build.kernel_report(rep):
-            failures.append(f"{label} spills: {build.kernel_report(rep)}")
-        if warps < 16:
-            failures.append(f"{label} keeps {warps} warps per SM resident, not 16")
-        if waves / -(-waves // 1) < 0.9:
-            failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
-                            f"within 10%")
-    # The Langevin family's residency as the card reports it; every
-    # specialisation holds no spills, the main path's four (noise on) the
-    # blocks per SM that the launch rule plans (two of 4 warps at N=70: its
-    # wide thread tile takes up to 255 registers) and whole waves within 10%.
-    for label, (pumped, hp, noise) in lgv_builds.items():
-        blocks = langevin_kernels.blocks_per_sm(
-            N, pumped=pumped, noise_scale=1.0 if noise else 0.0, hp=hp)
-        shape = build.langevin_launch_shape(N, hp is not None)
-        warps = blocks * shape.threads // 32
-        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
-        rep = reports.get(lgv_spec(pumped, hp, noise))
-        log(f"  {label} ({lgv_spec(pumped, hp, noise).tag()}): "
-            f"{build.kernel_report(rep) if rep else 'built before this run'}; "
-            f"{blocks} blocks per SM of {shape.threads} threads ({warps} warps), "
-            f"{shape.rows} trajectories and {shape.smem} bytes of shared memory a "
-            f"block; batch {MAIN_BATCH} is {waves:.3f} waves of {sms} SMs")
-        if rep is not None and "0 bytes spill stores, 0 bytes spill loads" not in \
-                build.kernel_report(rep):
-            failures.append(f"{label} spills: {build.kernel_report(rep)}")
-        if not noise:
-            continue
-        if blocks != shape.blocks_per_sm:
-            failures.append(f"{label} keeps {blocks} blocks per SM resident, not "
-                            f"{shape.blocks_per_sm}")
-        if waves / -(-waves // 1) < 0.9:
-            failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
-                            f"within 10%")
-    # Phase 14's builds: registers, spills and residency (the waves of a
-    # study sweep, 50 x 1000 rows); no Langevin-family build may spill.
-    for label, (fam, n) in study_builds.items():
-        if fam == "MF":
-            blocks = mf_kernels.blocks_per_sm(n)
-            shape = build.mf_launch_shape(n, False)
-        else:
-            blocks = langevin_kernels.blocks_per_sm(n, pumped=fam == "pumped")
-            shape = build.langevin_launch_shape(n, False)
-        rep = reports.get(study_spec(fam, n))
-        report = build.kernel_report(rep) if rep else "built before this run"
-        waves = 50 * build.waves(1000, shape._replace(blocks_per_sm=blocks), sms)
-        log(f"  {label} ({study_spec(fam, n).tag()}): {report}; {blocks} blocks per SM "
-            f"of {shape.threads} threads, {shape.rows} trajectories and {shape.smem} bytes "
-            f"of shared memory a block; 50 x 1000 rows are {waves:.3f} waves of {sms} SMs")
-        if fam != "MF" and rep is not None and \
-                "0 bytes spill stores, 0 bytes spill loads" not in report:
-            failures.append(f"{label} spills: {report}")
-    # Phase 12's and 15's builds: registers, spills and residency; no
-    # Langevin-family build of phase 12 may spill (the per-element builds
-    # read S from global memory and are reported: speed is later work).
-    for kname, noise, cols, seg, *elem in feature_builds:
-        elem = bool(elem and elem[0])
-        fs = feature_spec(kname, noise, cols, seg, elem)
-        family, hp = kname.split("_")[0], main_hp[kname]
-        ns = 1.0 if noise else 0.0
-        if family == "dl":
-            blocks = dl_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=cols, seg=seg,
-                                              elem=elem)
-            shape = build.dl_launch_shape(N, hp is not None, True, cols)
-        elif family == "mf":
-            blocks = mf_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=bool(cols),
-                                              seg=seg, elem=elem)
-            shape = build.mf_launch_shape(N, hp is not None, bool(cols))
-        else:
-            blocks = langevin_kernels.blocks_per_sm(
-                N, pumped=family == "pumped", noise_scale=ns, hp=hp, cols=bool(cols),
-                seg=seg, elem=elem)
-            shape = build.langevin_launch_shape(N, hp is not None, bool(cols))
-        rep = reports.get(fs)
-        report = build.kernel_report(rep) if rep else "built before this run"
-        log(f"  {kname} noise {int(noise)} cols {cols} seg {int(seg)} elem {int(elem)} "
-            f"({fs.tag()}): {report}; {blocks} blocks per SM of {shape.threads} threads, "
-            f"{shape.smem} bytes of shared memory a block")
-        if family in ("langevin", "pumped") and not elem and rep is not None and \
-                "0 bytes spill stores, 0 bytes spill loads" not in report:
-            failures.append(f"{kname} (cols {cols}, seg {int(seg)}) spills: {report}")
+    # Phase 17's: the validation tool's eight cases at N=20 (its default
+    # transform, popcount32; Adam with its alpha 0.1 and add-assign) and
+    # breakdown --family dl's probe rows (CCVM_MATVEC, CCVM_NOISE and each
+    # transform; not kernels of the path: they are launched only there).
+    v_hp = validate.VARIANTS[1][1].to_hyperparameters()
+    for hp in (None, v_hp):
+        specs += [dl_kernels._spec(20, hp, 1.0, "popcount32", True),
+                  mf_kernels._spec(20, hp, 1.0, "popcount32"),
+                  langevin_kernels._spec(20, hp, 1.0, "popcount32", pumped=False),
+                  langevin_kernels._spec(20, hp, 1.0, "popcount32", pumped=True)]
+    dl_probe_rows = breakdown.dl_rows()
+    specs += [row[4] for row in dl_probe_rows]
+    # The build runs in a thread while the plain workers below start: their
+    # plain solves need no kernel, and they are the run's longest phase.
+    # Its report is read, and every library loaded, only after it ends.
+
+    def timed_build():
+        t = time.perf_counter()
+        return build.build(specs), time.perf_counter() - t
+
+    builder = concurrent.futures.ThreadPoolExecutor(1)
+    cleanup.callback(builder.shutdown)
+    build_future = builder.submit(timed_build)
     # Scaled instances on the card, through the user-facing entry points.
     def instance(path, solver_cls=DLSolver, instance_type="tuning"):
         inst = ProblemInstance(device="cuda", instance_type=instance_type, file_path=path)
@@ -2302,26 +2340,19 @@ def main(cleanup):
         jobs["phase 5", family] = (
             kernel, plain, 21, lgv_inst[family], lgv_params(family, ITERATIONS),
             dict(extra, **full, batch_size=4096, rng="popcount32", hp=None))
-    # tools/tpu_validate.py's N=20 instance and parameters, where the success
-    # probabilities sit between 0 and 1: DL-Adam, MF and MF-Adam.
-    v20 = {"dl": instance(VALIDATE_INSTANCE, DLSolver, "test"),
-           "mf": instance(VALIDATE_INSTANCE, MFSolver, "test")}
-    v20_solver = {"dl": DLSolver(device="cuda"), "mf": MFSolver(device="cuda")}
-    for f in v20:
-        v20_solver[f].solution_bounds = v20[f].solution_bounds
-    vd, vm = VALIDATE_DL, VALIDATE_MF
+    # tools/tpu_validate.py's N=20 instance and DL parameters (the
+    # validation tool's, S 1) with DL's default transform, popcount16, which
+    # the tool's cases (popcount32) do not build: DL-Adam.
+    vd = validate.PARAMS["dl"][1]
+    v20 = instance(validate.INSTANCE, DLSolver, "test")
+    v20_solver = DLSolver(device="cuda")
+    v20_solver.solution_bounds = v20.solution_bounds
     jobs["phase 5", "DL-Adam N=20"] = (
-        dl_kernels.dl_solve, dl_kernels.dl_solve_reference, 21, v20["dl"],
-        v20_solver["dl"]._make_params(vd["pump"], vd["S"], vd["dt"], vd["noise_ratio"],
-                                      vd["feedback_scale"], G, ITERATIONS),
+        dl_kernels.dl_solve, dl_kernels.dl_solve_reference, 21, v20,
+        v20_solver._make_params(vd["pump"], 1.0, vd["dt"], vd["noise_ratio"],
+                                vd["feedback_scale"], G, ITERATIONS),
         dict(full, batch_size=4096, pump_rate_flag=True, pump_is_gt_one=vd["pump"] > 1,
              rng="popcount16", hp=adam_hps[0.999]))
-    for label, hp in (("MF N=20", None), ("MF-Adam N=20", adam_hps[0.999])):
-        jobs["phase 5", label] = (
-            mf_kernels.mf_solve, mf_kernels.mf_solve_reference, 21, v20["mf"],
-            v20_solver["mf"]._make_params(vm["pump"], vm["S"], vm["dt"], vm["j"],
-                                          vm["feedback_scale"], MF_G, ITERATIONS),
-            dict(full, batch_size=4096, pump_rate_flag=True, rng="popcount32", hp=hp))
     # Phase 12's cases (batch 1024, 2,000 steps) and their plain versions,
     # which run in the workers after phase 5's and 7's: (b) the samples of
     # the plan of step 250, noise on; (c) a per-column S drawn from a seed
@@ -2402,6 +2433,13 @@ def main(cleanup):
                                 inst_.q_matrix.cpu().numpy(),
                                 inst_.v_vector.cpu().numpy(), p, kw)
                for key, (_, plain, seed, inst_, p, kw) in jobs.items()}
+    # The plain sides of tools/tpu_validate.py's eight cases on its N=20
+    # instance (its twin's, ccvm_tpu_torch/tools/validate.py: each a façade
+    # solve with its whole-solve call sent to the plain version), whose bands
+    # phase 17 (c) holds.
+    v_futures = {case: pool.submit_call("ccvm_tpu_torch.tools.validate",
+                                        "case_performance", {"case": case, "plain": True})
+                 for case in validate.CASES}
     # Phase 12's plain solves, a few seconds each: in groups, one process
     # each, after the others.
     p12_keys = list(p12_jobs)
@@ -2410,6 +2448,136 @@ def main(cleanup):
         (module, function, seed, q_.cpu().numpy(), v_.cpu().numpy(), p_, kw_)
         for module, function, seed, q_, v_, p_, kw_ in (p12_jobs[k] for k in group)])
         for group in p12_groups]
+
+    reports, build_s = build_future.result()
+    log(f"phase 2 build: {len(reports)} libraries in {build_s:.1f} s from "
+        f"ccvm_tpu_torch/csrc (dl_solve.cu, mf_solve.cu, langevin_solve.cu, "
+        f"dl_variants.cu, ccvm_common.cuh), beside the plain workers' start")
+    for s, rep in reports.items():
+        log(f"  {type(s).__name__} {s.tag()}: {build.kernel_report(rep)}")
+    # The DL specialisations' residency, as the card reports it, and the
+    # main path's spills, resident warps and waves.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (n, hp, noise, mma) in dl_cases.items():
+        blocks = dl_kernels.blocks_per_sm(n, noise_scale=1.0 if noise else 0.0,
+                                          hp=hp, mma=mma)
+        shape = build.dl_launch_shape(n, hp is not None, mma)
+        warps = blocks * shape.threads // 32
+        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
+        log(f"  {label} ({spec(n, hp, noise, mma).tag()}): {blocks} blocks per SM "
+            f"of {shape.threads} threads ({warps} warps), {shape.rows} trajectories "
+            f"and {shape.smem} bytes of shared memory a block; batch {MAIN_BATCH} "
+            f"is {waves:.3f} waves of {sms} SMs")
+        if label not in ("DL", "DL-Adam"):
+            continue
+        rep = reports.get(spec(n, hp, noise, mma))
+        spill = [ln for ln in (rep or "").splitlines() if "spill" in ln]
+        if rep is None:
+            log(f"  {label}: built before this run, its ptxas report not read")
+        elif not all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in spill):
+            failures.append(f"{label} spills: {spill}")
+        if label == "DL-Adam" and warps < 16:
+            failures.append(f"DL-Adam keeps {warps} warps per SM resident, not 16")
+        if label == "DL" and waves / -(-waves // 1) < 0.9:
+            failures.append(f"DL's grid fills {waves:.3f} waves, not whole ones within 10%")
+    # The MF specialisations' residency as the card reports it; the main
+    # path's three hold no spills, at least 16 warps per SM and whole waves
+    # within 10%.
+    for label, (hp, noise) in mf_builds.items():
+        blocks = mf_kernels.blocks_per_sm(N, noise_scale=1.0 if noise else 0.0, hp=hp)
+        shape = build.mf_launch_shape(N, hp is not None)
+        warps = blocks * -(-shape.threads // 32)
+        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
+        rep = reports.get(mf_spec(hp, noise))
+        log(f"  {label} ({mf_spec(hp, noise).tag()}): "
+            f"{build.kernel_report(rep) if rep else 'built before this run'}; "
+            f"{blocks} blocks per SM of {shape.threads} threads ({warps} warps), "
+            f"{shape.rows} trajectories and {shape.smem} bytes of shared memory a "
+            f"block; batch {MAIN_BATCH} is {waves:.3f} waves of {sms} SMs")
+        if not noise:
+            continue
+        if rep is not None and "0 bytes spill stores, 0 bytes spill loads" not in \
+                build.kernel_report(rep):
+            failures.append(f"{label} spills: {build.kernel_report(rep)}")
+        if warps < 16:
+            failures.append(f"{label} keeps {warps} warps per SM resident, not 16")
+        if waves / -(-waves // 1) < 0.9:
+            failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
+                            f"within 10%")
+    # The Langevin family's residency as the card reports it; every
+    # specialisation holds no spills, the main path's four (noise on) the
+    # blocks per SM that the launch rule plans (two of 4 warps at N=70: its
+    # wide thread tile takes up to 255 registers) and whole waves within 10%.
+    for label, (pumped, hp, noise) in lgv_builds.items():
+        blocks = langevin_kernels.blocks_per_sm(
+            N, pumped=pumped, noise_scale=1.0 if noise else 0.0, hp=hp)
+        shape = build.langevin_launch_shape(N, hp is not None)
+        warps = blocks * shape.threads // 32
+        waves = build.waves(MAIN_BATCH, shape._replace(blocks_per_sm=blocks), sms)
+        rep = reports.get(lgv_spec(pumped, hp, noise))
+        log(f"  {label} ({lgv_spec(pumped, hp, noise).tag()}): "
+            f"{build.kernel_report(rep) if rep else 'built before this run'}; "
+            f"{blocks} blocks per SM of {shape.threads} threads ({warps} warps), "
+            f"{shape.rows} trajectories and {shape.smem} bytes of shared memory a "
+            f"block; batch {MAIN_BATCH} is {waves:.3f} waves of {sms} SMs")
+        if rep is not None and "0 bytes spill stores, 0 bytes spill loads" not in \
+                build.kernel_report(rep):
+            failures.append(f"{label} spills: {build.kernel_report(rep)}")
+        if not noise:
+            continue
+        if blocks != shape.blocks_per_sm:
+            failures.append(f"{label} keeps {blocks} blocks per SM resident, not "
+                            f"{shape.blocks_per_sm}")
+        if waves / -(-waves // 1) < 0.9:
+            failures.append(f"{label}'s grid fills {waves:.3f} waves, not whole ones "
+                            f"within 10%")
+    # Phase 14's builds: registers, spills and residency (the waves of a
+    # study sweep, 50 x 1000 rows); no Langevin-family build may spill.
+    for label, (fam, n) in study_builds.items():
+        if fam == "MF":
+            blocks = mf_kernels.blocks_per_sm(n)
+            shape = build.mf_launch_shape(n, False)
+        else:
+            blocks = langevin_kernels.blocks_per_sm(n, pumped=fam == "pumped")
+            shape = build.langevin_launch_shape(n, False)
+        rep = reports.get(study_spec(fam, n))
+        report = build.kernel_report(rep) if rep else "built before this run"
+        waves = 50 * build.waves(1000, shape._replace(blocks_per_sm=blocks), sms)
+        log(f"  {label} ({study_spec(fam, n).tag()}): {report}; {blocks} blocks per SM "
+            f"of {shape.threads} threads, {shape.rows} trajectories and {shape.smem} bytes "
+            f"of shared memory a block; 50 x 1000 rows are {waves:.3f} waves of {sms} SMs")
+        if fam != "MF" and rep is not None and \
+                "0 bytes spill stores, 0 bytes spill loads" not in report:
+            failures.append(f"{label} spills: {report}")
+    # Phase 12's and 15's builds: registers, spills and residency; no
+    # Langevin-family build of phase 12 may spill (the per-element builds
+    # read S from global memory and are reported: speed is later work).
+    for kname, noise, cols, seg, *elem in feature_builds:
+        elem = bool(elem and elem[0])
+        fs = feature_spec(kname, noise, cols, seg, elem)
+        family, hp = kname.split("_")[0], main_hp[kname]
+        ns = 1.0 if noise else 0.0
+        if family == "dl":
+            blocks = dl_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=cols, seg=seg,
+                                              elem=elem)
+            shape = build.dl_launch_shape(N, hp is not None, True, cols)
+        elif family == "mf":
+            blocks = mf_kernels.blocks_per_sm(N, noise_scale=ns, hp=hp, cols=bool(cols),
+                                              seg=seg, elem=elem)
+            shape = build.mf_launch_shape(N, hp is not None, bool(cols))
+        else:
+            blocks = langevin_kernels.blocks_per_sm(
+                N, pumped=family == "pumped", noise_scale=ns, hp=hp, cols=bool(cols),
+                seg=seg, elem=elem)
+            shape = build.langevin_launch_shape(N, hp is not None, bool(cols))
+        rep = reports.get(fs)
+        report = build.kernel_report(rep) if rep else "built before this run"
+        log(f"  {kname} noise {int(noise)} cols {cols} seg {int(seg)} elem {int(elem)} "
+            f"({fs.tag()}): {report}; {blocks} blocks per SM of {shape.threads} threads, "
+            f"{shape.smem} bytes of shared memory a block")
+        if family in ("langevin", "pumped") and not elem and rep is not None and \
+                "0 bytes spill stores, 0 bytes spill loads" not in report:
+            failures.append(f"{kname} (cols {cols}, seg {int(seg)}) spills: {report}")
 
     def plain_result(key):
         """A worker's plain outputs, back on the card, and its seconds."""
@@ -2583,26 +2751,17 @@ def main(cleanup):
         f"plain| = {err:.3e}")
     assert success_band_ok(perf[0], perf[1], 4096), "MF success probabilities disagree"
 
-    # tools/tpu_validate.py's N=20 instance: the readout as its façades give
-    # it without post-processing; every gap's probability of both sides is
-    # printed, P(0.1%), P(1%) and P(10%) among them.
-    for label in ("DL-Adam N=20", "MF N=20", "MF-Adam N=20"):
-        out, ref, err, plain_s = stats_pair(label)
-        inst20 = jobs["phase 5", label][3]
-        if label.startswith("DL"):
-            cv20 = ("boxqp", *inst20.solution_bounds, VALIDATE_DL["S"])
-            energies = [inst20.compute_energy_readout64(c, change_vars=cv20)
-                        for c in (out[0], ref[0])]
-        else:
-            lo20, hi20 = inst20.solution_bounds
-            energies = [inst20.compute_energy_readout64(v20_solver["mf"].change_variables(
-                mt, lo20, hi20, VALIDATE_MF["S"])) for mt in (out[1], ref[1])]
-        perf = [performance(inst20, e, 4096) for e in energies]
-        log(f"phase 5 {label} statistics (tools/tpu_validate.py's instance and "
-            f"parameters): batch 4096, {ITERATIONS} steps, plain version {plain_s:.2f} s "
-            f"in a worker, max |kernel - plain| = {err:.3e}")
-        assert success_band_ok(perf[0], perf[1], 4096), \
-            f"{label} success probabilities disagree"
+    # The N=20 DL-Adam case with popcount16: the readout as the façade gives
+    # it without post-processing.
+    out, ref, err, plain_s = stats_pair("DL-Adam N=20")
+    cv20 = ("boxqp", *v20.solution_bounds, 1.0)
+    perf = [performance(v20, v20.compute_energy_readout64(c, change_vars=cv20), 4096)
+            for c in (out[0], ref[0])]
+    log(f"phase 5 DL-Adam N=20 statistics (tools/tpu_validate.py's instance and DL "
+        f"parameters, popcount16): batch 4096, {ITERATIONS} steps, plain version "
+        f"{plain_s:.2f} s in a worker, max |kernel - plain| = {err:.3e}")
+    assert success_band_ok(perf[0], perf[1], 4096), \
+        "DL-Adam N=20 success probabilities disagree"
 
     for family in lgv_cls:
         ck, cr, err, plain_s = stats_pair(family)
@@ -2624,8 +2783,9 @@ def main(cleanup):
     for group, future in zip(p12_groups, p12_futures):
         for key, (arrays, seconds) in zip(group, future.result()):
             p12_plain[key] = [torch.from_numpy(a).cuda() for a in arrays]
+    v_plain = {case: future.result() for case, future in v_futures.items()}
     pool.close()
-    log(f"phase 5 workers: {len(jobs)} plain solves at full depth in {workers} "
+    log(f"phase 5 workers: {len(jobs) + len(v_plain)} plain solves at full depth in {workers} "
         f"processes, all ended {time.perf_counter() - t_pool:.1f} s after the first "
         f"started")
 
@@ -3379,6 +3539,13 @@ def main(cleanup):
     for k in ("dl_solve", "mf_solve", "langevin_solve", "pumped_langevin_solve"):
         assert launched16[k] > 0, launched16
 
+    log(f"phase 17 starts {time.perf_counter() - t_start:.1f} s into the run")
+    # 17. the native host I/O library, evolution files, the validation tool
+    # and the DL breakdown
+    launched17 = native_phase(reports, dl_probe_rows, v_plain, counters, failures)
+    assert launched17 == only(**{k: launched17[k] for k in main_hp}), launched17
+    assert all(launched17[k] > 0 for k in main_hp), launched17
+
     log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
     # 11. bench_torch.py, in a child process that is waited for and killed
     # if the run fails
@@ -3413,7 +3580,8 @@ def main(cleanup):
             {"6": row["launches"], "10": launched_pp[name_],
              "11": launched_bench[name_], "12": launched12[name_],
              "13": launched13[name_], "14": launched14[name_],
-             "15": launched15[name_], "16": launched16[name_]})
+             "15": launched15[name_], "16": launched16[name_],
+             "17": launched17[name_]})
     kernels += mesh_result["rows"]
     assert not failures, failures
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

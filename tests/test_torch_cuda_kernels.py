@@ -1038,3 +1038,31 @@ def test_row_base_launches_with_a_per_element_s(cuda_instance, family):
     halves = [h if isinstance(h, tuple) else (h,) for h in halves]
     for w, a, b in zip(whole, *halves):
         assert torch.equal(w, torch.cat([a, b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adam", [False, True])
+def test_dl_probe_without_matvec_equals_plain_solve_with_zero_q(adam):
+    """``breakdown --family dl``'s probe build without its matvecs
+    (csrc/dl_solve.cu ``CCVM_MATVEC=0``), given the scaled Size70 Q, equals
+    a plain DL solve with Q = 0: noise off, 300 steps, batch 1024, at TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpreter")
+    from ccvm_tpu_torch.tools import breakdown
+
+    q, v, params = breakdown.dl_problem("cuda")
+    hp = AdamParameters().to_hyperparameters() if adam else None
+    spec = breakdown.DLProbeSpec(*dl_kernels._spec(70, hp, 0.0, "popcount16", True),
+                                 matvec=False)
+    p = params(300)
+    c = torch.empty((1, 1024, 70), device="cuda")
+    s = torch.empty_like(c)
+    q1, v1 = q[None].contiguous(), v[None].contiguous()
+    assert breakdown.launch_dl(build.load(spec), q1, v1, p, hp, 0.0, c, s) == 0
+    cr, sr = dl_kernels.dl_solve_reference(
+        100, torch.zeros_like(q), v, p, iterations=300, batch_size=1024,
+        pump_rate_flag=True, pump_is_gt_one=float(p.pump) > 1, noise_scale=0.0, hp=hp)
+    torch.cuda.synchronize()
+    assert torch.isfinite(c).all() and c.abs().max().item() > 0
+    assert (c[0] - cr).abs().max().item() <= TOL
+    assert (s[0] - sr).abs().max().item() <= TOL

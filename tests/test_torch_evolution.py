@@ -5,7 +5,9 @@ The noise is off on both sides as the façade files do it: ``g=0`` for DL,
 ``sigma=0`` for the Langevin family, and for MF ``common.normal`` patched to
 zeros on the JAX side and ``noise_scale=0`` on the port's.  Samples agree
 to rtol 1e-4 (atol 1e-5 where a sample is near 0), the evolution files
-(rounded to 4 decimals) to atol 2e-4, and objective values to rtol 1e-4.
+(rounded to 4 decimals) to atol 2e-4, and objective values to rtol 1e-4;
+the port's file equals, byte for byte, what the JAX package's writer writes
+of the port's samples.
 
 Inside the port, with the noise on: a solve cut into segments equals the
 whole solve bit for bit, for all eight plain versions (the kernels' own
@@ -30,6 +32,7 @@ from ccvm_tpu import LangevinSolver as JLangevinSolver
 from ccvm_tpu import MFSolver as JMFSolver
 from ccvm_tpu import ProblemInstance as JProblemInstance
 from ccvm_tpu import PumpedLangevinSolver as JPumpedLangevinSolver
+from ccvm_tpu import native as jnative
 from ccvm_tpu.dynamics import common as jcommon
 from ccvm_tpu_torch import (AdamParameters, DLSolver, LangevinSolver, MFSolver,
                             ProblemInstance, PumpedLangevinSolver)
@@ -38,6 +41,7 @@ from ccvm_tpu_torch.dynamics.langevin import LangevinParams
 from ccvm_tpu_torch.dynamics.mf import MFParams
 from ccvm_tpu_torch.dynamics.pumped_langevin import PumpedLangevinParams
 from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
+from jax_native_loader import jax_native_library
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEST020 = os.path.join(REPO, "tests", "data", "test020.in")
@@ -100,9 +104,10 @@ def solve_pair(family, tmp_path, adam=False, batch=32, solver_kwargs=None,
     return out
 
 
-def assert_samples_agree(family, pair):
+def assert_samples_agree(family, pair, tmp_path):
     """Each sample stack ((batch, n, samples), on the port's device) and the
-    evolution file of the two façades."""
+    evolution file of the two façades, and the port's file against the JAX
+    package's writer on the port's samples (in ``tmp_path``)."""
     (jsolver, jsol), (tsolver, tsol) = pair
     for name in FAMILIES[family][5]:
         t, j = getattr(tsolver, name), np.asarray(getattr(jsolver, name))
@@ -115,6 +120,19 @@ def assert_samples_agree(family, pair):
     # The same rows, and the same trailing tab (MF's writer has none).
     assert len(t_lines) == len(j_lines)
     assert [ln.endswith("\t") for ln in t_lines] == [ln.endswith("\t") for ln in j_lines]
+    # Byte for byte, the port's file is what the JAX package's writer (its
+    # C++ path, which writes -0.0 as 0.0 and rounds half away from zero)
+    # writes of the same samples: the best trajectory's blocks.  (The two
+    # façades' samples part by round-off, which can move a fourth decimal.)
+    assert jax_native_library() is not None
+    best = int(np.argmax(-np.asarray(tsol.objective_values)))
+    jax_written = tmp_path / f"jax_writer_{family}.txt"
+    with open(jax_written, "w") as f:
+        for name in FAMILIES[family][5]:
+            jnative.write_sample_rows(f, getattr(tsolver, name)[best].numpy(),
+                                      append_trailing_tab=family != "mf")
+    with open(tsol.evolution_file, "rb") as tf:
+        assert tf.read() == jax_written.read_bytes()
 
 
 def assert_objectives_agree(pair, rtol=1e-4):
@@ -133,7 +151,7 @@ def test_evolution_sampling_matches_jax(noise_off, tmp_path, family, adam, step)
     divides 200 and 300, 70 does not), the samples, the file and the
     objective values."""
     pair = solve_pair(family, tmp_path, adam=adam, evolution_step_size=step)
-    assert_samples_agree(family, pair)
+    assert_samples_agree(family, pair, tmp_path)
     assert_objectives_agree(pair)
     iterations = FAMILIES[family][2][20]["iterations"]
     num = iterations // step + 1 + (iterations % step != 0)
@@ -152,7 +170,7 @@ def test_evolution_sampling_with_a_post_processor(noise_off, tmp_path, family,
     (Adam's first step, BFGS's line search: tests/test_torch_dl_solver.py)."""
     pair = solve_pair(family, tmp_path, evolution_step_size=70,
                       post_processor=post_processor)
-    assert_samples_agree(family, pair)
+    assert_samples_agree(family, pair, tmp_path)
     assert_objectives_agree(pair, rtol={"adam": 1e-4, "bfgs": 2e-3}.get(
         post_processor, 1e-4))
     assert pair[1][1].pp_time > 0

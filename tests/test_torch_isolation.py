@@ -46,6 +46,8 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import ccvm_tpu_torch.parallel.multihost, ccvm_tpu_torch.tools.tune_benchmark_set;"
         "import ccvm_tpu_torch.parallel.mesh, ccvm_tpu_torch.parallel.tp;"
         "import ccvm_tpu_torch.tools.multihost_smoke;"
+        "import ccvm_tpu_torch.native, ccvm_tpu_torch.tools.validate;"
+        "import ccvm_tpu_torch.tools.breakdown;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -119,7 +121,9 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
             os.path.join("parallel", "mesh.py"), os.path.join("parallel", "tp.py"),
             os.path.join("tools", "multihost_smoke.py"),
             os.path.join("tools", "tune_benchmark_set.py"),
-            "tuning.py", "checkpoint.py", "profiling.py"} <= scanned
+            "tuning.py", "checkpoint.py", "profiling.py",
+            os.path.join("native", "__init__.py"), os.path.join("tools", "validate.py"),
+            os.path.join("tools", "breakdown.py")} <= scanned
     for path in _port_python_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -127,6 +131,31 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
         offenders += [f"{rel}:{line}:{name}" for name, line, _ in _imports(tree)
                       if _foreign(name, path)]
     assert not offenders, offenders
+
+
+def test_native_library_is_the_ports_own_source_and_builds_at_first_use_only():
+    """ccvm_tpu_torch/native/ccvm_io.cpp includes only system headers (no
+    source of the JAX package), the loader builds it from under
+    ccvm_tpu_torch/ into build/native, and importing the package and its
+    tools builds nothing: with no compiler on PATH the imports pass and no
+    library is loaded."""
+    from ccvm_tpu_torch import native
+
+    assert native.SOURCE == os.path.join(PKG, "native", "ccvm_io.cpp")
+    assert native.BUILD_DIR == os.path.join(REPO, "build", "native")
+    assert native.library_path().startswith(native.BUILD_DIR + os.sep)
+    with open(native.SOURCE) as f:
+        includes = re.findall(r'#include\s*([<"][^>"]+[>"])', f.read())
+    assert includes and all(inc.startswith("<") for inc in includes), includes
+    code = ("import sys, ccvm_tpu_torch, ccvm_tpu_torch.native as n;"
+            "import ccvm_tpu_torch.problem_classes.boxqp.problem_instance;"
+            "import ccvm_tpu_torch.solvers.base, ccvm_tpu_torch.tools.validate;"
+            "import ccvm_tpu_torch.tools.breakdown;"
+            "sys.exit(0 if n._LIB is None else 1)")
+    env = dict(os.environ, PYTHONPATH=REPO, PATH="")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_entry_point_scripts_import_neither_jax_nor_ccvm_tpu():

@@ -177,7 +177,7 @@ def test_per_variable_s_mesh_tune_and_backend_raise(family):
     """A 1-D S of the problem's size now runs and matches the JAX façade
     (more in tests/test_torch_per_variable_s.py); a mesh runs now
     (tests/test_torch_mesh.py) and what is not a DeviceMesh raises; a
-    backend other than "auto" still raises naming its ROADMAP item; tune runs
+    backend other than "auto" raises DLSolver's and MFSolver's ValueError; tune runs
     (tests/test_torch_tuning.py) and, as the JAX package's, needs a
     parameter key first."""
     jcls, tcls, params, _ = FAMILIES[family]
@@ -191,7 +191,7 @@ def test_per_variable_s_mesh_tune_and_backend_raise(family):
         tcls(device="cpu", mesh=object())
     with pytest.raises(ValueError, match="Set solver.parameter_key before tuning"):
         tcls(device="cpu").tune([])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match='backend must be "auto"'):
         tcls(device="cpu", backend="pallas")
 
 

@@ -103,7 +103,7 @@ def test_per_element_s_with_evolution_sampling(noise_off, tmp_path, family):  # 
     kwargs, pkey = _with_s(family, element_s(S_VECTORS[family]))
     pair = solve_pair(family, tmp_path, batch=BATCH, solver_kwargs=kwargs, params=pkey,
                       evolution_step_size=100)
-    assert_samples_agree(family, pair)
+    assert_samples_agree(family, pair, tmp_path)
     _objectives_agree(pair)
 
 
