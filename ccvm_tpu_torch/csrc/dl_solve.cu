@@ -31,7 +31,9 @@
 //
 // The template has two matvecs (MMA, chosen at build time):
 //
-// MMA = 1, the tensor-core design that ops/dl_kernels.py launches:
+// MMA = 1, the tensor-core design that ops/dl_kernels.py launches (its
+// matvec, the first three points, is ccvm_mma.cuh's, which the race
+// harness's variants in dl_variants.cu share):
 //   * one warp owns 8 trajectories for ALL iterations.  Its m16n8k8 tile
 //     stacks them: rows 0-7 are their c, rows 8-15 their s, so each Q
 //     fragment feeds both matvecs.  Lane (g = lane/4, t = lane%4) holds
@@ -132,7 +134,8 @@
 // matvec and the next input, once each).
 //
 // Philox, the Wiener transforms, the clip and the CUDA-core launch shape are
-// shared with the other kernels through ccvm_common.cuh.  Specialisations
+// shared with the other kernels through ccvm_common.cuh, the tensor-core
+// matvec with dl_variants.cu through ccvm_mma.cuh.  Specialisations
 // (the template parameters) are chosen at build time with -D flags by
 // ccvm_tpu_torch/ops/build.py; each build exports ccvm_dl_solve and
 // ccvm_dl_blocks_per_sm.
@@ -142,6 +145,7 @@
 #include <string.h>
 
 #include "ccvm_common.cuh"
+#include "ccvm_mma.cuh"
 
 // Probe of ccvm_tpu_torch/tools/breakdown.py (--family dl), never set by the
 // solvers' builds: CCVM_MATVEC 0 takes both matvecs of the tensor-core
@@ -260,24 +264,6 @@ __device__ __forceinline__ void element_step(
 
 // ---------------------------------------------------------------- MMA = 1
 
-// x rounded to TF32 (low 13 bits zero) to nearest with ties away, as
-// cvt.rna.tf32.f32 rounds a finite x: half a unit added to the magnitude's
-// bits, then truncated.  Two integer instructions; the cvt's own sequence
-// also screens Inf and NaN, which Q and the clipped state never hold.
-__device__ __forceinline__ float tf32_round(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
-// d += a (16x8, row-major) * b (8x8, column-major), TF32 in, fp32 out.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         float b0, float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
-        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
-
 // n-tiles of c and s that a lane keeps in registers: none for DL; for
 // DL-Adam the first four, the rest in shared memory beside its moments (at
 // N=70 all of c, s and the moments in shared memory would need 263 KB for 16
@@ -302,16 +288,6 @@ __host__ __device__ constexpr long long mma_smem_floats(int nt, int warps,
          4LL * own_float4s(nt, adam) * 32 * warps;
 }
 
-// The lane's trajectory row and its lane id, from the ids read anew: values
-// the compiler cannot carry across the step loop, where they would spill.
-__device__ __forceinline__ unsigned lane_row(unsigned& ln) {
-  unsigned tx, bx;
-  asm volatile("mov.u32 %0, %%laneid;" : "=r"(ln));
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tx));
-  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(bx));
-  return bx * (blockDim.x / 4) + (tx >> 5) * 8 + (ln >> 2);
-}
-
 // The feedback's offset of a column (of an element, with a per-element S):
 // fbscale = 0.25 span/S_d times (u+l) times Q's column sum (midsum), plus
 // g3 = V span/(2 S_d).  Every build takes it by this expression, so that
@@ -322,9 +298,8 @@ __device__ __forceinline__ float feedback_offset(float fbscale, float midsum, fl
 }
 
 // acc[j] = (x_c @ Q, x_s @ Q) at the lane's columns of n-tile j: k-tile kt's
-// A fragments are built from the lane's state z_of(kt) (its own
-// accumulator-layout tile), split into TF32 hi and lo; each Q fragment is one
-// 16-byte load (hi, hi, lo, lo).
+// A fragment is built from the lane's state z_of(kt) (its own
+// accumulator-layout tile) and run through ccvm_mma.cuh's mma_ktile.
 // With COLS == 2 the x scale is the column's, xsc[8kt+2t+h] (with a
 // per-element S, xsc is the lane's row of span/S_ij in global memory).
 template <int NT, int COLS, class ZOf>
@@ -340,20 +315,7 @@ __device__ __forceinline__ void matvec(float (&acc)[NT][4],
     float2 xs = make_float2(p.xscale, p.xscale);
     if (COLS == 2) xs = *reinterpret_cast<const float2*>(xsc + 8 * kt + 2 * (lane & 3));
     const float x[4] = {z.x * xs.x, z.z * xs.x, z.y * xs.y, z.w * xs.y};
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float hi = tf32_round(x[r]);
-      ah[r] = __float_as_uint(hi);
-      al[r] = __float_as_uint(tf32_round(x[r] - hi));
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float4 b = qf[(kt * NT + nt) * 32 + lane];
-      mma_tf32(acc[nt], al, b.x, b.y);
-      mma_tf32(acc[nt], ah, b.z, b.w);
-      mma_tf32(acc[nt], ah, b.x, b.y);
-    }
+    mma_ktile<NT>(acc, qf, kt, lane, x);
   }
 }
 
@@ -382,17 +344,8 @@ __device__ __forceinline__ void dl_mma_body(
   const size_t elem_rows = (size_t)gridDim.x * (blockDim.x / 4) * NP;
   float* elem_off = cols + (2 + (size_t)inst) * elem_rows;
 
-  // Q's B fragments with k permuted: slot t is row 8kt+2t, slot t+4 row
-  // 8kt+2t+1; zero-padded to NP x NP.
   const float* qi = q + (size_t)inst * n * n;
-  for (int e = tid; e < NT * NT * 32; e += blockDim.x) {
-    const int L = e & 31, f = e >> 5;
-    const int k0 = 8 * (f / NT) + 2 * (L & 3), col = 8 * (f % NT) + (L >> 2);
-    const float b0 = (k0 < n && col < n) ? qi[k0 * n + col] : 0.0f;
-    const float b1 = (k0 + 1 < n && col < n) ? qi[(k0 + 1) * n + col] : 0.0f;
-    const float h0 = tf32_round(b0), h1 = tf32_round(b1);
-    qf[e] = make_float4(h0, h1, tf32_round(b0 - h0), tf32_round(b1 - h1));
-  }
+  load_q_fragments<NT>(qf, qi, n, tid);
   // x = z*span/S_d + (u+l) splits x @ Q into (z*span/S_d) @ Q, on the tensor
   // cores, and (u+l) * (column sums of Q), once per block in fp32: the mma
   // accumulates the centred part only, whose smaller sums lose less to its

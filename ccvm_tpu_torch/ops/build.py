@@ -183,20 +183,21 @@ class DLVariantSpec(NamedTuple):
     the race harness's v2 or v3 DL step."""
 
     v3: bool
-    fuse: bool  # both matvecs in one pass over Q
+    fuse: bool  # c and s stacked in one m16 tile, each Q fragment feeding both
     unroll: int  # steps per outer iteration
     noise: bool
     rng: int  # index into ops.philox.HARNESS_RNG_NAMES
+    nt: int = 9  # n-tiles of 8 columns, ceil(N / 8)
 
     source = "dl_variants.cu"
     symbol = "ccvm_dl_variant"
-    argtypes = _HEAD + [ctypes.c_void_p] * 2 + _TAIL  # c, s
+    argtypes = _HEAD + [ctypes.c_void_p] * 3 + _TAIL  # step table, c, s
     defines = _defines
 
     def tag(self):
-        # Lettered, since unroll may take two digits.
+        # Lettered, since unroll and nt may take two digits.
         return (f"v{3 if self.v3 else 2}f{int(self.fuse)}u{self.unroll}"
-                f"n{int(self.noise)}r{self.rng}")
+                f"n{int(self.noise)}r{self.rng}t{self.nt}")
 
 
 def launch_shape(n: int, x_arrays: int, kernel: str):
@@ -270,6 +271,28 @@ def dl_launch_shape(n: int, adam: bool, mma: bool = True, cols: int = 0) -> Laun
     smem = fixed + warps * per_warp
     blocks = min(want_blocks, SM_SMEM // (smem + _BLOCK_RESERVED_SMEM))
     return LaunchShape(8 * warps, 32 * warps, smem, np_, blocks)
+
+
+def variant_launch_shape(n: int, fuse: bool) -> LaunchShape:
+    """The launch rule of csrc/dl_variants.cu (``variant_launch_shape``
+    there): 64 trajectories a block, as 8 warps of 8 with ``fuse`` (c and s
+    stacked in one m16 tile, at most 128 registers) or 4 warps of 16 without
+    (a c tile and an s tile, up to 255 registers); N padded to a multiple of
+    8 (at most 16 n-tiles).  The block holds Q's 3xTF32 fragments (8 NP^2
+    bytes), the per-column offsets (4 NP) and each lane's state, 16 bytes
+    per n-tile and float4 of c and s (nt float4s with ``fuse``, 2 nt
+    without): the same bytes either way.  Two blocks per SM where shared
+    memory allows.  Raises when N does not fit."""
+    np_ = -(-n // 8) * 8
+    nt = np_ // 8
+    warps = 8 if fuse else 4
+    smem = 8 * np_ * np_ + 4 * np_ + 16 * (nt if fuse else 2 * nt) * 32 * warps
+    if nt > _MAX_NT or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"problem size N={n} does not fit the DL variant kernel: it takes N <= "
+            f"{8 * _MAX_NT} and {smem} bytes of shared memory (limit {SMEM_LIMIT})")
+    blocks = min(2, SM_SMEM // (smem + _BLOCK_RESERVED_SMEM))
+    return LaunchShape(64, 32 * warps, smem, np_, blocks)
 
 
 _MF_THREADS = 288  # csrc/mf_solve.cu kThreads

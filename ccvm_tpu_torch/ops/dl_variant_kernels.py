@@ -16,6 +16,17 @@ always take S_d = sqrt(pump-1).  The noise is the Philox words of
 ``philox.HARNESS_RNGS``; ``noise_scale`` exists so the kernels can be held
 noise-off (0 elides the generator).
 
+The kernels run the production DL kernel's tensor-core design (3xTF32
+``mma.sync`` through ``csrc/ccvm_mma.cuh``, two blocks per SM, 64
+trajectories a block): ``fuse_matvec`` stacks a warp's 8
+trajectories' c and s in one m16 tile; without it a warp owns 16
+trajectories in a c tile and an s tile, two passes over Q (v3 always).  v2's
+mma takes x as written and v3's c and s themselves
+(``tools/tc_model.py --family variants`` holds both schemes on the CPU).
+The wrapper hands the kernel its per-step scalars in a table
+(:func:`_step_table`) and its per-solve constants (:func:`_scalars`), both
+by the plain version's own float32 operations.
+
 Each plain version mirrors its own kernel's order of operations (v2 scales
 the draw before ``diff``, v3 after; v3 sums ``c^2 + s^2`` once), so noise
 off the two agree to float32 round-off and noise on they draw the same
@@ -101,6 +112,56 @@ dl_v2.launches = 0
 dl_v3.launches = 0
 
 
+def _spec(v3, fuse, unroll, noise_scale, rng_name, n):
+    noise = float(noise_scale) != 0.0
+    return build.DLVariantSpec(
+        v3=v3, fuse=bool(fuse), unroll=int(unroll), noise=noise,
+        rng=philox.HARNESS_RNG_NAMES.index(rng_name) if noise else 0, nt=-(-n // 8))
+
+
+def blocks_per_sm(spec, n):
+    """Blocks of a variant specialisation (a :class:`build.DLVariantSpec`)
+    the card keeps resident per SM at problem size ``n``
+    (``ccvm_dl_variant_blocks_per_sm``); builds it if needed."""
+    rows = build.variant_launch_shape(n, spec.fuse).rows
+    fn = build.load(spec, "ccvm_dl_variant_blocks_per_sm",
+                    [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    err = fn(n, rows, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ccvm_dl_variant_blocks_per_sm failed: cudaError_t {err}")
+    return blocks.value
+
+
+def _scalars(pv, noise_scale):
+    """The kernel's per-solve constants in float32, in ``VariantScalars``
+    order: S, dt, noise_scale, 2g, S_d, span, mid, span/S_d, 0.25 span/S_d
+    and v3's qs = (0.25 span/S_d) (span/S_d), as the plain version takes
+    them."""
+    pump, S, dt, _, _, g, lo, hi, _ = (np.float32(x) for x in pv)
+    S_d = np.sqrt(pump - np.float32(1.0))
+    span, mid = hi - lo, hi + lo
+    sc = span / S_d
+    alpha = np.float32(0.25) * span / S_d
+    values = [S, dt, np.float32(noise_scale), np.float32(2.0) * g, S_d, span, mid, sc,
+              alpha, alpha * sc]
+    return (ctypes.c_float * len(values))(*(float(x) for x in values))
+
+
+def _step_table(pv, iterations, device):
+    """The kernel's per-step scalars, (iterations, 4) float32 on ``device``,
+    by the plain version's own float32 operations: fs (0.5 + rate), pump
+    rate, sqrt(dt) nr_i and sqrt(dt) / nr_i, row i for step i."""
+    pump, _, dt, noise_ratio, fs, _, _, _, T = (
+        torch.tensor(float(x), dtype=torch.float32, device=device) for x in pv)
+    fi1 = torch.arange(1, int(iterations) + 1, dtype=torch.float32, device=device)
+    rate = fi1 / T
+    nr_i = (noise_ratio - 1.0) * torch.exp(-fi1 / T * 3.0) + 1.0
+    sqrt_dt = torch.sqrt(dt)
+    return torch.stack([fs * (0.5 + rate), pump * rate, sqrt_dt * nr_i, sqrt_dt / nr_i],
+                       dim=1).contiguous()
+
+
 def _launch(v3, seed, q_matrix, v_vector, pv, *, iterations, batch_size,
             rng_name, fuse_matvec, unroll, noise_scale):
     if q_matrix.device.type != "cuda":
@@ -109,24 +170,18 @@ def _launch(v3, seed, q_matrix, v_vector, pv, *, iterations, batch_size,
     q = (q_matrix if stacked else q_matrix[None]).contiguous()
     v = (v_vector if stacked else v_vector[None]).contiguous()
     num_instances, n = q.shape[0], q.shape[-1]
-    # Q and two state arrays per block, as the production DL kernel.
-    rows, _, _ = build.launch_shape(n, 2, "DL variant")
-    noise = float(noise_scale) != 0.0
-    spec = build.DLVariantSpec(
-        v3=v3, fuse=bool(fuse_matvec), unroll=int(unroll), noise=noise,
-        rng=philox.HARNESS_RNG_NAMES.index(rng_name) if noise else 0,
-    )
-    launch = build.load(spec)
+    rows = build.variant_launch_shape(n, fuse_matvec).rows
+    launch = build.load(_spec(v3, fuse_matvec, unroll, noise_scale, rng_name, n))
     c = torch.empty((num_instances, batch_size, n), dtype=torch.float32,
                     device=q.device)
     s = torch.empty_like(c)
-    scalars = (ctypes.c_float * 10)(*pv.tolist(), float(np.float32(noise_scale)))
     with torch.cuda.device(q.device):
+        steps = _step_table(pv, iterations, q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(
-            q.data_ptr(), v.data_ptr(), c.data_ptr(), s.data_ptr(),
+            q.data_ptr(), v.data_ptr(), steps.data_ptr(), c.data_ptr(), s.data_ptr(),
             num_instances, int(batch_size), n, int(iterations),
-            int(seed) % 2**64, scalars, rows, stream,
+            int(seed) % 2**64, _scalars(pv, noise_scale), rows, stream,
         )
     if err != 0:
         name = "dl_v3" if v3 else "dl_v2"
@@ -153,7 +208,11 @@ def dl_v3_reference(seed, q_matrix, v_vector, params_vec, *, iterations,
 
 
 def _reference(v3, seed, q_matrix, v_vector, params_vec, iterations,
-               batch_size, rng_name, noise_scale):
+               batch_size, rng_name, noise_scale, *, matvec=torch.matmul):
+    """The plain solve of either variant; ``matvec(x, Q)`` computes each
+    step's two products (the plain one, ``torch.matmul`` in full float32,
+    by default; ``ccvm_tpu_torch/tools/tc_model.py`` passes models of the
+    kernel's tensor-core products)."""
     stacked = q_matrix.ndim == 3
     q = q_matrix if stacked else q_matrix[None]
     v = (v_vector if stacked else v_vector[None])[:, None, :]
@@ -187,14 +246,14 @@ def _reference(v3, seed, q_matrix, v_vector, params_vec, iterations,
             c_pow = torch.square(c)
             s_pow = torch.square(s)
             if v3:
-                fb_c = torch.matmul(c, q) * qs
-                fb_s = torch.matmul(s, q) * qs
+                fb_c = matvec(c, q) * qs
+                fb_s = matvec(s, q) * qs
                 sum_pow = c_pow + s_pow
                 c_drift = -fs_dyn * (fb_c + fb0) + (-1.0 + pr - sum_pow) * c
                 s_drift = -fs_dyn * (fb_s + fb0) + (-1.0 - pr - sum_pow) * s
             else:
-                fb_c = 0.25 * torch.matmul(c * sc + mid, q) * sc
-                fb_s = 0.25 * torch.matmul(s * sc + mid, q) * sc
+                fb_c = 0.25 * matvec(c * sc + mid, q) * sc
+                fb_s = 0.25 * matvec(s * sc + mid, q) * sc
                 c_drift = -fs_dyn * (fb_c + g3) + (-1.0 + pr - c_pow - s_pow) * c
                 s_drift = -fs_dyn * (fb_s + g3) + (-1.0 - pr - c_pow - s_pow) * s
             c_new = c + dt * c_drift

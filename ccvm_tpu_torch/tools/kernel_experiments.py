@@ -39,9 +39,10 @@ from ccvm_tpu_torch.runtime import resolve_device
 I1, I2 = 400_000, 2_000_000
 
 # (label, kernel, keyword arguments): the JAX harness's rows and labels,
-# then the fused-matvec knob, then the DL kernel with its fp32 CUDA-core
-# matvec (csrc/dl_solve.cu's MMA = 0, :func:`cuda_core_dl_solve`) and as it
-# ships (3xTF32 on the tensor cores, ``dl_kernels.dl_solve``).
+# then the fused-matvec knob, the unroll knob's base (one step a loop
+# iteration, as production runs), then the DL kernel with its fp32
+# CUDA-core matvec (csrc/dl_solve.cu's MMA = 0, :func:`cuda_core_dl_solve`)
+# and as it ships (3xTF32 on the tensor cores, ``dl_kernels.dl_solve``).
 ROWS = (
     ("v2 popcount1 fuse0 unroll8 (prev best)", "v2",
      dict(rng_name="popcount1", fuse_matvec=False, unroll=8)),
@@ -49,10 +50,14 @@ ROWS = (
       for unroll in (8, 16) for rng_name in ("popcount1", "popcount2")),
     ("v2 popcount1 fuse1 unroll8", "v2",
      dict(rng_name="popcount1", fuse_matvec=True, unroll=8)),
+    ("v2 popcount1 fuse1 unroll1", "v2",
+     dict(rng_name="popcount1", fuse_matvec=True, unroll=1)),
+    ("v3 popcount1 unroll1", "v3", dict(rng_name="popcount1", unroll=1)),
     ("dl_solve CUDA-core matvec popcount16 (clip)", "cuda-core", {}),
     ("production dl_solve popcount16 (clip)", "production", {}),
 )
 LABELS = tuple(label for label, _, _ in ROWS)
+CUDA_CORE, PRODUCTION = LABELS[-2:]
 
 # (knob, base row, changed row): each knob's effect is the changed row's
 # median us/step less the base row's.
@@ -63,10 +68,28 @@ KNOBS = (
     ("popcount2 against popcount1, unroll 16", LABELS[3], LABELS[4]),
     ("unroll 16 against 8, popcount1", LABELS[1], LABELS[3]),
     ("unroll 16 against 8, popcount2", LABELS[2], LABELS[4]),
-    ("production against v2 fused", LABELS[5], LABELS[7]),
-    ("CUDA-core dl_solve against v2 fused", LABELS[5], LABELS[6]),
-    ("tensor-core matvec (3xTF32 against CUDA cores)", LABELS[6], LABELS[7]),
+    ("unroll 8 against 1, v2 fused", LABELS[6], LABELS[5]),
+    ("unroll 8 against 1, v3 popcount1", LABELS[7], LABELS[1]),
+    ("production against v2 fused", LABELS[5], PRODUCTION),
+    ("CUDA-core dl_solve against v2 fused", LABELS[5], CUDA_CORE),
+    ("tensor-core matvec (3xTF32 against CUDA cores)", CUDA_CORE, PRODUCTION),
 )
+
+
+def knobs_against_production(label):
+    """The knobs in which a v2 / v3 row of :data:`ROWS` differs from the
+    production kernel, as text: both run the 3xTF32 tensor-core design of
+    ``csrc/dl_solve.cu``, which draws popcount16, stacks a warp's c and s
+    in one m16 tile, runs one step a loop iteration, centres x and clips
+    every step."""
+    kind, kw = next((k, w) for lb, k, w in ROWS if lb == label)
+    knobs = [f"{kw['rng_name']} (production popcount16)"]
+    if not kw.get("fuse_matvec", False):
+        knobs.append("a c tile and an s tile, two passes over Q (production stacks them)")
+    knobs.append(f"unroll {kw['unroll']} (production 1)")
+    knobs.append("Q prescaled, c and s the mma's A" if kind == "v3" else "x as written")
+    knobs.append("no per-step clip")
+    return "; ".join(knobs)
 
 
 def harness_problem(n: int):

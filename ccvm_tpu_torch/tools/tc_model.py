@@ -32,6 +32,15 @@ batch, the tuned Adam parameters); ``--deep`` adds phase 7's 15,000 steps
 for the schemes it names, and ``--schemes`` holds only the schemes it
 names.  Each Langevin reading is the largest difference
 and the count of elements over chip_smoke's PARITY_TOL (1e-4).
+
+``--family variants`` holds the DL race harness's two variants
+(``ops/dl_variant_kernels.py``, csrc/dl_variants.cu) as their kernels
+compute the matvec, DL's one truncating 3xTF32 chain
+(:data:`VARIANT_SCHEMES`): v2 with its x as written and centred, and v3,
+whose matvec takes c and s themselves; noise off, at the scaled N=70
+instance (``--batch``, 304 steps) and at the harness's problem (n 20, 296
+steps).  Which A operand v2's kernel takes (:data:`V2_SCHEME`) was chosen
+here.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import time
 import torch
 
 from ccvm_tpu_torch.dynamics import common
+from ccvm_tpu_torch.runtime import resolve_device
 
 
 def tf32(x):
@@ -368,20 +378,106 @@ def langevin_main(args):
             print(f"  {label}: " + " / ".join(row), flush=True)
 
 
+# The race variants' schemes: (variant, matvec of the box midpoint u+l).
+# v2's x = z span/S_d + (u+l) lies about u+l; centred, the mma takes
+# z span/S_d and (u+l) times Q's column sums is added in fp32, as the DL
+# kernel does.  v3's matvec takes z itself, centred by construction.
+VARIANT_SCHEMES = {
+    "v2, x as written (uncentred)": ("v2", lambda mid: matvec_3xtf32_truncating),
+    "v2, x centred": ("v2", lambda mid: centred(matvec_3xtf32_truncating, mid)),
+    "v3, z itself": ("v3", lambda mid: matvec_3xtf32_truncating),
+}
+# The scheme of v2's kernel (csrc/dl_variants.cu), and of v3's.  v2 would
+# centre only if x as written missed PARITY_TOL at a check of
+# :func:`variant_problems`; it does not (about twice the centred scheme's
+# difference, a quarter of the tolerance), so v2's kernel keeps the TPU
+# kernel's x.
+V2_SCHEME = "v2, x as written (uncentred)"
+V3_SCHEME = "v3, z itself"
+
+
+def variant_problems(device, batch=64):
+    """The race variants' noise-off checks: (Q, V, params_vec, batch,
+    steps) by name: the scaled Size70 instance with DL's tuned N=70
+    parameters (g 0.05, as chip_smoke.py's phase 8) and the harness's own
+    problem and parameters at n 20."""
+    import numpy as np
+
+    from ccvm_tpu_torch import DLSolver, ProblemInstance
+    from ccvm_tpu_torch.tools.kernel_experiments import harness_params, harness_problem
+
+    path = os.path.join(_repo(), "examples", "benchmarking_instances", "Size70",
+                        "tuningH070-100-0.in")
+    inst = ProblemInstance(device=device, instance_type="tuning", file_path=path)
+    solver = DLSolver(device=device)
+    inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
+    solver.solution_bounds = inst.solution_bounds
+    with open(os.path.join(_repo(), "examples", "tuned_parameters.json")) as f:
+        t = json.load(f)["dl"]["70"]
+    steps = 304
+    p = solver._make_params(t["pump"], 1.0, t["dt"], t["noise_ratio"],
+                            t["feedback_scale"], 0.05, steps)
+    hq, hv = (torch.from_numpy(x).to(device) for x in harness_problem(20))
+    return {
+        f"N=70 instance (batch {batch}, {steps} steps)":
+            (inst.q_matrix, inst.v_vector, np.array(list(p)[:9], np.float32), batch, steps),
+        f"harness problem (n 20, batch {batch}, 296 steps)":
+            (hq, hv, harness_params(296), batch, 296),
+    }
+
+
+def variant_difference(problem, scheme, seed=0):
+    """Largest difference over (c, s) between a race variant's plain solve
+    with the scheme's matvec (a name of :data:`VARIANT_SCHEMES`) and its
+    fp32 plain solve, noise off, on ``problem`` (of :func:`variant_problems`)."""
+    from ccvm_tpu_torch.ops import dl_variant_kernels as dv
+
+    q, v, pv, batch, steps = problem
+    variant, make = VARIANT_SCHEMES[scheme]
+    mid = float(pv[6] + pv[7])  # u + l
+
+    def run(**kw):
+        return dv._reference(variant == "v3", seed, q, v, pv, steps, batch, "popcount1",
+                             0.0, **kw)
+
+    plain = run()
+    model = run(matvec=make(mid))
+    for x in model:
+        assert torch.isfinite(x).all()
+    return max((a - b).abs().max().item() for a, b in zip(model, plain))
+
+
+def variants_main(args):
+    name = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    print(f"race-variant schemes against the fp32 plain solve on {name}, noise off: "
+          f"max |model - plain| over (c, s); the kernels take {V2_SCHEME!r} and "
+          f"{V3_SCHEME!r}", flush=True)
+    for check, problem in variant_problems(args.device, args.batch).items():
+        t = time.perf_counter()
+        errs = {scheme: variant_difference(problem, scheme) for scheme in VARIANT_SCHEMES}
+        print(f" {check} ({time.perf_counter() - t:.1f} s):", flush=True)
+        for scheme, err in errs.items():
+            print(f"  {scheme}: {err:.3e} ({'within' if err <= PARITY_TOL else 'over'} "
+                  f"{PARITY_TOL})", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cpu")
-    ap.add_argument("--batch", type=int, default=65536,
-                    help="phase 7's batch (the main path's)")
-    ap.add_argument("--family", choices=("mf", "langevin"), default="mf")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="phase 7's batch (the main path's, 65536); variants: 64")
+    ap.add_argument("--family", choices=("mf", "langevin", "variants"), default="mf")
     ap.add_argument("--deep", nargs="*", default=[],
                     help="Langevin: the schemes (labels of LANGEVIN_SCHEMES) also "
                          "held over phase 7's 15,000 steps")
     ap.add_argument("--schemes", nargs="*", default=[],
                     help="Langevin: hold only these schemes (default: all)")
     args = ap.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("tc_model: no CUDA card")
+    resolve_device(args.device)
+    if args.batch is None:
+        args.batch = 64 if args.family == "variants" else 65536
+    if args.family == "variants":
+        return variants_main(args)
     if args.family == "langevin":
         return langevin_main(args)
     problem = mf_problem(args.device)

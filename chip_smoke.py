@@ -58,9 +58,10 @@ exits non-zero without printing a result:
    against its plain version (same seed, so the same noise), for the JSON
    line printed after phase 8 with each kernel's launches, time, bound,
    plain time (and the steps it covers) and largest error against its
-   plain version.  The bound of DL and DL-Adam is that of their 3xTF32
-   tensor-core matvecs beside the CUDA cores' elementwise work, and their
-   fp32 CUDA-core bound is a second column (``bound_fp32_ms``); MF, MF-Adam
+   plain version.  The bound of DL and DL-Adam (and of phase 8's dl_v2 and
+   dl_v3) is that of their 3xTF32 tensor-core matvecs beside the CUDA cores'
+   elementwise work, and their fp32 CUDA-core bound is a second column
+   (``bound_fp32_ms``); MF, MF-Adam
    and the Langevin family, whose matvecs stay on the fp32 CUDA cores, have
    the fp32 bound and, beside it, the bound a 3xTF32 matvec would have
    (``bound_3xtf32_ms``) and a 4xTF32 one (``bound_4xtf32_ms``); each
@@ -86,10 +87,13 @@ exits non-zero without printing a result:
    the race itself, ``race_rounds("cuda", ...)``, once at the harness's
    shape and MAIN_RACE_ROUNDS times at the main shape (row order reversed
    every other round; median, range and each knob's effect, the tensor-core
-   matvec among them), with the launch counts zeroed before and read after,
-   and production's median at the main shape held at or below v2 fuse1's;
-   and the dl_v2 / dl_v3 rows of the kernels line (time at the main shape,
-   plain time and hold over 1,000 steps);
+   matvec among them), with the launch counts zeroed before and read after;
+   every v2 / v3 row's median at the main shape held below the CUDA-core
+   dl_solve row's (the variants run production's tensor-core design), and a
+   row that beats production beyond the rounds' spread printed as a finding
+   with its knobs; and the dl_v2 / dl_v3 rows of the kernels line (time at
+   the main shape against the 3xTF32 bound and the fp32 one, plain time and
+   hold over 1,000 steps); the phase prints its seconds;
 9. DL and DL-Adam at the other bundled sizes (N = 30, 40, 50, 60; the
    first .in of each examples/benchmarking_instances/SizeNN), batch 1000,
    noise off, 300 steps, each against its plain version at PARITY_TOL (their
@@ -353,7 +357,7 @@ PEAKS = (("PCIe", 51.2e12, 2.0e12, 378e12), ("NVL", 60.0e12, 3.9e12, 417.5e12),
 # Kernels whose matvecs run as 3xTF32 on the tensor cores (three TF32
 # products per fp32 product) beside their elementwise work on the fp32 CUDA
 # cores.
-TENSOR_CORE_KERNELS = ("dl_solve", "dl_adam_solve")
+TENSOR_CORE_KERNELS = ("dl_solve", "dl_adam_solve", "dl_v2", "dl_v3")
 # Each Adam kernel's time against its plain kernel's at the main-path shape
 # (phase 7): at most this.
 ADAM_OVER_PLAIN = 1.5
@@ -1994,7 +1998,7 @@ def main(cleanup):
                                 Solution)
     from ccvm_tpu_torch.dynamics.common import langevin_change_variables
     from ccvm_tpu_torch.ops import (build, dl_kernels, dl_variant_kernels,
-                                    langevin_kernels, mf_kernels, philox)
+                                    langevin_kernels, mf_kernels)
     from ccvm_tpu_torch.post_processor import PostProcessorGradDescent
     from ccvm_tpu_torch.tools import breakdown, kernel_experiments, validate
     from ccvm_tpu_torch.tools.tc_model import PARITY_TOL
@@ -2141,17 +2145,23 @@ def main(cleanup):
         "on": [(False, False, 8, "popcount1"), (False, True, 8, "popcount1"),
                (False, False, 8, "popcount2"), (True, False, 8, "popcount1"),
                (True, False, 8, "popcount2"), (True, False, 16, "popcount1"),
-               (True, False, 16, "popcount2")],
+               (True, False, 16, "popcount2"), (False, True, 1, "popcount1"),
+               (True, False, 1, "popcount1")],
     }
 
-    def variant_spec(v3, fuse, unroll, rng_name):
-        noise = rng_name is not None
-        return build.DLVariantSpec(
-            v3, fuse, unroll, noise,
-            philox.HARNESS_RNG_NAMES.index(rng_name) if noise else 0)
+    def variant_spec(v3, fuse, unroll, rng_name, n=N):
+        return dl_variant_kernels._spec(v3, fuse, unroll, 0.0 if rng_name is None else 1.0,
+                                        rng_name or "popcount1", n)
 
-    specs += [variant_spec(*case) for cases in variant_cases.values()
-              for case in cases]
+    variant_specs = [variant_spec(*case) for cases in variant_cases.values()
+                     for case in cases]
+    # ... and at the race's own shape (n 20): each race row, noise off and on.
+    variant_specs += [variant_spec(kind == "v3", kw.get("fuse_matvec", False), kw["unroll"],
+                                   rng_name, 20)
+                      for _, kind, kw in kernel_experiments.ROWS if kind in ("v2", "v3")
+                      for rng_name in (None, kw["rng_name"])]
+    variant_specs = list(dict.fromkeys(variant_specs))
+    specs += variant_specs
     # Phase 16's one-step builds (CCVM_EXT), noise on and off; one library
     # serves every N.
     for family, adam, _ in STEP_KERNELS.values():
@@ -2480,6 +2490,18 @@ def main(cleanup):
             failures.append(f"DL-Adam keeps {warps} warps per SM resident, not 16")
         if label == "DL" and waves / -(-waves // 1) < 0.9:
             failures.append(f"DL's grid fills {waves:.3f} waves, not whole ones within 10%")
+    # The race variants' residency (phase 8), as the card reports it: at
+    # N=70 two blocks of 64 trajectories an SM, as the production DL kernel.
+    for vs in variant_specs:
+        n = N if vs.nt == -(-N // 8) else 20
+        blocks = dl_variant_kernels.blocks_per_sm(vs, n)
+        shape = build.variant_launch_shape(n, vs.fuse)
+        log(f"  DL variant {vs.tag()} at n {n}: {blocks} blocks per SM of {shape.threads} "
+            f"threads, {shape.rows} trajectories and {shape.smem} bytes of shared memory "
+            f"a block")
+        if n == N and blocks != shape.blocks_per_sm:
+            failures.append(f"DL variant {vs.tag()} keeps {blocks} blocks per SM resident, "
+                            f"not {shape.blocks_per_sm}")
     # The MF specialisations' residency as the card reports it; the main
     # path's three hold no spills, at least 16 warps per SM and whole waves
     # within 10%.
@@ -3240,13 +3262,27 @@ def main(cleanup):
                 log(f"  {kernel_experiments.format_effect(effect)}")
     log(f"phase 8 race launches: {launched}, and the CUDA-core matvec's "
         f"{kernel_experiments.cuda_core_dl_solve.launches}")
+    # The variants run production's tensor-core design: each v2 / v3 row's
+    # median at the main shape must be below the CUDA-core dl_solve row's
+    # (the old design's level); a row that beats production beyond the
+    # rounds' spread is a finding, printed with the knobs that differ.
     main_rows = {r["label"]: r for r in races[list(race_shapes)[-1]]}
-    prod, fused = (main_rows[label]["us_per_step"] for label in
-                   ("production dl_solve popcount16 (clip)", "v2 popcount1 fuse1 unroll8"))
-    log(f"phase 8 production dl_solve {prod:.4f} us/step against v2 fuse1's "
-        f"{fused:.4f} at the main shape (medians)")
-    if prod > fused:
-        failures.append(f"production dl_solve {prod} us/step above v2 fuse1's {fused}")
+    core, prod = (main_rows[label] for label in (kernel_experiments.CUDA_CORE,
+                                                 kernel_experiments.PRODUCTION))
+    for label, kind, _ in kernel_experiments.ROWS:
+        if kind not in ("v2", "v3"):
+            continue
+        row = main_rows[label]
+        log(f"phase 8 {label}: {row['us_per_step']:.4f} us/step against the CUDA-core "
+            f"dl_solve row's {core['us_per_step']:.4f} and production's "
+            f"{prod['us_per_step']:.4f} at the main shape (medians)")
+        if row["us_per_step"] > core["us_per_step"]:
+            failures.append(f"{label} {row['us_per_step']} us/step above the CUDA-core "
+                            f"dl_solve row's {core['us_per_step']}")
+        if max(row["us_rounds"]) < min(prod["us_rounds"]):
+            log(f"phase 8 finding: {label} beats production beyond the rounds' spread, by "
+                f"{prod['us_per_step'] - row['us_per_step']:.4f} us/step; its knobs "
+                f"against production's: {kernel_experiments.knobs_against_production(label)}")
 
     # Kernels line: full-depth time, 1,000-step plain time and hold.
     for kname, v3 in (("dl_v2", False), ("dl_v3", True)):
@@ -3263,6 +3299,7 @@ def main(cleanup):
         hold(kname, kname, err, f"phase 8 main-path shape, {EARLIER_PLAIN_DEPTH} steps,",
              defer=True)
         b_ms, b_by = bound_ms(kname, MAIN_BATCH, N, ITERATIONS, name)
+        fp32_ms = bound_ms(kname, MAIN_BATCH, N, ITERATIONS, name, tensor_cores=False)[0]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "ccvm_tpu_torch/csrc/dl_variants.cu",
@@ -3270,12 +3307,15 @@ def main(cleanup):
             "launches": launches[kname], "max_abs_err": max_err[kname],
             "ms": min(times), "plain_ms": plain_ms,
             "plain_iterations": EARLIER_PLAIN_DEPTH,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": fp32_ms,
+            "library_ms": None,
         })
         log(f"phase 8 {kname} (popcount1, unroll 8{'' if v3 else ', fuse 0'}): kernel "
             f"{min(times):.1f} ms (reps {times}), plain {plain_ms:.1f} ms over "
-            f"{EARLIER_PLAIN_DEPTH} steps, bound {b_ms:.1f} ms ({b_by}) at batch "
-            f"{MAIN_BATCH}, N={N}, {ITERATIONS} steps")
+            f"{EARLIER_PLAIN_DEPTH} steps, bound {b_ms:.1f} ms ({b_by}, 3xTF32 tensor "
+            f"cores beside the CUDA cores), {100 * b_ms / min(times):.1f}% of it; fp32 "
+            f"CUDA-core bound {fp32_ms:.1f} ms, {100 * fp32_ms / min(times):.1f}% of it; at "
+            f"batch {MAIN_BATCH}, N={N}, {ITERATIONS} steps")
     log(f"phase 8 DL race harness: {time.perf_counter() - t8:.1f} s")
 
     log(f"phase 9 starts {time.perf_counter() - t_start:.1f} s into the run")

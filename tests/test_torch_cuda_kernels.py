@@ -509,9 +509,10 @@ def variant_problem():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no interpreter")
     build.build([
-        build.DLVariantSpec(variant == "v3", fuse, unroll, noise, rng)
+        build.DLVariantSpec(variant == "v3", fuse, unroll, noise, rng, nt)
         for variant, fuse, unroll in _VARIANTS
         for noise, rng in [(False, 0)] + [(True, r) for r in range(3)]
+        for nt in (3, 9)
     ])
     inst = ProblemInstance(device="cuda", file_path=INSTANCE, instance_type="test")
     inst.scale_coefs(DLSolver(device="cuda").get_scaling_factor(inst.q_matrix))
@@ -542,6 +543,31 @@ def test_dl_variant_kernels_match_plain(variant_problem, variant, fuse, unroll,
     torch.cuda.synchronize()
     assert ck.shape == sk.shape == (300, 20)
     assert torch.isfinite(ck).all() and torch.isfinite(sk).all()
+    assert (ck - cr).abs().max().item() <= TOL
+    assert (sk - sr).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_scale", [0.0, 1.0])
+@pytest.mark.parametrize("fuse", [False, True])
+def test_dl_variant_fused_and_two_pass_kernels_match_plain_at_n70(variant_problem, fuse,
+                                                                   noise_scale):
+    """Both tensor-core layouts at 9 n-tiles (N=70, the last one padded):
+    c and s stacked in one m16 tile (8 warps of 8 trajectories) and a c tile
+    and an s tile in two passes over Q (4 warps of 16); batch 300 leaves
+    each a ragged last block of 64."""
+    rng = np.random.default_rng(70)
+    q = rng.normal(size=(70, 70)).astype(np.float32) / 8.0
+    q = torch.from_numpy(0.5 * (q + q.T)).cuda()
+    v = torch.from_numpy(rng.normal(size=(70,)).astype(np.float32) / 8.0).cuda()
+    kw = dict(iterations=200, batch_size=300, rng_name="popcount1", unroll=8,
+              fuse_matvec=fuse, noise_scale=noise_scale)
+    ck, sk = dl_variant_kernels.dl_v2(4, q, v, harness_params(200), **kw)
+    cr, sr = dl_variant_kernels.dl_v2_reference(4, q, v, harness_params(200), **kw)
+    torch.cuda.synchronize()
+    assert ck.shape == sk.shape == (300, 70)
+    assert torch.isfinite(ck).all() and torch.isfinite(sk).all()
+    assert sk.abs().max().item() > 0.01
     assert (ck - cr).abs().max().item() <= TOL
     assert (sk - sr).abs().max().item() <= TOL
 

@@ -8,6 +8,12 @@ injected into the harness's RNG table.  Noise off, the port's plain versions
 must match them to atol 1e-5 on c and s, on the harness's parameters at
 n = 12, batch 16.  The noise itself cannot be compared (the TPU's stream is
 not replayable): the port's transforms are tested on Philox words instead.
+
+The kernels' 3xTF32 matvec is held here through its models
+(``ccvm_tpu_torch/tools/tc_model.py --family variants``) against the fp32
+plain version, which fixes the A operand each kernel takes, and the
+wrapper's step table and per-solve constants against the plain version's
+own float32 operations.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from ccvm_tpu_torch.dynamics.dl import DLParams
 from ccvm_tpu_torch.ops import dl_kernels, philox
 from ccvm_tpu_torch.ops import dl_variant_kernels as dv
 from ccvm_tpu_torch.tools import kernel_experiments as tke
+from ccvm_tpu_torch.tools import tc_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 12
@@ -214,6 +221,7 @@ def test_race_on_the_cpu_has_the_harness_rows_and_production(ke):
     jax_labels = ["v2 popcount1 fuse0 unroll8 (prev best)"] + [
         f"v3 {r} unroll{u}" for u in (8, 16) for r in ("popcount1", "popcount2")]
     assert labels == jax_labels + ["v2 popcount1 fuse1 unroll8",
+                                   "v2 popcount1 fuse1 unroll1", "v3 popcount1 unroll1",
                                    "dl_solve CUDA-core matvec popcount16 (clip)",
                                    "production dl_solve popcount16 (clip)"]
     for r in rows:
@@ -286,3 +294,66 @@ def test_race_cli_on_the_cpu_prints_every_row(monkeypatch, capsys):
     assert len(lines) == 1 + len(tke.ROWS)
     for line, label in zip(lines[1:], tke.LABELS):
         assert line.startswith(label) and "marginal" in line
+
+
+@pytest.fixture(scope="module")
+def scheme_problems():
+    return tc_model.variant_problems("cpu")
+
+
+@pytest.mark.parametrize("check", [0, 1], ids=["n70_instance", "harness_n20"])
+@pytest.mark.parametrize("scheme", list(tc_model.VARIANT_SCHEMES))
+def test_race_variant_tensor_core_schemes_hold_the_plain_version(scheme_problems, scheme,
+                                                                 check):
+    """Each model of a variant's 3xTF32 matvec (DL's one truncating mma
+    chain) against the fp32 plain solve, noise off: the scaled N=70
+    instance (batch 64, 304 steps) and the harness's problem (n 20, 296
+    steps), within the card's hold."""
+    problem = list(scheme_problems.values())[check]
+    err = tc_model.variant_difference(problem, scheme)
+    assert 0.0 < err <= tc_model.PARITY_TOL
+
+
+def test_v2_kernel_takes_x_as_written_and_v3_z_itself():
+    """The schemes csrc/dl_variants.cu computes: v2 centres only where x as
+    written misses the hold, which the test above shows it does not."""
+    assert tc_model.V2_SCHEME == "v2, x as written (uncentred)"
+    assert tc_model.V3_SCHEME == "v3, z itself"
+    assert tc_model.VARIANT_SCHEMES[tc_model.V2_SCHEME][0] == "v2"
+    source = open(os.path.join(REPO, "ccvm_tpu_torch", "csrc", "dl_variants.cu")).read()
+    assert "x = z*(span/S_d) + mid" in source
+
+
+def test_tc_model_defaults_to_the_card_and_runs_on_the_cpu_when_asked(capsys):
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        tc_model.main([])
+    tc_model.main(["--device", "cpu", "--family", "variants", "--batch", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    assert "on cpu" in lines[0]
+    assert sum("within" in ln for ln in lines) == 2 * len(tc_model.VARIANT_SCHEMES)
+
+
+def test_variant_step_table_and_scalars_are_the_plain_versions():
+    """The kernel reads each step's fs (0.5 + rate), pump rate and noise
+    factors from the wrapper's table and its per-solve constants from the
+    host, both by the plain version's own float32 operations: the same
+    values, bit for bit."""
+    pv = _params(40)
+    pv[3] = 10.0  # a noise ratio whose schedule moves
+    table = dv._step_table(pv, 30, "cpu")
+    assert table.shape == (30, 4) and table.dtype == torch.float32
+    pump, S, dt, noise_ratio, fs, g, lo, hi, T = (
+        torch.tensor(float(x), dtype=torch.float32) for x in pv)
+    for i in (0, 1, 17, 29):
+        fi1 = torch.full((), float(i) + 1.0, dtype=torch.float32)
+        rate = fi1 / T
+        nr_i = (noise_ratio - 1.0) * torch.exp(-fi1 / T * 3.0) + 1.0
+        want = [fs * (0.5 + rate), pump * rate, torch.sqrt(dt) * nr_i, torch.sqrt(dt) / nr_i]
+        assert torch.equal(table[i], torch.stack(want))
+    S_d = torch.sqrt(pump - 1.0)
+    span, mid = hi - lo, hi + lo
+    alpha = 0.25 * span / S_d
+    want = [S, dt, torch.tensor(0.5), 2.0 * g, S_d, span, mid, span / S_d, alpha,
+            alpha * (span / S_d)]
+    got = list(dv._scalars(pv, 0.5))
+    assert got == [float(x) for x in want]

@@ -551,7 +551,7 @@ def test_dl_variant_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     spec = build.DLVariantSpec(True, False, 16, True, 1)
     assert spec.defines() == ["-DCCVM_V3=1", "-DCCVM_FUSE=0", "-DCCVM_UNROLL=16",
-                              "-DCCVM_NOISE=1", "-DCCVM_RNG=1"]
+                              "-DCCVM_NOISE=1", "-DCCVM_RNG=1", "-DCCVM_NT=9"]
     monkeypatch.setattr(build, "library_path", lambda s: str(tmp_path / "x.so"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build([spec])
@@ -571,6 +571,25 @@ def test_dl_variant_libraries_are_named_by_spec_source_and_headers(monkeypatch, 
     with open(tmp_path / "ccvm_common.cuh", "a") as f:
         f.write("// edited\n")
     assert all(build.library_path(s) != p for s, p in zip(specs, before))
+
+
+def test_dl_variant_tag_and_library_change_with_the_n_tiles():
+    """The variants' tensor-core design is built per n-tile count, as the DL
+    kernel's: N=20 (3 n-tiles) and N=70 (9) are separate libraries."""
+    n20, n70 = (dl_variant_kernels._spec(False, True, 8, 1.0, "popcount1", n)
+                for n in (20, 70))
+    assert (n20.nt, n70.nt) == (3, 9) and n20._replace(nt=9) == n70
+    assert n20.tag() == "v2f1u8n1r0t3" and n70.tag() == "v2f1u8n1r0t9"
+    assert build.library_path(n20) != build.library_path(n70)
+    assert "-DCCVM_NT=3" in n20.defines() and "-DCCVM_NT=9" in n70.defines()
+    assert dl_variant_kernels._spec(True, False, 16, 0.0, "popcount2", 72).nt == 9
+    assert dl_variant_kernels._spec(True, False, 16, 0.0, "popcount2", 73).nt == 10
+    for fuse, threads in ((True, 256), (False, 128)):
+        shape = build.variant_launch_shape(70, fuse)
+        assert (shape.rows, shape.threads, shape.smem, shape.blocks_per_sm) == (
+            64, threads, 78624, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        build.variant_launch_shape(129, True)
 
 
 @pytest.mark.parametrize("name", ["dl_v2", "dl_v3"])
