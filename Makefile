@@ -1,4 +1,4 @@
-.PHONY: test bench docs build up exec down
+.PHONY: test bench docs docs-torch build up exec down
 
 test:
 	python -m pytest tests/ -q
@@ -8,6 +8,9 @@ bench:
 
 docs:
 	python tools/build_docs.py
+
+docs-torch:
+	python -m ccvm_tpu_torch.tools.build_docs
 
 build:
 	docker compose -f docker/docker-compose.yaml build

@@ -15,8 +15,8 @@ and nothing else of the port imports it.  ``parallel.sweep_solve`` solves
 many same-size instances in one stacked launch, ``tuning`` grid-searches a
 façade's parameters with it (each façade's ``tune``), ``checkpoint``
 snapshots and resumes a solve run as segment launches, and ``profiling``
-traces a run with ``torch.profiler``.  What is still to come is listed in
-ROADMAP.md.
+traces a run with ``torch.profiler``.  ``python -m
+ccvm_tpu_torch.tools.build_docs`` builds its documentation site.
 """
 
 __version__ = "0.1.0"

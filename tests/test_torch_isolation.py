@@ -47,7 +47,7 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
         "import ccvm_tpu_torch.parallel.mesh, ccvm_tpu_torch.parallel.tp;"
         "import ccvm_tpu_torch.tools.multihost_smoke;"
         "import ccvm_tpu_torch.native, ccvm_tpu_torch.tools.validate;"
-        "import ccvm_tpu_torch.tools.breakdown;"
+        "import ccvm_tpu_torch.tools.breakdown, ccvm_tpu_torch.tools.build_docs;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ccvm_tpu', 'pandas', 'matplotlib')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -60,6 +60,7 @@ def test_import_leaves_jax_ccvm_tpu_pandas_matplotlib_out():
 
 PLOTTING = os.path.join(PKG, "ccvmplotlib")
 BENCH = os.path.join(REPO, "bench_torch.py")
+BUILD_DOCS = os.path.join(PKG, "tools", "build_docs.py")
 SCRIPTS = os.path.join(REPO, "examples", "torch_port")
 SCRIPT_NAMES = ("benchmarking_study", "ccvm_boxqp_dl", "ccvm_boxqp_mf", "langevin_boxqp",
                 "pumped_langevin_boxqp", "ccvm_boxqp_plot", "tensor_parallel_boxqp")
@@ -74,11 +75,14 @@ def _port_python_sources():
     yield BENCH
 
 
-def _foreign(name, path):
+def _foreign(name, path, in_function):
     """jax and ccvm_tpu are foreign everywhere; pandas and matplotlib
-    everywhere but in the plotting package."""
+    everywhere but in the plotting package, and matplotlib but inside a
+    function of the documentation tool (its diagrams)."""
     head = name.split(".")[0]
     if head in ("pandas", "matplotlib"):
+        if head == "matplotlib" and path == BUILD_DOCS and in_function:
+            return False
         return not path.startswith(PLOTTING + os.sep)
     return head in ("jax", "jaxlib", "ccvm_tpu")
 
@@ -111,9 +115,10 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
     """No import statement, and no module name handed to importlib or
     __import__, names jax or ccvm_tpu (other than as ccvm_tpu_torch) in the
     port, chip_smoke.py or bench_torch.py, nor pandas or matplotlib outside
-    the plotting package ccvm_tpu_torch/ccvmplotlib/.  Citations of the JAX
-    package's files in comments are allowed: they say which TPU code each
-    part replaces."""
+    the plotting package ccvm_tpu_torch/ccvmplotlib/ (matplotlib also inside
+    a function of tools/build_docs.py, which draws the site's diagrams).
+    Citations of the JAX package's files in comments are allowed: they say
+    which TPU code each part replaces."""
     offenders = []
     scanned = {os.path.relpath(p, PKG) for p in _port_python_sources()}
     assert {os.path.join("parallel", "__init__.py"), os.path.join("parallel", "sweep.py"),
@@ -123,13 +128,14 @@ def test_sources_import_neither_jax_nor_ccvm_tpu():
             os.path.join("tools", "tune_benchmark_set.py"),
             "tuning.py", "checkpoint.py", "profiling.py",
             os.path.join("native", "__init__.py"), os.path.join("tools", "validate.py"),
-            os.path.join("tools", "breakdown.py")} <= scanned
+            os.path.join("tools", "breakdown.py"),
+            os.path.join("tools", "build_docs.py")} <= scanned
     for path in _port_python_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         rel = os.path.relpath(path, REPO)
-        offenders += [f"{rel}:{line}:{name}" for name, line, _ in _imports(tree)
-                      if _foreign(name, path)]
+        offenders += [f"{rel}:{line}:{name}" for name, line, in_function in _imports(tree)
+                      if _foreign(name, path, in_function)]
     assert not offenders, offenders
 
 
@@ -150,7 +156,7 @@ def test_native_library_is_the_ports_own_source_and_builds_at_first_use_only():
     code = ("import sys, ccvm_tpu_torch, ccvm_tpu_torch.native as n;"
             "import ccvm_tpu_torch.problem_classes.boxqp.problem_instance;"
             "import ccvm_tpu_torch.solvers.base, ccvm_tpu_torch.tools.validate;"
-            "import ccvm_tpu_torch.tools.breakdown;"
+            "import ccvm_tpu_torch.tools.breakdown, ccvm_tpu_torch.tools.build_docs;"
             "sys.exit(0 if n._LIB is None else 1)")
     env = dict(os.environ, PYTHONPATH=REPO, PATH="")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -273,22 +279,30 @@ def test_entry_point_commands_fail_without_a_card(tmp_path, command):
 def test_only_bench_torch_reaches_the_plotting_package_and_inside_a_function():
     """The plotting package (pandas, matplotlib) is imported by nothing else
     of the port, nor by chip_smoke.py; bench_torch.py imports it only inside
-    a function (its TTS column), so it starts on a host without pandas."""
-    offenders, bench_imports = [], []
+    a function (its TTS column), so it starts on a host without pandas.  The
+    documentation tool may import matplotlib, and hand the plotting
+    package's modules to importlib (its walk of the package), only inside a
+    function, so that importing it leaves both out."""
+    offenders, bench_imports, docs_imports = [], [], []
     for path in _port_python_sources():
         if path.startswith(PLOTTING + os.sep):
             continue
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for name, line, in_function in _imports(tree):
-            if not name.startswith("ccvm_tpu_torch.ccvmplotlib"):
+            plotting = name.startswith("ccvm_tpu_torch.ccvmplotlib")
+            if path == BUILD_DOCS and (plotting or name.split(".")[0] == "matplotlib"):
+                (docs_imports if in_function else offenders).append(
+                    f"{os.path.relpath(path, REPO)}:{line}:{name}")
+            elif not plotting:
                 continue
-            if path == BENCH and in_function:
+            elif path == BENCH and in_function:
                 bench_imports.append(name)
             else:
                 offenders.append(f"{os.path.relpath(path, REPO)}:{line}:{name}")
     assert not offenders, offenders
     assert bench_imports, "bench_torch.py's TTS column reads the plotting package"
+    assert docs_imports, "build_docs.py draws its diagrams with matplotlib"
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
