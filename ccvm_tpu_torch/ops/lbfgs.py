@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.runtime import fp32_matmul
 
 
@@ -88,6 +89,7 @@ def _step_length(x, f, g, d, t0, q_matrix, v_vector, lower, upper, max_backtrack
         ok = f_try <= f + 1e-4 * _dot(g, x_try - x)
         active = active & ~ok
         t = torch.where(active, t * 0.5, t)
+        profiling.count("host_syncs")
         if not bool(active.any()):
             break
     return t

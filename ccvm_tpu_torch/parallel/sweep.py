@@ -26,6 +26,7 @@ import time
 
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
 from ccvm_tpu_torch.ops.lbfgs import lbfgs_box_batch
@@ -34,6 +35,7 @@ from ccvm_tpu_torch.post_processor.adam import _adam_refine
 from ccvm_tpu_torch.post_processor.asgd import _asgd_refine
 from ccvm_tpu_torch.post_processor.grad_descent import _gd_refine
 from ccvm_tpu_torch.problem_classes.boxqp.problem_instance import stacked_readout64
+from ccvm_tpu_torch.runtime import synchronize as _synchronize
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.base import check_mesh, per_variable_saturation, saturation_of
 from ccvm_tpu_torch.solvers.langevin import algorithm_hyperparameters
@@ -110,11 +112,7 @@ def _instance_shard(mesh, num_instances):
     return axis_index(mesh, "batch") * per, per, axis_group(mesh, "batch")
 
 
-def _synchronize(x):
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-
-
+@profiling.annotate("ccvm.call")
 def sweep_solve(
     solver,
     instances,
@@ -193,6 +191,22 @@ def sweep_solve(
             pk["pump"], sat, pk["dt"], pk["noise_ratio"], pk["feedback_scale"],
             0.05 if g is None else g, iterations,
         )
+    elif cls == "MFSolver":
+        params = solver._make_params(
+            pk["pump"], sat, pk["dt"], pk["j"], pk["feedback_scale"],
+            0.01 if g is None else g, iterations,
+        )
+    elif cls == "LangevinSolver":
+        params = solver._make_params(sat, pk["dt"], pk["sigma"], pk["feedback_scale"])
+    else:
+        params = solver._make_params(
+            pk["pump"], sat, pk["dt"], pk["sigma"], pk["feedback_scale"], iterations,
+        )
+    # S goes to the card before the launch: a copy from the host's memory
+    # waits for the card's queue, so after the launch it would wait out the
+    # whole solve ahead of the explicit wait below.
+    S = saturation_of(params, qs.device)
+    if cls == "DLSolver":
         raw, s = dl_kernels.dl_solve(seed, qs, vs, params, pump_rate_flag=pump_rate_flag,
                                      pump_is_gt_one=bool(pk["pump"] > 1), **kw)
         # The reference applies change_variables again after post-processing
@@ -200,23 +214,14 @@ def sweep_solve(
         needs_final_cv = True
         extra_vars = {"s": s}
     elif cls == "MFSolver":
-        params = solver._make_params(
-            pk["pump"], sat, pk["dt"], pk["j"], pk["feedback_scale"],
-            0.01 if g is None else g, iterations,
-        )
         mu, raw, sigma = mf_kernels.mf_solve(seed, qs, vs, params,
                                              pump_rate_flag=pump_rate_flag, **kw)
         extra_vars = {"mu": mu, "sigma": sigma}
     elif cls == "LangevinSolver":
-        params = solver._make_params(sat, pk["dt"], pk["sigma"], pk["feedback_scale"])
         raw = langevin_kernels.langevin_solve(seed, qs, vs, params, **kw)
     else:
-        params = solver._make_params(
-            pk["pump"], sat, pk["dt"], pk["sigma"], pk["feedback_scale"], iterations,
-        )
         raw = langevin_kernels.pumped_langevin_solve(
             seed, qs, vs, params, pump_rate_flag=pump_rate_flag, **kw)
-    S = saturation_of(params, raw.device)
     if cls in ("LangevinSolver", "PumpedLangevinSolver"):
         pp_input = common.langevin_change_variables(raw, S)
     else:
@@ -229,10 +234,11 @@ def sweep_solve(
 
     pp_wall = 0.0
     if post_processor is not None:
-        t1 = time.time()
-        problem_variables = _refine(post_processor, pp_input, qs, vs, lo, hi)
-        _synchronize(problem_variables)
-        pp_wall = time.time() - t1
+        with profiling.annotate("ccvm.postprocess"):
+            t1 = time.time()
+            problem_variables = _refine(post_processor, pp_input, qs, vs, lo, hi)
+            _synchronize(problem_variables)
+            pp_wall = time.time() - t1
     elif needs_final_cv:
         # DL without post-processing: problem_variables are the raw amplitudes
         # (dl_solver.py:936-958).

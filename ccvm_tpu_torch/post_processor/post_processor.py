@@ -11,6 +11,8 @@ from enum import Enum
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
+
 
 class MethodType(str, Enum):
     BFGS = "bfgs"
@@ -50,6 +52,7 @@ class PostProcessor(ABC):
     def elapsed(start_time, result):
         """Seconds since ``start_time`` once ``result`` is computed (the card
         is synchronised first)."""
+        profiling.count("host_syncs")
         if result.is_cuda:
             torch.cuda.synchronize(result.device)
         return time.time() - start_time

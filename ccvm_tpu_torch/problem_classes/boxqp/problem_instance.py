@@ -26,6 +26,7 @@ import enum
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.native import fast_parse_matrix, load_library
 from ccvm_tpu_torch.runtime import fp32_matmul, put, validate_device
 
@@ -62,6 +63,7 @@ def _energy_and_bound(confs, q_matrix, v_vector, scaled_by):
     return torch.stack([e, a])
 
 
+@profiling.annotate("ccvm.readout")
 def stacked_readout64(instances, confs, q_matrices, v_vectors):
     """float64-grade readout of a stacked sweep
     (``ccvm_tpu/parallel/sweep.py:84-151``): (I, batch) float64 energies
@@ -75,6 +77,7 @@ def stacked_readout64(instances, confs, q_matrices, v_vectors):
     scales = torch.tensor([float(np.float32(inst.scaled_by)) for inst in instances],
                           dtype=torch.float32, device=confs.device)[:, None]
     both = _energy_and_bound(confs, q_matrices, v_vectors, scales)
+    profiling.count("host_syncs")
     both = both.cpu().numpy().astype(np.float64)
     e_all, abs_all = both[0], both[1]
     per_instance = []
@@ -86,6 +89,7 @@ def stacked_readout64(instances, confs, q_matrices, v_vectors):
                 e_all[i], inst.optimal_sol, n, abs_e=abs_all[i])))
     flat = np.concatenate([idx + i * batch for i, idx in enumerate(per_instance)])
     if flat.size:
+        profiling.count("host_syncs")
         rows = confs.reshape(num_instances * batch, n)[
             torch.as_tensor(flat, device=confs.device)].cpu().numpy()
         off = 0
@@ -149,6 +153,7 @@ def ambiguous_readout_rows(e, opt, n, abs_e=None, gap_margin=None, top_k=64):
     return near
 
 
+@profiling.annotate("ccvm.parse")
 def parse_instance_file(file_path: str, file_delimiter: str = "\t"):
     """Parse a ``.in`` file into host NumPy arrays + metadata dict.
 
@@ -267,6 +272,7 @@ class ProblemInstance:
         else:
             self._solution_bounds = bounds
 
+    @profiling.annotate("ccvm.load")
     def load_instance(
         self, device="cuda", instance_type="tuning", file_path=None,
         file_delimiter=None,
@@ -322,10 +328,12 @@ class ProblemInstance:
     def compute_energy_host64(self, confs):
         """Objective value in float64 on the host (readout precision), from
         the ORIGINAL (unscaled) coefficients.  Accepts any leading batch
-        dims."""
+        dims.  Counts ``rows64``, the rows it evaluates."""
         if isinstance(confs, torch.Tensor):
+            profiling.count("host_syncs")
             confs = confs.detach().cpu().numpy()
         x = np.asarray(confs, np.float64)
+        profiling.count("rows64", x.size // x.shape[-1])
         q64 = getattr(self, "_q64", None)
         if q64 is not None:
             q, v, scale = q64, self._v64, 1.0
@@ -337,6 +345,7 @@ class ProblemInstance:
         e = 0.5 * np.sum(x * qx, axis=-1) + x @ v
         return e * scale
 
+    @profiling.annotate("ccvm.readout")
     def compute_energy_readout64(self, confs, gap_margin=None, top_k=64,
                                  change_vars=None):
         """float64-grade readout energies with a device-side f32 first pass.
@@ -382,10 +391,12 @@ class ProblemInstance:
         scaled_by = float(np.float32(self.scaled_by))
         if gap_margin is None:
             raw = _energy_and_bound(confs, self.q_matrix, self.v_vector, scaled_by)
+            profiling.count("host_syncs")
             both = raw.cpu().numpy().astype(np.float64)
             e, abs_e = both[0], both[1]
         else:
             raw = _energy(confs, self.q_matrix, self.v_vector, scaled_by)
+            profiling.count("host_syncs")
             e = raw.cpu().numpy().astype(np.float64)
             abs_e = None
         near = ambiguous_readout_rows(
@@ -403,6 +414,7 @@ class ProblemInstance:
             e = np.maximum(e, e[idx].min())
         return e
 
+    @profiling.annotate("ccvm.scale")
     def scale_coefs(self, scaling_factor):
         """Divide problem coefficients by ``scaling_factor``; consecutive calls
         stack multiplicatively (reference ``:473-479``)."""
@@ -412,4 +424,6 @@ class ProblemInstance:
             sf = float(np.float32(scaling_factor))
         self.q_matrix = self.q_matrix / sf
         self.v_vector = self.v_vector / sf
+        if isinstance(sf, torch.Tensor):
+            profiling.count("host_syncs")
         self.scaled_by = self.scaled_by * float(sf)

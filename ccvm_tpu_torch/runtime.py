@@ -15,6 +15,8 @@ import enum
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
+
 
 class DeviceType(enum.Enum):
     """Devices usable by the solvers (reference ``ccvm_solver.py:8-12``)."""
@@ -47,6 +49,16 @@ def default_device() -> str:
     """The port's default device: "cuda", raising when no card is present."""
     resolve_device("cuda")
     return "cuda"
+
+
+def synchronize(x: torch.Tensor):
+    """Wait for the card that computes ``x``: a ``ccvm.sync`` span and one
+    ``host_syncs``, counted on "cpu" too, where there is nothing to wait
+    for."""
+    with profiling.annotate("ccvm.sync"):
+        profiling.count("host_syncs")
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
 
 
 def put(x, device: str) -> torch.Tensor:

@@ -13,6 +13,8 @@ from dataclasses import asdict, dataclass, field
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
+
 _GAP_THRESHOLDS = {
     "optimal": 0.1,
     "one_percent": 1,
@@ -30,6 +32,7 @@ def _is_array(x):
 
 def _to_numpy(x):
     if isinstance(x, torch.Tensor):
+        profiling.count("host_syncs")
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -61,6 +64,7 @@ class Solution:
     solution_performance: dict = None
     best_objective_value: float = None
 
+    @profiling.annotate("ccvm.statistics")
     def __post_init__(self):
         """Compute best objective and gap statistics (reference ``:65-85``)
         from one host copy of the objective values."""

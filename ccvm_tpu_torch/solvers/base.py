@@ -18,6 +18,7 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.native import write_sample_rows
 from ccvm_tpu_torch.runtime import resolve_device
@@ -58,6 +59,7 @@ def per_variable_saturation(S, problem_size, batch_size, device):
             f"S must be a scalar, ({problem_size},) or ({batch_size}, "
             f"{problem_size}), got shape {tuple(np.shape(S))}")
     S = common.saturation_tensor(S, device)
+    profiling.count("host_syncs")
     if bool((S == S[:1]).all()):
         return common.saturation(S[0])
     return S
@@ -232,6 +234,7 @@ class CCVMSolver(ABC):
         best = int(np.argmax(-np.asarray(objval)))
         with open(evolution_file, "w") as f:
             for block in blocks:
+                profiling.count("host_syncs")
                 write_sample_rows(f, block[best].cpu().numpy(),
                                   append_trailing_tab=append_trailing_tab)
 

@@ -15,10 +15,12 @@ import time
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import dl as dyn
 from ccvm_tpu_torch.ops import dl_kernels
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
+from ccvm_tpu_torch.runtime import synchronize
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
 from ccvm_tpu_torch.solvers.base import CCVMSolver, per_variable_saturation, saturation_of
@@ -285,6 +287,7 @@ class DLSolver(CCVMSolver):
         self.s_sample = self._device_sample_stack(s_samples, num_samples)
         return c, s
 
+    @profiling.annotate("ccvm.call")
     def __call__(
         self,
         instance,
@@ -373,18 +376,19 @@ class DLSolver(CCVMSolver):
             seed, params, iterations, pump_rate_flag, pump_is_gt_one,
             evolution_step_size=evolution_step_size, hp=hp,
         )
-        if self.timing == "sync" and c.is_cuda:
-            torch.cuda.synchronize(c.device)
+        if self.timing == "sync":
+            synchronize(c)
         solve_time = (time.time() - solve_time_start) / batch_size
 
         lo, hi = self.solution_bounds
         S = saturation_of(params, c.device)
         if post_processor_object is not None:
-            problem_variables = post_processor_object.postprocess(
-                self.change_variables(c, lo, hi, S),
-                self.q_matrix,
-                self.v_vector,
-            )
+            with profiling.annotate("ccvm.postprocess"):
+                problem_variables = post_processor_object.postprocess(
+                    self.change_variables(c, lo, hi, S),
+                    self.q_matrix,
+                    self.v_vector,
+                )
             pp_time = post_processor_object.pp_time / batch_size
         else:
             problem_variables = c

@@ -16,10 +16,12 @@ import time
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import langevin as dyn
 from ccvm_tpu_torch.ops import langevin_kernels, philox
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
+from ccvm_tpu_torch.runtime import synchronize
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
 from ccvm_tpu_torch.solvers.base import (CCVMSolver, per_variable_saturation,
@@ -54,9 +56,10 @@ def langevin_readout(solver, instance, c, params, post_processor_object, batch_s
         c, saturation_of(params, c.device))
     pp_time = 0.0
     if post_processor_object is not None:
-        problem_variables = post_processor_object.postprocess(
-            problem_variables, solver.q_matrix, solver.v_vector
-        )
+        with profiling.annotate("ccvm.postprocess"):
+            problem_variables = post_processor_object.postprocess(
+                problem_variables, solver.q_matrix, solver.v_vector
+            )
         pp_time = post_processor_object.pp_time / batch_size
     return problem_variables, pp_time, instance.compute_energy_readout64(
         problem_variables)
@@ -100,8 +103,8 @@ def langevin_family_call(solver, instance, parameter_names, make_params, solve,
         seed = np.random.SeedSequence().entropy % (2**31)
     iterations = values["iterations"]
     c = solve(int(seed), params, iterations, evolution_step_size, hp)
-    if solver.timing == "sync" and c.is_cuda:
-        torch.cuda.synchronize(c.device)
+    if solver.timing == "sync":
+        synchronize(c)
     # Per-instance normalized solve time (reference :704-708)
     solve_time = (time.time() - solve_time_start) / batch_size
 
@@ -337,6 +340,7 @@ class LangevinSolver(CCVMSolver):
         self.c_sample = self._device_sample_stack(samples, num_samples)
         return c
 
+    @profiling.annotate("ccvm.call")
     def __call__(
         self,
         instance,

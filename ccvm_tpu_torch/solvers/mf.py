@@ -14,10 +14,12 @@ import time
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import mf as dyn
 from ccvm_tpu_torch.ops import mf_kernels, philox
 from ccvm_tpu_torch.post_processor.factory import PostProcessorFactory
+from ccvm_tpu_torch.runtime import synchronize
 from ccvm_tpu_torch.solution import Solution
 from ccvm_tpu_torch.solvers.algorithms import AdamParameters
 from ccvm_tpu_torch.solvers.base import CCVMSolver, per_variable_saturation, saturation_of
@@ -271,6 +273,7 @@ class MFSolver(CCVMSolver):
         self.sigma_sample = self._device_sample_stack(sigma_samples, num_samples)
         return mu, mu_tilde, sigma
 
+    @profiling.annotate("ccvm.call")
     def __call__(
         self,
         instance,
@@ -342,8 +345,8 @@ class MFSolver(CCVMSolver):
             int(seed), params, iterations, pump_rate_flag,
             evolution_step_size=evolution_step_size, hp=hp,
         )
-        if self.timing == "sync" and mu_tilde.is_cuda:
-            torch.cuda.synchronize(mu_tilde.device)
+        if self.timing == "sync":
+            synchronize(mu_tilde)
         solve_time = (time.time() - solve_time_start) / batch_size
 
         lo, hi = self.solution_bounds
@@ -352,9 +355,10 @@ class MFSolver(CCVMSolver):
         problem_variables = self.change_variables(
             mu_tilde, lo, hi, saturation_of(params, mu_tilde.device))
         if post_processor_object is not None:
-            problem_variables = post_processor_object.postprocess(
-                problem_variables, self.q_matrix, self.v_vector,
-            )
+            with profiling.annotate("ccvm.postprocess"):
+                problem_variables = post_processor_object.postprocess(
+                    problem_variables, self.q_matrix, self.v_vector,
+                )
             pp_time = post_processor_object.pp_time / batch_size
         else:
             pp_time = 0.0

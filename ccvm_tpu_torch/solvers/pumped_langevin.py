@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ccvm_tpu_torch import profiling
 from ccvm_tpu_torch.dynamics import common
 from ccvm_tpu_torch.dynamics import pumped_langevin as dyn
 from ccvm_tpu_torch.ops import langevin_kernels
@@ -142,6 +143,7 @@ class PumpedLangevinSolver(CCVMSolver):
         self.c_sample = self._device_sample_stack(samples, num_samples)
         return c
 
+    @profiling.annotate("ccvm.call")
     def __call__(
         self,
         instance,

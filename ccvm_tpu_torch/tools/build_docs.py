@@ -127,6 +127,11 @@ DIFFERENCES = [
                "are built by ops/build.py with nvcc at first use into build/kernels, "
                "one library a specialisation, named by a hash of its sources: that "
                "is their cache."),
+    Difference("profiling", ("Timer", "Timer.__call__", "solve_rate"), "absent",
+               "Solution.solve_time is Timer's per-trajectory span, and solve_rate "
+               "divided one solve's span, not a rate over a window. The port's own "
+               "spans and counters (annotate, count, spans) record each layer of a "
+               "call while a profiler runs."),
     Difference("solvers.base", ("CCVMSolver.tune",), "parameters", _TUNER,
                added=("instances", "post_processor", "parameter_ranges", "kwargs")),
     Difference("solvers.dl", ("DLSolver.tune",), "inherited", _TUNER, base="CCVMSolver"),

@@ -158,9 +158,9 @@ exits non-zero without printing a result:
    within TUNE_BEST_RTOL; (c) ``checkpointed_solve`` of DL and
    Langevin-Adam at the main shape, a snapshot every 5,000 steps: equal to
    the whole launch bit for bit, and so is a run cut after its first
-   snapshot and resumed; (d) phase 6's DL call under ``profiling.trace``
-   with ``annotate`` spans around the solve and the readout: the trace's
-   window, the device's busy time and idle share, the five longest device
+   snapshot and resumed; (d) phase 6's DL call under ``profiling.trace``:
+   the window of its ``ccvm.call`` span, the device's busy time and idle
+   share in it, the five longest device
    operations, and the traced kernel within TRACE_TOL of phase 6's CUDA
    events; the kernels line gains each kernel's phase-13 launches;
 14. the entry-point scripts on the card (run after phase 13), with the launch
@@ -1365,31 +1365,20 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
                 failures.append(f"phase 13 (c) {label}: checkpointed solve differs")
             del want, state
 
-    # (d) Profiling: phase 6's DL call under torch.profiler.
-    class Annotated(DLSolver):
-        def _solve(self, *args, **kwargs):
-            with profiling.annotate("ccvm-solve"):
-                return super()._solve(*args, **kwargs)
-
-    solver = Annotated(device="cuda", batch_size=MAIN_BATCH, timing="async")
+    # (d) Profiling: phase 6's DL call under torch.profiler, in its own
+    # ccvm.call span.
+    solver = DLSolver(device="cuda", batch_size=MAIN_BATCH, timing="async")
     solver.parameter_key = {N: {**tuned_all["dl"][str(N)], "iterations": ITERATIONS}}
-    readout = inst.compute_energy_readout64
-
-    def annotated_readout(*args, **kwargs):
-        with profiling.annotate("ccvm-readout"):
-            return readout(*args, **kwargs)
-
-    inst.compute_energy_readout64 = annotated_readout
     solver(inst, seed=1)  # warm-up
     trace_dir = os.path.join(REPO, "build", "phase13_trace")
     with profiling.trace(trace_dir):
         sol = solver(inst, seed=1)
     traces = sorted(glob.glob(os.path.join(trace_dir, "*.pt.trace.json")))
-    window, busy, longest = device_busy(traces[-1], ("ccvm-solve", "ccvm-readout"))
+    window, busy, longest = device_busy(traces[-1], ("ccvm.call",))
     traced = [ms for ms, op in longest if "dl_solve_kernel" in op]
     kernel_ms = float(np.median(dl_event_ms))
     log(f"phase 13 (d) DL main path under torch.profiler (CPU and CUDA activity): "
-        f"window {window:.3f} ms from the solve's span to the readout's end, device busy "
+        f"window {window:.3f} ms of the façade call's span, device busy "
         f"{busy:.3f} ms, idle share {1 - busy / window:.4f}; P(0.1%)="
         f"{sol.solution_performance['optimal']:.4f}; the five longest device operations:")
     for ms, op in longest[:5]:
