@@ -13,7 +13,8 @@ one stacked launch of its instances, instance i keeping seed + i by its
 global index, and the results are all-gathered, so every rank returns every
 instance's Solution.  The
 post-processor's core then refines the (I, batch, n) sweep in one call, and
-the readout crosses to the host in one (2, I, batch) copy
+the float64 readout runs on the device and crosses to the host in one
+(I, batch) copy
 (:func:`ccvm_tpu_torch.problem_classes.boxqp.problem_instance.stacked_readout64`).
 
 Each solver's readout asymmetries are kept by dispatching on its class, as
@@ -165,7 +166,7 @@ def sweep_solve(
             inst.scale_coefs(solver.get_scaling_factor(inst.q_matrix))
 
     qs, vs, size = _stack_instances(solver, instances)
-    all_instances, all_qs, all_vs = instances, qs, vs
+    all_instances = instances
     first, per, group = _instance_shard(mesh, len(instances))
     instances = instances[first:first + per]
     qs, vs = qs[first:first + per], vs[first:first + per]
@@ -252,8 +253,8 @@ def sweep_solve(
         problem_variables, confs = (all_gather(x, group, 0)
                                     for x in (problem_variables, confs))
         extra_vars = {k: all_gather(x, group, 0) for k, x in extra_vars.items()}
-        instances, qs, vs = all_instances, all_qs, all_vs
-    objvals = stacked_readout64(instances, confs, qs, vs)
+        instances = all_instances
+    objvals = stacked_readout64(instances, confs)
 
     # Wall time attributed evenly across the sweep, then batch-normalised
     # (reference solve-time semantics, dl_solver.py:933), over every

@@ -16,7 +16,10 @@ Functional parity with the reference loader/evaluator
   scalings stack (``:243-255``).
 
 Parsing happens once on the host into NumPy float64; Q and V then live on the
-requested device in float32, and float32 products run with TF32 off.
+requested device in float32, and float32 products run with TF32 off.  The
+readout (``compute_energy_readout64``, ``stacked_readout64``) evaluates every
+row in IEEE float64 on the device, from a float64 copy of the parsed
+coefficients, and copies the energies to the host once.
 """
 
 from __future__ import annotations
@@ -39,69 +42,52 @@ class InstanceType(enum.Enum):
 
 
 def _energy(confs, q_matrix, v_vector, scaled_by):
-    """Batched BoxQP objective 0.5 xQx + Vx, scaled, in IEEE float32 (the
-    readout's rounding bound assumes true float32 products).  Over an
-    instance axis: (I, B, n) confs, (I, n, n) Q, (I, n) V and an (I, 1)
-    tensor ``scaled_by``."""
+    """Batched BoxQP objective 0.5 xQx + Vx, scaled, in IEEE float32."""
     with fp32_matmul():
         qx = torch.matmul(confs, q_matrix)
         energy1 = torch.sum(confs * qx, dim=-1) * scaled_by
-        if v_vector.ndim == 2:  # a batched matvec: V as (I, n, 1)
-            energy2 = torch.matmul(confs, v_vector[..., None])[..., 0] * scaled_by
-        else:
-            energy2 = torch.matmul(confs, v_vector) * scaled_by
+        energy2 = torch.matmul(confs, v_vector) * scaled_by
     return 0.5 * energy1 + energy2
 
 
-def _energy_and_bound(confs, q_matrix, v_vector, scaled_by):
-    """(2, batch), or (2, I, B) over an instance axis: f32 energies and
-    their abs-value rounding-bound inputs (see
-    :func:`ambiguous_readout_rows`)."""
-    e = _energy(confs, q_matrix, v_vector, scaled_by)
-    a = _energy(torch.abs(confs), torch.abs(q_matrix), torch.abs(v_vector),
-                abs(scaled_by))
-    return torch.stack([e, a])
+def _readout64(confs, coefs, scale):
+    """0.5 xQx + Vx of every row in IEEE float64 on the confs' device,
+    copied to the host once and times ``scale`` there (a float, or an
+    (I, 1) array over an instance axis): a NumPy float64 array.  ``coefs``
+    holds Q's rows and then V: (n + 1, n) for confs of any leading dims, or
+    (I, n + 1, n) for (I, B, n) confs over an instance axis."""
+    x = confs.to(torch.float64)
+    terms = torch.matmul(x, coefs[..., :-1, :]).mul_(0.5).add_(coefs[..., -1:, :]).mul_(x)
+    e = torch.sum(terms, dim=-1)
+    profiling.count("rows64_card", e.numel())
+    profiling.count("host_syncs")
+    return e.cpu().numpy() * scale
 
 
 @profiling.annotate("ccvm.readout")
-def stacked_readout64(instances, confs, q_matrices, v_vectors):
-    """float64-grade readout of a stacked sweep
-    (``ccvm_tpu/parallel/sweep.py:84-151``): (I, batch) float64 energies
-    whose every ``Solution`` statistic equals the full-float64 path's, as
-    :meth:`ProblemInstance.compute_energy_readout64` guarantees for one
-    instance.  ``confs`` (I, batch, n) lie on the device with the stacked
-    (I, n, n) Q and (I, n) V; the f32 energies and bounds of every instance
-    cross in one (2, I, batch) copy, and the rows a float32 pass cannot
-    classify, gathered over all instances, in one more."""
-    num_instances, batch, n = confs.shape
-    scales = torch.tensor([float(np.float32(inst.scaled_by)) for inst in instances],
-                          dtype=torch.float32, device=confs.device)[:, None]
-    both = _energy_and_bound(confs, q_matrices, v_vectors, scales)
-    profiling.count("host_syncs")
-    both = both.cpu().numpy().astype(np.float64)
-    e_all, abs_all = both[0], both[1]
-    per_instance = []
-    for i, inst in enumerate(instances):
-        if inst.optimal_sol is None:
-            per_instance.append(np.arange(batch))
-        else:
-            per_instance.append(np.flatnonzero(ambiguous_readout_rows(
-                e_all[i], inst.optimal_sol, n, abs_e=abs_all[i])))
-    flat = np.concatenate([idx + i * batch for i, idx in enumerate(per_instance)])
-    if flat.size:
-        profiling.count("host_syncs")
-        rows = confs.reshape(num_instances * batch, n)[
-            torch.as_tensor(flat, device=confs.device)].cpu().numpy()
-        off = 0
-        for i, inst in enumerate(instances):
-            idx = per_instance[i]
-            if idx.size:
-                e_all[i, idx] = inst.compute_energy_host64(rows[off:off + idx.size])
-                # Kept-f32 rows clamped to the recomputed best, as
-                # compute_energy_readout64 does.
-                e_all[i] = np.maximum(e_all[i], e_all[i, idx].min())
-            off += idx.size
-    return e_all
+def stacked_readout64(instances, confs):
+    """The float64 readout of a stacked sweep
+    (``ccvm_tpu/parallel/sweep.py:84-151``): (I, batch) energies, each row
+    as :meth:`ProblemInstance.compute_energy_readout64` gives it for one
+    instance.  The instances' float64 coefficients stack on the device of
+    the (I, batch, n) ``confs``, one batched float64 product gives every
+    energy, and they cross to the host in one (I, batch) copy."""
+    _keep64(instances, confs.device)
+    coefs, scales = zip(*(inst._coefs64(confs.device) for inst in instances))
+    return _readout64(confs, torch.stack(coefs), np.array(scales, np.float64)[:, None])
+
+
+def _keep64(instances, device):
+    """Give each instance parsed from float64 coefficients a copy of them on
+    ``device``, Q's rows and V's as one (n + 1, n) tensor, kept on the
+    instance; the copies missing are made together, in one copy."""
+    missing = [inst for inst in instances if getattr(inst, "_q64", None) is not None
+               and (inst._card64 is None or inst._card64.device != device)]
+    if missing:
+        block = torch.as_tensor(
+            np.stack([np.vstack([inst._q64, inst._v64]) for inst in missing]), device=device)
+        for inst, coefs in zip(missing, block.unbind(0)):
+            inst._card64 = coefs
 
 
 def _apply_cv(pv, cv_mode, lo, hi, S):
@@ -115,42 +101,6 @@ def _apply_cv(pv, cv_mode, lo, hi, S):
     if cv_mode == "langevin":
         return (pv + S) / (2 * S)
     raise ValueError(f"unknown change-of-variables mode {cv_mode!r}")
-
-
-def ambiguous_readout_rows(e, opt, n, abs_e=None, gap_margin=None, top_k=64):
-    """Bool mask of rows a float32 energy pass cannot safely classify.
-
-    ``e`` is the float32-computed (widened) minimization energy vector; a row
-    is ambiguous when its optimality gap sits within the rounding margin of
-    any gap threshold, its |energy| is too small for a well-conditioned
-    relative gap, its gap is non-finite, or it is among the ``top_k`` best
-    rows (exact best value / argmax).
-
-    ``abs_e`` (the device-evaluated absolute-value energy) activates the
-    rigorous per-row bound |fl(e) − e| ≤ γₙ·abs_e; otherwise the fixed
-    ``gap_margin`` (in gap percentage points) applies.
-    """
-    pos = -e  # Solution's positive-objective convention
-    with np.errstate(divide="ignore", invalid="ignore"):
-        gap = (opt - pos) * 100.0 / np.abs(pos)
-        if abs_e is not None:
-            # gamma_n with headroom for coefficient-storage rounding, the
-            # scaled_by multiply, reduction order, and multi-pass matmul
-            # modes.
-            gamma = 16.0 * (n + 8) * 2.0 ** -23
-            de = gamma * np.asarray(abs_e, np.float64) + 1e-12
-            dgap = 100.0 * (abs(opt) + 2.0 * np.abs(pos)) / (pos * pos) * de
-        else:
-            dgap = float(gap_margin)
-        thr = np.array([0.1, 1.0, 2.0, 3.0, 4.0, 5.0, 10.0])
-        dist = np.abs(gap[:, None] - thr[None, :]).min(axis=1)
-        near = dist < dgap
-    near |= np.abs(pos) < 1e-3 * max(abs(opt), 1.0)
-    near |= ~np.isfinite(gap)
-    k = min(int(top_k), e.shape[0])
-    if k:
-        near[np.argpartition(e, k - 1)[:k]] = True
-    return near
 
 
 @profiling.annotate("ccvm.parse")
@@ -301,8 +251,9 @@ class ProblemInstance:
             self.name = file_path.split("/")[-1].split(".")[0]
 
     def _set_problem(self, q64, v64, meta, solution_vector):
-        """Install parsed host arrays: float64 host copies for the readout,
-        float32 device tensors for the solve."""
+        """Install parsed host arrays: float64 host copies for the readout
+        (copied to the device at its first use), float32 device tensors for
+        the solve."""
         self.problem_size = meta["problem_size"]
         self.optimal_sol = meta["optimal_sol"]
         self.best_sol = meta["best_sol"]
@@ -312,6 +263,7 @@ class ProblemInstance:
         self.num_frac_values = meta["num_frac_values"]
         self._q64 = np.asarray(q64, np.float64)
         self._v64 = np.asarray(v64, np.float64)
+        self._card64 = None
         self.q_matrix = put(self._q64.astype(np.float32), self.device)
         self.v_vector = put(self._v64.astype(np.float32), self.device)
         self.solution_vector = solution_vector
@@ -345,33 +297,31 @@ class ProblemInstance:
         e = 0.5 * np.sum(x * qx, axis=-1) + x @ v
         return e * scale
 
+    def _coefs64(self, device):
+        """The readout's float64 coefficients on ``device`` (Q's rows and
+        then V, (n + 1, n)) and their scale: a copy of the original
+        (unscaled) coefficients with scale 1.0, made at first use and kept;
+        an instance built without them takes its float32 coefficients
+        widened and ``scaled_by``, as :meth:`compute_energy_host64` does."""
+        if getattr(self, "_q64", None) is None:
+            coefs = torch.cat([self.q_matrix, self.v_vector[None]])
+            return coefs.to(device, torch.float64), float(self.scaled_by)
+        _keep64([self], device)
+        return self._card64, 1.0
+
     @profiling.annotate("ccvm.readout")
-    def compute_energy_readout64(self, confs, gap_margin=None, top_k=64,
-                                 change_vars=None):
-        """float64-grade readout energies with a device-side f32 first pass.
-
-        Only two things downstream need float64 precision: which side of
-        each optimality-gap threshold a row falls on, and the best objective
-        value.  So: compute f32 energies on the device, transfer only the
-        (2, batch) energies and rounding bounds, and re-evaluate in float64
-        only the rows that f32 cannot classify (plus the ``top_k`` best rows
-        and rows whose tiny |energy| makes the relative gap ill-conditioned).
-        Rows outside the margin keep their f32 value widened to f64 — they
-        cannot change any Solution statistic.
-
-        ``gap_margin=None`` (default) uses the rigorous per-row bound from
-        the absolute-value energy ``0.5 |x||Q||x| + |V||x|``; a float
-        ``gap_margin`` overrides with a fixed margin in gap points.  Falls
-        back to :meth:`compute_energy_host64` when no optimum is recorded.
+    def compute_energy_readout64(self, confs, change_vars=None):
+        """Readout energies: every row's 0.5 xQx + Vx of the original
+        (unscaled) coefficients in IEEE float64, computed on the device
+        that holds ``confs`` and copied to the host once, as a NumPy
+        float64 array over ``confs``' leading dims.
 
         ``change_vars``: optional ``(mode, lo, hi, S)`` with mode in
         {"boxqp", "langevin"} and scalar ``S``; ``confs`` is then the RAW
-        readout variable and the change of variables runs on the device.
-        ``confs`` stays on the device; only energies and ambiguous rows
-        cross to the host.
+        readout variable and the change of variables runs on the device in
+        float32, as the solvers' own does.
         """
         confs = torch.as_tensor(confs, device=self.q_matrix.device)
-        opt = self.optimal_sol
         if change_vars is not None:
             mode, lo, hi, S = change_vars
             if np.ndim(S) != 0:
@@ -385,34 +335,7 @@ class ProblemInstance:
                 for x in (lo, hi, S)
             )
             confs = _apply_cv(confs, mode, lo, hi, S)
-        if opt is None or confs.ndim != 2:
-            return self.compute_energy_host64(confs)
-
-        scaled_by = float(np.float32(self.scaled_by))
-        if gap_margin is None:
-            raw = _energy_and_bound(confs, self.q_matrix, self.v_vector, scaled_by)
-            profiling.count("host_syncs")
-            both = raw.cpu().numpy().astype(np.float64)
-            e, abs_e = both[0], both[1]
-        else:
-            raw = _energy(confs, self.q_matrix, self.v_vector, scaled_by)
-            profiling.count("host_syncs")
-            e = raw.cpu().numpy().astype(np.float64)
-            abs_e = None
-        near = ambiguous_readout_rows(
-            e, opt, confs.shape[-1], abs_e=abs_e, gap_margin=gap_margin,
-            top_k=top_k,
-        )
-        idx = np.flatnonzero(near)
-        if idx.size:
-            rows = confs[torch.as_tensor(idx, device=confs.device)]
-            e[idx] = self.compute_energy_host64(rows)
-            # A kept-f32 row can undershoot the true (f64) best energy by up
-            # to its rounding bound and steal max(-e); clamp kept rows to
-            # the recomputed best.  The shift is below every kept row's gap
-            # margin, so no gap statistic can change.
-            e = np.maximum(e, e[idx].min())
-        return e
+        return _readout64(confs, *self._coefs64(confs.device))
 
     @profiling.annotate("ccvm.scale")
     def scale_coefs(self, scaling_factor):

@@ -37,8 +37,10 @@ The program opens these spans (``ccvm.call`` and ``ccvm.load`` are roots;
 
 and counts ``host_syncs`` (each point where the host waits for device
 results: an explicit synchronise, a device-to-host copy, a Python number
-or bool of a device tensor; counted on "cpu" at the same points) and
-``rows64`` (rows the readout recomputes in float64).
+or bool of a device tensor; counted on "cpu" at the same points),
+``rows64_card`` (rows whose float64 energy the readout computed on the
+device holding them: every row it reads out) and ``rows64`` (rows
+``compute_energy_host64`` evaluates in float64 on the host).
 """
 
 from __future__ import annotations

@@ -70,8 +70,8 @@ def put(x, device: str) -> torch.Tensor:
 def fp32_matmul():
     """Run float32 matrix products in full IEEE float32 (TF32 off).
 
-    The readout's rounding bound assumes true float32 products, and the plain
-    solve is the kernel's float32 yardstick; TF32 keeps ~3 decimal digits.
+    The plain solve is the kernel's float32 yardstick, and TF32 keeps ~3
+    decimal digits.
     The previous setting is restored on exit."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False

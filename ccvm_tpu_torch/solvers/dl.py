@@ -395,11 +395,11 @@ class DLSolver(CCVMSolver):
             pp_time = 0.0
 
         # The reference applies change_variables AGAIN to post-processed
-        # output (dl_solver.py:941-958); kept for parity.  Float64-grade
-        # readout: the change of variables and the f32 energy pass run on the
-        # device; only energies and ambiguous rows cross.  With one S a
-        # column the box coordinates are materialised first, as the JAX
-        # façade does (ccvm_tpu/solvers/dl.py:451-459).
+        # output (dl_solver.py:941-958); kept for parity.  Float64 readout:
+        # the change of variables and every row's float64 energy run on the
+        # device; only the energies cross.  With one S a column the box
+        # coordinates are materialised first, as the JAX façade does
+        # (ccvm_tpu/solvers/dl.py:451-459).
         if np.ndim(params.S) == 0:
             objval = instance.compute_energy_readout64(
                 problem_variables, change_vars=("boxqp", lo, hi, params.S),

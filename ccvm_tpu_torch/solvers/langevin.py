@@ -50,7 +50,7 @@ def check_langevin_options(backend, kernel_rng):
 def langevin_readout(solver, instance, c, params, post_processor_object, batch_size):
     """The Langevin family's epilogue (``ccvm_tpu/solvers/langevin.py:360-380``):
     ``(c + S) / (2 S)`` BEFORE post-processing (one S a column broadcast
-    over the batch), then the float64-grade readout with no change of
+    over the batch), then the float64 readout with no change of
     variables.  Returns ``(problem_variables, pp_time, objval)``."""
     problem_variables = common.langevin_change_variables(
         c, saturation_of(params, c.device))

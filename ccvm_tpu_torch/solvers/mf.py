@@ -363,8 +363,8 @@ class MFSolver(CCVMSolver):
         else:
             pp_time = 0.0
 
-        # Float64-grade readout: the f32 energy pass runs on the device; only
-        # energies and ambiguous rows cross to the host.
+        # Float64 readout: every row's float64 energy is computed on the
+        # device; only the energies cross to the host.
         objval = instance.compute_energy_readout64(problem_variables)
 
         if self.timing == "async":

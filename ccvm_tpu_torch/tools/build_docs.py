@@ -63,7 +63,8 @@ class Difference:
     names of ``module`` (relative to either package) that the JAX package's
     API page lists and that the port leaves out (``kind`` "absent"), takes
     with other parameters ("parameters": each JAX parameter renamed as
-    ``renamed`` says, then ``added`` appended), inherits from its class
+    ``renamed`` says, those in ``removed`` left out, then ``added``
+    appended), inherits from its class
     ``base`` where the JAX class defines them ("inherited"), or takes with
     another default ("default": ``default`` is (parameter, the port's
     value))."""
@@ -73,6 +74,7 @@ class Difference:
     kind: str
     reason: str
     renamed: tuple = ()
+    removed: tuple = ()
     added: tuple = ()
     base: str = ""
     default: tuple = ()
@@ -88,6 +90,9 @@ class Difference:
             parameter, value = self.default
             return f"<code>{parameter}</code> defaults to <code>{value!r}</code>"
         parts = [f"<code>{old}</code> becomes <code>{new}</code>" for old, new in self.renamed]
+        if self.removed:
+            parts.append("the port drops " + " and ".join(f"<code>{r}</code>"
+                                                           for r in self.removed))
         if self.added:
             parts.append("the port adds " + " and ".join(f"<code>{a}</code>" for a in self.added))
         return "; ".join(parts)
@@ -99,6 +104,10 @@ _TUNER = ("The port defines the tuner once, on the base class (tuning.tune_solve
           "the JAX base class declares an abstract tune() that each façade overrides.")
 _CARD = ("The port runs on the card unless the caller asks for the CPU, and "
          "nothing falls back from one to the other.")
+_READOUT = ("The port's readout computes every row's energy in float64 on the card "
+            "and copies the energies to the host once; the JAX package's float32 "
+            "pass and its host recompute of the rows it cannot classify, and their "
+            "margin and count of best rows, have no counterpart.")
 
 DIFFERENCES = [
     Difference("dynamics.common", ("normal", "scan_steps", "scan_steps_from",
@@ -144,6 +153,11 @@ DIFFERENCES = [
                ("ProblemInstance", "ProblemInstance.load_instance"), "default", _CARD,
                default=("device", "cuda")),
     Difference("solution", ("Solution",), "default", _CARD, default=("device", "cuda")),
+    Difference("problem_classes.boxqp.problem_instance", ("ambiguous_readout_rows",),
+               "absent", _READOUT),
+    Difference("problem_classes.boxqp.problem_instance",
+               ("ProblemInstance.compute_energy_readout64",), "parameters", _READOUT,
+               removed=("gap_margin", "top_k")),
 ]
 
 # The TPU kernels that each wrapper module's CUDA template replaces.
@@ -481,7 +495,7 @@ def build_diagrams(out_dir):
                 ("native/ccvm_io.cpp\n(g++, build/native): .in tokenizer,\n"
                  "evolution writer", 0.71, 0.27)]),
         (0.18, [("PyTorch (tensors, torch.distributed) · ctypes", 0.02, 0.46),
-                ("problem_classes.boxqp (parser,\nfloat64-grade readout)", 0.52, 0.46)]),
+                ("problem_classes.boxqp (parser,\nfloat64 readout)", 0.52, 0.46)]),
         (0.04, [("NVIDIA H100 (Hopper, sm_90a): tensor cores (TF32 mma.sync) · "
                  "CUDA cores · (batch, N) state on the card", 0.02, 0.96)]),
     ]

@@ -147,7 +147,7 @@ exits non-zero without printing a result:
    Langevin-Adam with grad-descent): one stacked launch of 50,000
    trajectories each, instances 0, 1 and 49 held against ``solver(instance,
    seed=i)``: kernel outputs bit for bit; DL's objective values within the
-   readout's rounding bound and its statistics equal; the others'
+   readout's float64 round-off and its statistics equal; the others'
    refinements within SWEEP_PP_TOL and a gap statistic moved only by rows
    whose objectives are that close (counted); each sweep's wall,
    traj-iter/s, kernel time and mean P(0.1%) / P(1%), and DL's serial loop
@@ -1148,7 +1148,6 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
     from ccvm_tpu_torch.dynamics import common
     from ccvm_tpu_torch.ops import dl_kernels, langevin_kernels, mf_kernels
     from ccvm_tpu_torch.parallel import sweep_solve
-    from ccvm_tpu_torch.problem_classes.boxqp.problem_instance import _energy_and_bound
 
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -1172,7 +1171,7 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
                langevin_kernels, "pumped_langevin_solve"),
               ("Langevin-Adam", LangevinSolver, "langevin", "grad-descent", lgv_adam,
                langevin_kernels, "langevin_solve"))
-    gamma = 16.0 * (N + 8) * 2.0 ** -23  # the readout's rounding bound
+    gamma = 16.0 * (N + 8) * 2.0 ** -53  # the float64 readout's round-off
     dl_sweep = None
     stats = {}
     for label, cls, family, pp, adam, module, function in sweeps:
@@ -1208,18 +1207,18 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
             obj_err = max(obj_err, float(rel.max()))
             flipped += rows.size
             if pp is None:
-                # The same configurations read out stacked and alone: the f32
-                # energies within both passes' rounding bound, the
-                # statistics (from float64 where the bound is too wide) equal.
+                # The same configurations read out stacked and alone: the
+                # float64 energies within both products' round-off, the
+                # statistics equal.
                 confs = common.change_variables_boxqp(
                     a.variables["problem_variables"], *insts[i].solution_bounds,
                     torch.tensor(1.0, device=insts[i].q_matrix.device))
-                abs_e = _energy_and_bound(confs, insts[i].q_matrix, insts[i].v_vector,
-                                          float(np.float32(insts[i].scaled_by)))[1]
+                x = np.abs(confs.cpu().numpy().astype(np.float64))
+                abs_e = (0.5 * np.sum(x * (x @ np.abs(insts[i]._q64)), axis=-1)
+                         + x @ np.abs(insts[i]._v64))
                 diff = np.abs(np.asarray(a.objective_values) -
                               np.asarray(b.objective_values))
-                rounding = max(rounding, float(
-                    (diff / (2 * gamma * abs_e.cpu().numpy().astype(np.float64))).max()))
+                rounding = max(rounding, float((diff / (2 * gamma * abs_e)).max()))
                 if a.solution_performance != b.solution_performance or \
                         a.best_objective_value != b.best_objective_value:
                     failures.append(f"phase 13 {label} instance {i}: statistics differ")
@@ -1230,7 +1229,7 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
             failures.append(f"phase 13 {label}: refinement {pv_err:.3e} from serial")
         if rounding > 1.0:
             failures.append(f"phase 13 {label}: objective values {rounding:.3f} x the "
-                            f"readout's rounding bound apart")
+                            f"readout's float64 round-off apart")
         p01 = np.mean([s.solution_performance["optimal"] for s in sols])
         p1 = np.mean([s.solution_performance["one_percent"] for s in sols])
         log(f"phase 13 (a) {label} sweep{'' if pp is None else ' with ' + pp}: "
@@ -1241,7 +1240,7 @@ def sweep_phase(tuned_all, dl_event_ms, counters, failures):
             f"instances {P13_HELD} against serial launches with seed i: kernel outputs "
             f"{'equal bit for bit' if same else 'DIFFER'}, largest relative objective "
             f"difference {obj_err:.3e}"
-            + (f" ({rounding:.3f} x the readout's rounding bound), statistics equal"
+            + (f" ({rounding:.3f} x the readout's float64 round-off), statistics equal"
                if pp is None else f", refinement {pv_err:.3e} (tol {SWEEP_PP_TOL}), "
                f"{flipped} rows on the other side of a gap threshold"))
         stats[label] = [(s.instance_name, s.solution_performance, s.best_objective_value)

@@ -51,9 +51,9 @@ def test_parse_scale_and_energy_match(path):
     # rtol 1e-5 relative to the row's absolute-value energy
     # 0.5|x||Q||x| + |V||x|: float32 rounding scales with it, and a row whose
     # terms cancel has a small energy but the same absolute rounding.
-    scale = np.asarray(tpi._energy_and_bound(
-        torch.from_numpy(confs), it.q_matrix, it.v_vector,
-        float(np.float32(it.scaled_by)))[1])
+    scale = np.asarray(tpi._energy(
+        torch.from_numpy(np.abs(confs)), torch.abs(it.q_matrix), torch.abs(it.v_vector),
+        abs(float(np.float32(it.scaled_by)))))
     assert np.all(np.abs(e_t - e_j) <= 1e-5 * scale)
 
 
@@ -89,24 +89,20 @@ def test_readout64_with_change_vars_matches(path):
     e_j = ij.compute_energy_readout64(jnp.asarray(pv), change_vars=cv)
     e_t = it.compute_energy_readout64(torch.from_numpy(pv), change_vars=cv)
 
-    # Which rows each side re-evaluated in float64.
+    # Which rows the JAX package re-evaluates in float64 (the port now
+    # evaluates every row in float64).
     confs = 0.5 * pv / np.float32(1.0) * np.float32(1.0) + np.float32(0.5)
-    raw_t = tpi._energy_and_bound(torch.from_numpy(confs), it.q_matrix,
-                                  it.v_vector, float(np.float32(it.scaled_by)))
     raw_j = np.asarray(jpi._energy_and_bound_kernel(
         jnp.asarray(confs), ij.q_matrix, ij.v_vector, jnp.float32(ij.scaled_by)
     ), np.float64)
-    near_t = tpi.ambiguous_readout_rows(raw_t[0].double().numpy(), it.optimal_sol,
-                                        n, abs_e=raw_t[1].double().numpy())
     near_j = jpi.ambiguous_readout_rows(raw_j[0], ij.optimal_sol, n,
                                         abs_e=raw_j[1])
-    both = near_t & near_j
-    assert both.sum() >= 32
-    np.testing.assert_allclose(e_t[both], e_j[both], rtol=1e-12)
-    # Rows kept in float32 on either side: rtol 1e-5 relative to the row's
+    assert near_j.sum() >= 32
+    np.testing.assert_allclose(e_t[near_j], e_j[near_j], rtol=1e-12)
+    # Rows the JAX package keeps in float32: within 1e-5 of the row's
     # absolute-value energy (see test_parse_scale_and_energy_match).
-    scale = raw_t[1].double().numpy()
-    assert np.all(np.abs(e_t - e_j)[~both] <= 1e-5 * scale[~both])
+    scale = raw_j[1]
+    assert np.all(np.abs(e_t - e_j)[~near_j] <= 1e-5 * scale[~near_j])
 
     kw = dict(problem_size=n, batch_size=pv.shape[0], instance_name="x",
               iterations=1, solve_time=0.0, pp_time=0.0,

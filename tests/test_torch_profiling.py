@@ -1,8 +1,9 @@
 """The port's profiling hooks (``ccvm_tpu_torch/profiling.py``) on the CPU:
 ``annotate`` spans in the Chrome-format trace that ``trace`` writes around
 a plain solve; the program's own spans and counters (their tree, the host
-syncs a path counts, the rows its readout recomputes in float64), which
-record only while a profiler runs; and the records against the trace."""
+syncs a path counts, the rows its readout evaluates in float64 on the
+device), which record only while a profiler runs; and the records against
+the trace."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEST020 = os.path.join(REPO, "tests", "data", "test020.in")
 SIZE20 = sorted(glob.glob(os.path.join(REPO, "examples", "benchmarking_instances",
                                        "Size20", "*.in")))[:3]
-BATCH = 100  # above the readout's 64 best rows, so its mask is not every row
+BATCH = 100
 PARAMS = {
     "dl": (DLSolver, {"pump": 2.0, "feedback_scale": 10, "dt": 0.01, "iterations": 6,
                       "noise_ratio": 10}),
@@ -80,23 +81,23 @@ def _run_path(path):
     if path == "dl":
         solver = _solver("dl")
         inst = _instance(solver)
-        return lambda: solver(inst, seed=3), [CALL], 3
+        return lambda: solver(inst, seed=3), [CALL], 2
     if path == "mf-grad-descent":
         solver = _solver("mf")
         inst = _instance(solver)
-        # The refinement's own wait, besides the solve's and the readout's two.
-        return lambda: solver(inst, post_processor="grad-descent", seed=3), [REFINED], 4
+        # The refinement's own wait, besides the solve's and the readout's.
+        return lambda: solver(inst, post_processor="grad-descent", seed=3), [REFINED], 3
     if path in ("langevin-grad-descent", "pumped-grad-descent"):
         solver = _solver(path.split("-")[0])
         inst = _instance(solver)
-        return lambda: solver(inst, post_processor="grad-descent", seed=3), [REFINED], 4
+        return lambda: solver(inst, post_processor="grad-descent", seed=3), [REFINED], 3
     if path == "dl-sweep":
         solver = _solver("dl")
         insts = [ProblemInstance(device="cpu", file_path=p) for p in SIZE20]
         tree = ("ccvm.call", [("ccvm.scale", [])] * 3 + [("ccvm.sync", []), ("ccvm.readout", [])]
                 + [("ccvm.statistics", [])] * 3)
-        # One wait a scaling, the solve's, and the stacked readout's two copies.
-        return lambda: sweep_solve(solver, insts, seed=5, scale=True), [tree], 6
+        # One wait a scaling, the solve's, and the stacked readout's copy.
+        return lambda: sweep_solve(solver, insts, seed=5, scale=True), [tree], 5
     assert path == "load-and-scale"
     solver = _solver("dl")
     return (lambda: _instance(solver, SIZE20[0]),
@@ -146,7 +147,7 @@ def test_span_tree_and_host_syncs_of_each_path(path, tmp_path):
     assert all(s.end is not None and s.start <= s.end for s in records)
     assert _syncs(records) == syncs
     for s in records:
-        want = {"ccvm.sync": 1, "ccvm.readout": 2, "ccvm.scale": 1}.get(s.name, 0)
+        want = {"ccvm.sync": 1, "ccvm.readout": 1, "ccvm.scale": 1}.get(s.name, 0)
         if s.name == "ccvm.postprocess":
             want = 1  # the refinement's wait for its own result
         assert s.counts.get("host_syncs", 0) == want, (s.name, s.counts)
@@ -154,21 +155,22 @@ def test_span_tree_and_host_syncs_of_each_path(path, tmp_path):
 
 @pytest.mark.parametrize("path", ["dl", "dl-sweep", "mf-grad-descent"])
 def test_rows64_is_the_readouts_own_count_of_ambiguous_rows(path, tmp_path, monkeypatch):
+    """The readout has no ambiguous rows left to recompute on the host: it
+    evaluates every row in float64 on the device holding them, and counts
+    them as ``rows64_card``, instances x batch; ``rows64`` (the host's
+    float64 rows) stays uncounted."""
     fn, _, _ = _run_path(path)
-    masks = []
-    mask = problem_instance.ambiguous_readout_rows
-
-    def spied(*args, **kwargs):
-        masks.append(mask(*args, **kwargs))
-        return masks[-1]
-
-    monkeypatch.setattr(problem_instance, "ambiguous_readout_rows", spied)
+    host64 = problem_instance.ProblemInstance.compute_energy_host64
+    called = []
+    monkeypatch.setattr(problem_instance.ProblemInstance, "compute_energy_host64",
+                        lambda self, confs: called.append(confs) or host64(self, confs))
     _, records, _ = _recorded(fn, tmp_path)
     (readout,) = [s for s in records if s.name == "ccvm.readout"]
-    counted = sum(int(m.sum()) for m in masks)
-    assert readout.counts["rows64"] == counted
-    assert 64 * len(masks) <= counted < BATCH * len(masks)
-    assert sum(s.counts.get("rows64", 0) for s in records) == counted
+    instances = len(SIZE20) if path == "dl-sweep" else 1
+    assert readout.counts["rows64_card"] == instances * BATCH
+    assert sum(s.counts.get("rows64_card", 0) for s in records) == instances * BATCH
+    assert not called
+    assert all("rows64" not in s.counts for s in records)
 
 
 def test_nothing_recorded_and_no_region_opened_without_a_profiler(tmp_path, monkeypatch):
