@@ -224,6 +224,7 @@ def sweep_solve(
         raw = langevin_kernels.pumped_langevin_solve(
             seed, qs, vs, params, pump_rate_flag=pump_rate_flag, **kw)
     if cls in ("LangevinSolver", "PumpedLangevinSolver"):
+        extra_vars = {"c": raw}
         pp_input = common.langevin_change_variables(raw, S)
     else:
         pp_input = common.change_variables_boxqp(raw, lo, hi, S)

@@ -73,7 +73,12 @@ def langevin_family_call(solver, instance, parameter_names, make_params, solve,
     the parameters named in ``parameter_names`` (S among them, a scalar or
     one a column), ``make_params(values)``, ``solve(seed, params,
     iterations, evolution_step_size, hp)`` (which records ``c_sample``), the
-    readout, the evolution file and the ``Solution``."""
+    readout, the evolution file and the ``Solution``.
+
+    The Solution's ``variables`` hold ``problem_variables`` and, beyond the
+    reference library's Langevin variables, ``c``: the solve's final
+    amplitudes before the change of variables (the tensor the kernel wrote,
+    not a copy)."""
     problem_size = instance.problem_size
     solver.q_matrix = instance.q_matrix
     solver.v_vector = instance.v_vector
@@ -129,7 +134,7 @@ def langevin_family_call(solver, instance, parameter_names, make_params, solve,
         best_value=instance.best_sol,
         num_frac_values=instance.num_frac_values,
         solution_vector=instance.solution_vector,
-        variables={"problem_variables": problem_variables},
+        variables={"problem_variables": problem_variables, "c": c},
         device=solver.device,
     )
     if evolution_step_size:
@@ -354,7 +359,9 @@ class LangevinSolver(CCVMSolver):
 
         ``seed`` (int) keys the kernel's Philox noise; ``None`` draws one.
         ``evolution_step_size`` records ``c_sample`` and writes the best
-        trajectory's to ``evolution_file``.
+        trajectory's to ``evolution_file``.  The Solution's ``variables``
+        add ``c``, the final amplitudes, to the reference library's
+        ``problem_variables`` (:func:`langevin_family_call`).
         """
         if instance.device != self.device:
             raise ValueError(

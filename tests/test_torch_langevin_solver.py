@@ -103,6 +103,24 @@ def test_noise_on_solve_is_seeded(family):
     assert len(set(np.round(a.objective_values, 6))) > 1
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_solution_keeps_the_final_amplitudes(family):
+    """``variables["c"]`` is the solve's final state, before the change of
+    variables: without a post-processor the problem variables are
+    ``(c + S) / (2 S)`` of it exactly; a refinement leaves it as it was."""
+    _, tcls, params, _ = FAMILIES[family]
+    noisy = {20: dict(params[20], sigma=0.5, iterations=100)}
+    sol = _solve(tcls, ProblemInstance, noisy, batch=16)
+    c = sol.variables["c"]
+    assert set(sol.variables) == {"problem_variables", "c"}
+    assert c.shape == (16, 20) and c.dtype == torch.float32
+    S = torch.tensor(0.5, dtype=torch.float32)
+    assert torch.equal(sol.variables["problem_variables"], (c + S) / (2 * S))
+    assert c.abs().max() <= 0.5 and len(set(c.flatten().tolist())) > 2
+    refined = _solve(tcls, ProblemInstance, noisy, batch=16, post_processor="grad-descent")
+    assert torch.equal(refined.variables["c"], c)
+
+
 def test_fpga_machine_time_and_energy_match_jax():
     frame = pd.DataFrame({"iterations": [300.0, 500.0], "pp_time": [0.01, 0.03],
                           "solve_time": [0.2, 0.4]})

@@ -153,7 +153,8 @@ def test_span_tree_and_host_syncs_of_each_path(path, tmp_path):
         assert s.counts.get("host_syncs", 0) == want, (s.name, s.counts)
 
 
-@pytest.mark.parametrize("path", ["dl", "dl-sweep", "mf-grad-descent"])
+@pytest.mark.parametrize("path", ["dl", "dl-sweep", "mf-grad-descent", "langevin-grad-descent",
+                                  "pumped-grad-descent"])
 def test_rows64_is_the_readouts_own_count_of_ambiguous_rows(path, tmp_path, monkeypatch):
     """The readout has no ambiguous rows left to recompute on the host: it
     evaluates every row in float64 on the device holding them, and counts
